@@ -19,7 +19,30 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 case 8 on {"data": 8} (the launch counts below are this
                 run's) and the hierarchical hash policy on {"pod": 2,
                 "data": 4}, with launches, merged elements against
-                `exchange_schedule`, times and peak memory.
+                `exchange_schedule`, times and peak memory;
+  6. constraint — the 8 Table-1 cases through the default
+                ``Locale(...).workload("sort")`` (the constraint backend)
+                at n = 2^24 + 5, int32 and float32, checked against
+                torch.sort and (int32) bit for bit against the shard_map
+                engine; then case 8 and case 3 at n = 100,000,000 int32,
+                with launches, relayouts, times and peak memory;
+  7. fig1     — the paper's Figure 1: the "microbench" workload under the
+                localised, static non-localised and auto policies at
+                n = 1,000,000 and 100,000,000 f32, R in {8, 32, 128}, bit
+                for bit against the plain reference; the path's own launch,
+                one pass on (1, 100 M); then the kernel form, one
+                `localised_copy` launch of R passes on (8, 12.5 M) f32 and
+                bf16 against R launches of one pass;
+  8. attention — `ops.flash_attention` at the head layouts of qwen3-0.6b
+                (S = 4096, causal, bf16 and f32) and mixtral-8x7b
+                (S = 8192, causal, window 4096, bf16) against its plain
+                blocked version (and the dense one at the qwen shape)
+                within `KERNEL_TOL` (bf16: one rounding step), and two
+                planted faults, a dropped KV tile and a scale 1 % off,
+                that must fall outside it on the long rows.
+
+Every path's counted run sets the launch counts to 0 just before it and
+reads them just after (`bitonic_sort`'s path is ``ops.chunked_sort``).
 
 Then one JSON line of kernels, the `nvidia-smi` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that.
@@ -86,6 +109,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def peak_run(fn, x):
+    """One call of fn(x) with the peak device memory above what was
+    allocated before it; returns (y, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = fn(x)
+    torch.cuda.synchronize()
+    return y, torch.cuda.max_memory_allocated() - base
+
+
+def median_ms(fn, x, calls: int = 3):
+    """Median host-clock milliseconds of `calls` calls after one warm-up."""
+    fn(x)
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
 def bits(t):
     return t.view(torch.int32)
 
@@ -147,6 +194,30 @@ def phase_kernels(seed: int) -> dict:
                                           bitonic_stages(x))
     torch.cuda.synchronize()
 
+    # bitonic_sort at (8, 1024) (the reference's kernel benchmark) and
+    # (8, 16384) (one tile); its path is ops.chunked_sort, counted below
+    bitonic = {}
+    bs_err = 0.0
+    for L in (1024, TILE):
+        x = torch.from_numpy(grid_rows("rand_float", L, 8, seed)).to(cuda)
+        got, plain = ops.bitonic_sort(x), bitonic_stages(x)
+        bad["bitonic_sort"] += mismatches(got, plain)
+        bs_err = max(bs_err, max_abs_err(got, plain))
+        bitonic[L] = dict(
+            ms=cuda_ms(lambda: ops.bitonic_sort(x), reps=50),
+            plain_ms=cuda_ms(lambda: bitonic_stages(x), reps=3),
+            library_ms=cuda_ms(lambda: torch.sort(x, dim=-1), reps=50),
+            bytes_ms=2 * 8 * L * 4 / HBM_BYTES_PER_S * 1e3,
+            ops_ms=8 * L * math.log2(L) / OPS_32BIT_PER_S * 1e3)
+    ops.reset_launches()
+    y = ops.chunked_sort(x)
+    torch.cuda.synchronize()
+    chunked_launches = ops.launch_counts()
+    need(bool((y == torch.sort(x.reshape(-1)).values).all()),
+         "ops.chunked_sort did not sort")
+    need(chunked_launches["bitonic_sort"] == 1,
+         f"ops.chunked_sort did not launch bitonic_sort: {chunked_launches}")
+
     # the main path's shapes: local_sort (8, 12.5M); merge_split (8, 12.5M)
     # on every flat substage and (16, 12.5M) in the hierarchical replay
     rows, C = 8, N_FLAGSHIP // 8
@@ -189,7 +260,12 @@ def phase_kernels(seed: int) -> dict:
         f" mismatches={bad}; local_sort (8, {C}) {ls_ms:.3f} ms "
         f"(plain {ls_plain_ms:.3f} ms, torch.sort {ls_lib_ms:.3f} ms); "
         f"merge_split (8, {C}) {ms[8][0]:.3f} ms (plain {ms[8][1]:.3f} ms), "
-        f"(16, {C}) {ms[16][0]:.3f} ms (plain {ms[16][1]:.3f} ms)")
+        f"(16, {C}) {ms[16][0]:.3f} ms (plain {ms[16][1]:.3f} ms); "
+        f"bitonic_sort (8, 1024) {bitonic[1024]['ms']:.4f} ms (torch.sort "
+        f"{bitonic[1024]['library_ms']:.4f} ms), (8, {TILE}) "
+        f"{bitonic[TILE]['ms']:.4f} ms (torch.sort "
+        f"{bitonic[TILE]['library_ms']:.4f} ms); ops.chunked_sort launches "
+        + json.dumps(chunked_launches))
     need(not any(bad.values()), f"kernels disagree with plain versions: {bad}")
     return {
         "local_sort": dict(
@@ -212,7 +288,18 @@ def phase_kernels(seed: int) -> dict:
             shape=[8, C], ms_16_rows=ms[16][0], plain_ms_16_rows=ms[16][1],
             bound_ms_16_rows=ms16_bytes_ms,
             mismatches=bad["merge_split"]),
-        "bitonic_sort_mismatches": bad["bitonic_sort"],
+        "bitonic_sort": dict(
+            name="bitonic_sort", route="cuda",
+            source="src/repro_torch/csrc/local_sort.cu",
+            replaces="src/repro/kernels/bitonic_sort.py:56",
+            launches=chunked_launches["bitonic_sort"],
+            max_abs_err=bs_err, ms=bitonic[TILE]["ms"],
+            plain_ms=bitonic[TILE]["plain_ms"],
+            bound_ms=max(bitonic[TILE]["bytes_ms"], bitonic[TILE]["ops_ms"]),
+            bound_by="bytes" if bitonic[TILE]["bytes_ms"]
+            >= bitonic[TILE]["ops_ms"] else "operations",
+            library_ms=bitonic[TILE]["library_ms"], shape=[8, TILE],
+            at_1024=bitonic[1024], mismatches=bad["bitonic_sort"]),
     }
 
 
@@ -262,16 +349,11 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
     expect_merged = sum(r["local_merge_elems"] for r in exchange_schedule(
         N_FLAGSHIP, tuple(shape.values()), policy)
         if r["op"] == "merge_split")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_mem = torch.cuda.memory_allocated()
     # the main path's counted run: counts to 0 just before, read just after
     ops.reset_launches()
-    y = fn(x)
-    torch.cuda.synchronize()
+    y, peak = peak_run(fn, x)
     counts = ops.launch_counts()
     merged = ops.merged_elems()
-    peak = torch.cuda.max_memory_allocated()
     check_sorted(y, x, tag)
     del y
     need(counts["local_sort"] > 0 and counts["merge_split"] > 0,
@@ -279,13 +361,8 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
     need(merged == expect_merged,
          f"{tag}: merged {merged} elements, exchange_schedule {expect_merged}")
 
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(x)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    med, times_ms = median_ms(fn, x)
+    times = [t / 1e3 for t in times_ms]
 
     # one more call with CUDA events around every kernel launch
     events = {"local_sort": [], "merge_split": []}
@@ -312,10 +389,10 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
             setattr(ops, name, f)
     kernel_ms = {name: sum(s.elapsed_time(e) for s, e in ev)
                  for name, ev in events.items()}
-    res = {"median_s": statistics.median(times), "times_s": times,
+    res = {"median_s": med / 1e3, "times_s": times,
            "launches": counts, "merged_elems": merged,
            "schedule_merge_elems": expect_merged,
-           "peak_bytes": peak - base_mem, "kernel_ms": kernel_ms}
+           "peak_bytes": peak, "kernel_ms": kernel_ms}
     say(f"phase flagship {tag}: n={N_FLAGSHIP} int32 on {shape} "
         f"policy={policy.name}: median {res['median_s'] * 1e3:.3f} ms of 3 "
         f"({', '.join(f'{t * 1e3:.3f}' for t in times)}); launches {counts}; "
@@ -325,6 +402,380 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
     del x
     torch.cuda.empty_cache()
     return res
+
+
+
+def phase_constraint(seed: int) -> dict:
+    from repro_torch.configs import CASES
+    from repro_torch.convert import make_sort_data
+    from repro_torch.core import HomeMesh, Homing, Locale, LocalisationPolicy
+    from repro_torch.core.homing import relayout_counts, reset_relayouts
+    from repro_torch.kernels import ops
+
+    mesh = HomeMesh({"data": 8})
+    out = {"cases": {}}
+    for k, c in CASES.items():
+        locale = Locale(mesh, "data", LocalisationPolicy(
+            c.localised, c.static_mapping, Homing(c.homing)))
+        for dt in ("int32", "float32"):
+            x = torch.from_numpy(make_sort_data(N_ENGINE, dt, seed + k)).cuda()
+            fn = locale.workload("sort")
+            reset_relayouts()
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts, moved = ops.launch_counts(), relayout_counts()
+            check_sorted(y, x, f"constraint case {k} {dt}")
+            need(counts["local_sort"] == 1,
+                 f"constraint case {k} {dt}: local_sort launches {counts}")
+            if dt == "int32":
+                eng = locale.workload("sort", backend="shard_map")(x)
+                need(torch.equal(y, eng), f"constraint case {k}: differs "
+                                          f"from the shard_map engine")
+            out["cases"][f"case{k}_{dt}"] = dict(first_call_s=secs,
+                                                 launches=counts,
+                                                 relayouts=moved)
+            del x, y
+    torch.cuda.empty_cache()
+    say(f"phase constraint: 8 Table-1 cases x (int32, float32) through the "
+        f"default workload('sort') at n={N_ENGINE} on HomeMesh({{'data': 8}})"
+        f", sorted, int32 bit-exact against the shard_map engine; "
+        "first-call s and relayouts " + json.dumps(
+            {k: [round(v["first_call_s"], 4), v["relayouts"]["relayouts"],
+                 v["relayouts"]["bytes"]] for k, v in out["cases"].items()}))
+
+    for k in (8, 3):
+        c = CASES[k]
+        locale = Locale(mesh, "data", LocalisationPolicy(
+            c.localised, c.static_mapping, Homing(c.homing)))
+        fn = locale.workload("sort")
+        x = torch.from_numpy(make_sort_data(N_FLAGSHIP, "int32", seed)).cuda()
+        # the path's counted run: counts to 0 just before, read just after
+        reset_relayouts()
+        ops.reset_launches()
+        y, peak = peak_run(fn, x)
+        counts, moved = ops.launch_counts(), relayout_counts()
+        check_sorted(y, x, f"constraint flagship case {k}")
+        del y
+        need(counts["local_sort"] == 1,
+             f"constraint flagship case {k}: local_sort launches {counts}")
+        med, times = median_ms(fn, x)
+        out[f"flagship_case{k}"] = dict(median_ms=med, times_ms=times,
+                                        launches=counts, relayouts=moved,
+                                        peak_bytes=peak)
+        say(f"phase constraint flagship case {k} ({locale.policy.name}): "
+            f"n={N_FLAGSHIP} int32 on {{'data': 8}}: median {med:.3f} ms of 3 "
+            f"({', '.join(f'{t:.3f}' for t in times)}); launches {counts}; "
+            f"relayouts {moved}; peak {peak} B above the input")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+FIG1_POLICIES = {"localised": (True, True, "local"),
+                 "nonlocalised": (False, True, "hash"),
+                 "auto": (False, False, "hash")}
+
+
+def phase_fig1(seed: int) -> dict:
+    from repro_torch.configs import SortConfig
+    from repro_torch.convert import make_fig1_data
+    from repro_torch.core import HomeMesh, Homing, Locale, LocalisationPolicy
+    from repro_torch.core.homing import relayout_counts, reset_relayouts
+    from repro_torch.core.microbench import reference
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.localised_copy import localised_copy_reference
+
+    mesh = HomeMesh({"data": 8})
+    out = {"workload": {}, "kernel": {}}
+    counted = None
+    bad = {"workload": 0, "path": 0, "one": 0, "stream": 0}
+    for n in (SortConfig().micro_array_size, N_FLAGSHIP):
+        x = torch.from_numpy(make_fig1_data(n, "float32", seed)).cuda()
+        for R in (8, 32, 128):
+            want = reference(x, R)
+            row = {}
+            for name, (loc, static, h) in FIG1_POLICIES.items():
+                fn = Locale(mesh, "data", LocalisationPolicy(
+                    loc, static, Homing(h))).workload("microbench", reps=R)
+                reset_relayouts()
+                ops.reset_launches()           # the path's counted run
+                y = fn(x)
+                torch.cuda.synchronize()
+                counts, moved = ops.launch_counts(), relayout_counts()
+                bad["workload"] += mismatches(y, want)
+                need(counts["localised_copy"] == R,
+                     f"fig1 {name} n={n} R={R}: launches {counts}")
+                del y
+                med, times = median_ms(fn, x)
+                row[name] = dict(median_ms=med, times_ms=times,
+                                 launches=counts["localised_copy"],
+                                 relayouts=moved)
+                if name == "localised" and n == N_FLAGSHIP and R == 128:
+                    counted = counts
+            row["gap"] = row["nonlocalised"]["median_ms"] / \
+                row["localised"]["median_ms"]
+            out["workload"][f"n{n}_R{R}"] = row
+            del want
+        if n == N_FLAGSHIP:
+            # the path's own launch: one pass over the whole (1, n) array,
+            # as `_pass` makes it, against its plain version
+            x1 = x.view(1, n)
+            got, plain = ops.localised_copy(x1, 1), \
+                localised_copy_reference(x1, 1)
+            bad["path"] += mismatches(got, plain)
+            path_err = max_abs_err(got, plain)
+            del got, plain
+            path = dict(ms=cuda_ms(lambda: ops.localised_copy(x1, 1), reps=20),
+                        plain_ms=cuda_ms(
+                            lambda: localised_copy_reference(x1, 1), reps=3),
+                        bytes_ms=2 * n * 4 / HBM_BYTES_PER_S * 1e3,
+                        ops_ms=2 * n / OPS_32BIT_PER_S * 1e3)
+            del x1
+        del x
+        torch.cuda.empty_cache()
+    say("phase fig1 workload: median ms of 3 (localised, nonlocalised, auto; "
+        "gap) " + json.dumps({k: [round(v[p]["median_ms"], 4) for p in
+                                  FIG1_POLICIES] + [round(v["gap"], 3)]
+                              for k, v in out["workload"].items()}))
+
+    # the kernel form: one launch of R passes against R launches of one
+    rows, C = 8, N_FLAGSHIP // 8
+    for dt in ("float32", "bfloat16"):
+        x = torch.from_numpy(make_fig1_data((rows, C), dt, seed)).to(
+            getattr(torch, dt)).cuda()
+        ib = torch.int16 if dt == "bfloat16" else torch.int32
+        for R in (8, 32, 128):
+            def stream(v=x, R=R):
+                # the non-localised order of ref.localised_copy_ref: every
+                # pass a full trip through device memory, in f32 (bf16 is
+                # widened before the first pass and narrowed after the last)
+                v = v.float()
+                for _ in range(R):
+                    v = ops.localised_copy(v, 1)
+                return v.to(x.dtype)
+            one, many = ops.localised_copy(x, R), stream()
+            plain = localised_copy_reference(x, R)
+            bad["one"] += int((one.view(ib) != plain.view(ib)).sum())
+            bad["stream"] += int((many.view(ib) != one.view(ib)).sum())
+            del one, many, plain
+            nbytes = 2 * x.numel() * x.element_size()
+            rec = dict(ms=cuda_ms(lambda: ops.localised_copy(x, R), reps=10),
+                       stream_ms=cuda_ms(stream, reps=3),
+                       plain_ms=cuda_ms(
+                           lambda: localised_copy_reference(x, R), reps=1),
+                       bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       ops_ms=2 * R * x.numel() / OPS_32BIT_PER_S * 1e3)
+            rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
+            rec["bound_by"] = ("bytes" if rec["bytes_ms"] >= rec["ops_ms"]
+                               else "operations")
+            rec["gap"] = rec["stream_ms"] / rec["ms"]
+            out["kernel"][f"{dt}_R{R}"] = rec
+        del x
+        torch.cuda.empty_cache()
+    say("phase fig1 kernel: (8, 12.5M) ms one launch / R launches / gap / "
+        "bound / plain " + json.dumps(
+            {k: [round(v["ms"], 4), round(v["stream_ms"], 4),
+                 round(v["gap"], 2), round(v["bound_ms"], 4),
+                 round(v["plain_ms"], 2)] for k, v in out["kernel"].items()}))
+    say(f"phase fig1 path launch: localised_copy (1, {N_FLAGSHIP}) f32 "
+        f"reps=1 {path['ms']:.4f} ms (plain {path['plain_ms']:.3f} ms, bound "
+        f"{max(path['bytes_ms'], path['ops_ms']):.4f} ms); mismatches {bad}")
+    need(not any(bad.values()), f"fig1: localised_copy differs from its "
+                                f"plain version or the reference: {bad}")
+    # the line describes the path's launch: the counted run is the
+    # localised policy at n = 100 M, R = 128, R launches of this call
+    out["path"] = path
+    out["line"] = dict(
+        name="localised_copy", route="cuda",
+        source="src/repro_torch/csrc/localised_copy.cu",
+        replaces="src/repro/kernels/localised_copy.py:33",
+        launches=counted["localised_copy"], max_abs_err=path_err,
+        ms=path["ms"], plain_ms=path["plain_ms"],
+        bound_ms=max(path["bytes_ms"], path["ops_ms"]),
+        bound_by="bytes" if path["bytes_ms"] >= path["ops_ms"]
+        else "operations", library_ms=None, shape=[1, N_FLAGSHIP], reps=1,
+        mismatches=sum(bad.values()))
+    return out
+
+
+def attention_work(B, H, KV, S, hd, window, itemsize):
+    """(flops, bytes) the function needs: 4 hd flops per unmasked
+    (query, key) pair; q, k, v read once and out written once."""
+    q = torch.arange(S, dtype=torch.float64)
+    pairs = float((q + 1).clamp(max=window).sum()) if window else \
+        S * (S + 1) / 2
+    return 4 * hd * pairs * B * H, (2 * B * H + 2 * B * KV) * S * hd * itemsize
+
+
+#: (B, H, KV, S, hd, window, dtype): the head layouts of
+#: src/repro/configs/qwen3_0_6b.py and mixtral_8x7b.py, causal
+ATTN_CELLS = {"qwen3-0.6b_bf16": (1, 16, 8, 4096, 128, 0, "bfloat16"),
+              "qwen3-0.6b_f32": (1, 16, 8, 4096, 128, 0, "float32"),
+              "mixtral-8x7b_bf16": (1, 32, 8, 8192, 128, 4096, "bfloat16")}
+ATTN_BLOCK = 128
+#: the tolerance this script replaced, the reference test's at its small
+#: shapes; reported beside each planted fault
+OLD_BF16_TOL = 2e-2
+
+
+def beyond(got, want, rtol: float, atol: float, rows=slice(None)) -> int:
+    """Elements of got[..., rows, :] outside rtol/atol of want's."""
+    g, w = got[..., rows, :].float(), want[..., rows, :].float()
+    return int((~torch.isclose(g, w, rtol=rtol, atol=atol)).sum())
+
+
+def dropped_tile_attention(q, k, v, window: int, block: int):
+    """A planted fault: dense causal attention in float32 with each query
+    row's oldest live KV tile left out, unless it is the row's own
+    diagonal tile -- what a kernel that skipped one live tile too many
+    would give.  One head at a time, so the scores stay small."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    i = torch.arange(S, device=q.device)
+    qi, kj = i[:, None], i[None, :]
+    keep = kj <= qi
+    oldest = torch.zeros_like(qi)
+    if window:
+        keep &= qi - kj < window
+        oldest = (qi - window + 1).clamp(min=0)
+    keep &= ~((kj // block == oldest // block) & (kj // block != qi // block))
+    out = torch.empty_like(q)
+    for b in range(B):
+        for h in range(H):
+            s = q[b, h].float() @ k[b, h // G].float().T * hd ** -0.5
+            p = torch.softmax(s.masked_fill(~keep, -1e30), dim=-1)
+            out[b, h] = (p @ v[b, h // G].float()).to(q.dtype)
+    return out
+
+
+def phase_attention(seed: int) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.convert import make_attention_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        KERNEL_TOL, attention_ref, flash_attention_reference, kernel_tiles,
+        live_tiles)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions: f32
+    torch.backends.cudnn.allow_tf32 = False
+    peak = {"float32": OPS_32BIT_PER_S, "bfloat16": 989e12}
+    out = {}
+    counted = None
+    for tag, (B, H, KV, S, hd, window, dt) in ATTN_CELLS.items():
+        q, k, v = (torch.from_numpy(a).to(getattr(torch, dt)).cuda() for a in
+                   make_attention_inputs(B, H, KV, S, S, hd, dt, seed))
+        rtol, atol = KERNEL_TOL[q.dtype]
+        kw = dict(causal=True, window=window, block_q=ATTN_BLOCK,
+                  block_k=ATTN_BLOCK)
+        ops.reset_launches()                   # the path's counted run
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        need(counts["flash_attention"] == 1,
+             f"attention {tag}: launches {counts}")
+        if tag == "qwen3-0.6b_bf16":
+            counted = counts
+        plain = flash_attention_reference(q, k, v, **kw)
+        rec = {"max_abs_err": float((got.float() - plain.float()).abs().max()),
+               "rtol": rtol, "atol": atol,
+               "beyond": beyond(got, plain, rtol, atol)}
+        if tag.startswith("qwen"):
+            dense = attention_ref(q, k, v, causal=True, window=window)
+            rec["dense_max_abs_err"] = float(
+                (got.float() - dense.float()).abs().max())
+            rec["dense_beyond"] = beyond(got, dense, rtol, atol)
+            del dense
+        # planted faults, read against the plain version on the long rows
+        # (the second half, each attending to S/2 keys or more), where the
+        # outputs are smallest: each must fall outside the tolerance
+        late = slice(S // 2, None)
+        rec["faults"] = {}
+        for fault, wrong in (
+                ("dropped_tile", lambda: dropped_tile_attention(
+                    q, k, v, window, ATTN_BLOCK)),
+                ("scale_1pct", lambda: flash_attention_reference(
+                    q, k, v, scale=1.01 * hd ** -0.5, **kw))):
+            w = wrong()
+            rec["faults"][fault] = dict(
+                late_max_abs_err=float((w[..., late, :].float()
+                                        - plain[..., late, :].float())
+                                       .abs().max()),
+                late_beyond=beyond(w, plain, rtol, atol, late),
+                late_beyond_old_tol=beyond(w, plain, OLD_BF16_TOL,
+                                           OLD_BF16_TOL, late),
+                late_elems=w[..., late, :].numel())
+            del w
+        rec["late_rms"] = float(plain[..., late, :].float().square().mean()
+                                .sqrt())
+        del got, plain
+        need(rec["beyond"] == 0 and rec.get("dense_beyond", 0) == 0,
+             f"attention {tag}: kernel outside rtol={rtol} atol={atol}: "
+             f"{rec['beyond']} against plain, {rec.get('dense_beyond')} "
+             f"against dense, max err {rec['max_abs_err']}")
+        need(all(f["late_beyond"] for f in rec["faults"].values()),
+             f"attention {tag}: a planted fault passes the tolerance: "
+             f"{rec['faults']}")
+        mask = None
+        if window:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                 < window)
+
+        def library():
+            if mask is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        flops, nbytes = attention_work(B, H, KV, S, hd, window,
+                                       q.element_size())
+        rec.update(
+            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=5),
+            plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, **kw),
+                             reps=1),
+            library_ms=cuda_ms(library, reps=5),
+            ops_ms=flops / peak[dt] * 1e3,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, flops=flops)
+        rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
+        rec["bound_by"] = ("operations" if rec["ops_ms"] >= rec["bytes_ms"]
+                           else "bytes")
+        ref_live = live_tiles(S, S, causal=True, window=window,
+                              block_q=ATTN_BLOCK, block_k=ATTN_BLOCK)
+        kb = kernel_tiles(S, S, ATTN_BLOCK, ATTN_BLOCK)
+        ker_live = live_tiles(S, S, causal=True, window=window,
+                              block_q=kb[0], block_k=kb[1])
+        rec["tiles"] = dict(live=int(ref_live.sum()),
+                            skipped=int((~ref_live).sum()),
+                            kernel_live=int(ker_live.sum()),
+                            kernel_skipped=int((~ker_live).sum()))
+        out[tag] = rec
+        say(f"phase attention {tag}: B={B} H={H} KV={KV} S={S} hd={hd} "
+            f"causal window={window} {dt}: kernel {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.3f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); max err "
+            f"{rec['max_abs_err']:.3g} (rtol={rtol:.3g} atol={atol:.3g}); "
+            f"late-row rms {rec['late_rms']:.4g}; planted faults "
+            + json.dumps(rec["faults"]) + f"; tiles live/skipped "
+            f"{rec['tiles']}")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    q = out["qwen3-0.6b_bf16"]
+    out["line"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        launches=counted["flash_attention"], max_abs_err=max(
+            v["max_abs_err"] for v in out.values()),
+        ms=q["ms"], plain_ms=q["plain_ms"], bound_ms=q["bound_ms"],
+        bound_by=q["bound_by"], library_ms=q["library_ms"],
+        shape=list(ATTN_CELLS["qwen3-0.6b_bf16"][:4]),
+        mismatches=sum(v["beyond"] + v.get("dense_beyond", 0)
+                       for v in out.values()))
+    return out
 
 
 def main(argv=None) -> int:
@@ -360,19 +811,24 @@ def main(argv=None) -> int:
     hier = phase_flagship(args.seed, "hier", {"pod": 2, "data": 4},
                           ("pod", "data"),
                           LocalisationPolicy.hierarchical(inner="hash"))
+    constraint = phase_constraint(args.seed)
+    fig1 = phase_fig1(args.seed)
+    attention = phase_attention(args.seed)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "mismatches")
-    line = []
-    for name in ("local_sort", "merge_split"):
-        k = dict(kernels[name], launches=flat["launches"][name])
-        line.append({key: k[key] for key in keys})
+    rows = [dict(kernels[name], launches=flat["launches"][name])
+            for name in ("local_sort", "merge_split")]
+    rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
+    line = [{key: k[key] for key in keys} for k in rows]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
-             "engine": engine, "flat": flat, "hier": hier}, indent=1))
+             "engine": engine, "flat": flat, "hier": hier,
+             "constraint": constraint, "fig1": fig1, "attention": attention},
+            indent=1))
     say(json.dumps({"kernels": line}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

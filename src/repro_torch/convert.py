@@ -3,8 +3,8 @@
 A sort has no weights: what crosses over is the data and the policy.
 Everything here takes plain values or numpy arrays, so neither package
 has to import the other; the tests hand the reference's numpy outputs in.
-`make_sort_data` and `grid_rows` make the inputs that the tests and
-``chip_smoke.py`` feed to both sides.
+`make_sort_data`, `grid_rows`, `make_fig1_data` and `make_attention_inputs`
+make the inputs that the tests and ``chip_smoke.py`` feed to both sides.
 """
 from __future__ import annotations
 
@@ -111,3 +111,32 @@ def grid_rows(name: str, C: int, rows: int = 3, seed: int = 0) -> np.ndarray:
         return np.broadcast_to(np.arange(C, 0, -1, dtype=np.int32),
                                (rows, C)).copy()
     raise ValueError(f"unknown grid corner {name!r}; want one of {GRID_NAMES}")
+
+
+FLOAT_DTYPES = ("float32", "bfloat16")
+
+
+def _as_dtype(x: np.ndarray, dtype: str) -> np.ndarray:
+    """float32 values; for "bfloat16", rounded (to nearest even) to values
+    bfloat16 holds exactly, so both packages cast them without loss."""
+    if dtype not in FLOAT_DTYPES:
+        raise ValueError(f"dtype must be one of {FLOAT_DTYPES}, got {dtype!r}")
+    if dtype == "float32":
+        return x
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def make_fig1_data(shape, dtype: str, seed: int) -> np.ndarray:
+    """The Fig-1 array: standard normals of `shape` (1-D for the
+    workload, ``(chunks, L)`` for the kernel) as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    return _as_dtype(rng.standard_normal(shape, dtype=np.float32), dtype)
+
+
+def make_attention_inputs(B: int, H: int, KV: int, Sq: int, Skv: int,
+                          hd: int, dtype: str, seed: int):
+    """Attention's q ``(B, H, Sq, hd)`` and k, v ``(B, KV, Skv, hd)``:
+    standard normals as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    return tuple(_as_dtype(rng.standard_normal(s, dtype=np.float32), dtype)
+                 for s in ((B, H, Sq, hd), (B, KV, Skv, hd), (B, KV, Skv, hd)))

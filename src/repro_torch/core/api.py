@@ -4,16 +4,26 @@ The counterpart of `repro/core/api.py`, on a `HomeMesh`:
 
 `Locale`
     A frozen bundle of ``(mesh, axis, LocalisationPolicy)``:
-    ``locale.put(x)`` places a 1-D tensor under the policy's homing and
-    returns a `Homed`; ``locale.workload(name, **kw)`` builds a registered
-    workload (``"sort"``, ``"engine"``).
+
+    ==================  ====================================================
+    ``locale.put(x)``       placement under the policy's homing; a `Homed`.
+    ``locale.pin(x)``       the policy's layout, as a counted relayout; a
+                            strict no-op without a mesh or under
+                            ``static_mapping=False``.
+    ``locale.localise(x)``  the one-shot Algorithm-2 relayout into the
+                            chunk-contiguous layout.
+    ``locale.pin_tree(t)``  chunk-contiguous homing of every leaf of a
+                            dict/list/tuple tree along a chosen dim.
+    ``locale.jit(fn)``      `fn` itself: PyTorch runs eagerly (step 5,
+                            donation, is documented, not enforced).
+    ``locale.make(s, cb)``  a tensor born locally homed, built home by home.
+    ``locale.workload(n)``  a registered workload (``"sort"``, ``"engine"``,
+                            ``"microbench"``).
+    ==================  ====================================================
 
 `Homed`
     ``(data, homing, axis)``: ``data`` is the ``(m, chunk)`` per-home
     tensor and ``.logical()`` gives the 1-D logical order.
-
-The reference's ``pin``, ``pin_tree``, ``localise``, ``jit``, ``make`` and
-the ``"microbench"`` workload are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,10 +33,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.homing import (Axis, Homing, axis_size, logical_view,
-                                     to_layout)
-from repro_torch.core.localisation import LocalisationPolicy, chunk_bounds
-from repro_torch.core.mesh import HomeMesh
+from repro_torch.core.homing import (Axis, Homing, Layout, axis_size,
+                                     check_divisible, homing_layout,
+                                     logical_view, relayout, to_layout)
+from repro_torch.core.localisation import (LocalisationPolicy, chunk_bounds,
+                                           donate_buffers, localise, place)
+from repro_torch.core.mesh import HomeMesh, entry_device
 
 
 @dataclass(frozen=True)
@@ -132,10 +144,109 @@ class Locale:
         return Homed(to_layout(x, mesh, self.policy.homing, axis),
                      self.policy.homing, self.axis)
 
+    def pin(self, x):
+        """The policy's layout for `x`, as a counted relayout (`place`).
+
+        A strict no-op when ``mesh is None`` or ``static_mapping=False``:
+        the 'leave it to the runtime' baseline stays a baseline.  A raw
+        tensor is taken in its chunked layout and returned in logical
+        order.  A `Homed` must carry the locale's homing (else TypeError);
+        under a localised policy it comes back chunk-contiguous, as a
+        LOCAL_CHUNKED `Homed` (the reference keeps the old tag on data it
+        has constrained to the chunked sharding; here the tag says where
+        the rows are), and otherwise unchanged.
+        """
+        if self.mesh is None or not self.policy.static_mapping:
+            return x                         # no-op before any checking
+        if isinstance(x, Homed):
+            if x.homing != self.policy.homing:
+                raise TypeError(
+                    f"cannot pin a {x.homing.value!r}-homed value under a "
+                    f"{self.policy.homing.value!r} locale -- re-place it with "
+                    f"Locale.put or relayout with Locale.localise")
+            if self.policy.localised and x.homing != Homing.LOCAL_CHUNKED:
+                return self.localise(x)
+            return x
+        return place(x, self.mesh, self.policy, self.axis)
+
+    def localise(self, x):
+        """The one-shot Algorithm-2 relayout into the locally-homed layout;
+        a `Homed` comes back as a LOCAL_CHUNKED `Homed`."""
+        if not isinstance(x, Homed):
+            return localise(x, self.mesh, self.axis)
+        if self.mesh is None:
+            return Homed(x.logical().reshape(1, -1), Homing.LOCAL_CHUNKED,
+                         self.axis)
+        src = homing_layout(x.homing, self.mesh, self.axis)
+        y = localise(x.logical(), self.mesh, self.axis, src)
+        return Homed(to_layout(y, self.mesh, Homing.LOCAL_CHUNKED, self.axis),
+                     Homing.LOCAL_CHUNKED, self.axis)
+
+    def pin_tree(self, tree, dim: int = 0, size: Optional[int] = None):
+        """Home every tensor leaf of a dict/list/tuple tree chunk-contiguously
+        along `dim` (the KV-cache form of localisation: each slot along
+        `dim` lives wholly on one home), by a counted relayout from its
+        plain (chunked) layout; leaves keep their shapes.  Leaves where
+        `dim` does not exist, does not match `size` or does not divide over
+        the homes are left alone.  No-op without a mesh or under
+        ``static_mapping=False``.
+        """
+        if self.mesh is None or not self.policy.static_mapping:
+            return tree
+        N = self.axis_size
+
+        def leaf(x):
+            if not isinstance(x, torch.Tensor) or x.dim() <= dim:
+                return x
+            if size is not None and x.shape[dim] != size:
+                return x
+            if x.shape[dim] % N != 0:
+                return x
+            runs = math.prod(x.shape[:dim])
+            return relayout(x, self.mesh, Layout("runs", N, runs))
+
+        def walk(t):
+            if isinstance(t, dict):
+                return type(t)((k, walk(v)) for k, v in t.items())
+            if isinstance(t, (list, tuple)):
+                return type(t)(walk(v) for v in t)
+            return leaf(t)
+
+        return walk(tree)
+
+    def jit(self, fn, donate=(0,)):
+        """`fn` itself: PyTorch runs eagerly, so there is nothing to
+        compile.  Paper step 5 ('free as soon as finished') stays a
+        contract: the arguments in `donate` (the reference's signature)
+        may have their storage reused by `fn`, and the caller must not
+        read them after the call (`donate_buffers`)."""
+        return donate_buffers(fn)
+
+    def make(self, shape: Tuple[int, ...], cb: Callable) -> torch.Tensor:
+        """A tensor born locally homed: home d's rows are ``cb(index)`` over
+        its chunk of dim 0 (`chunk_bounds`), built home by home on the
+        mesh's device and returned as the logical ``shape`` tensor (the
+        chunked layout's rows are its consecutive chunks).  Without a
+        mesh, `cb` runs once over the full index, on ``"cuda"``.
+        """
+        shape = tuple(shape)
+        dev = entry_device(self.mesh)
+        rest = tuple(slice(None) for _ in shape[1:])
+        if self.mesh is None:
+            return torch.as_tensor(cb((slice(None),) + rest)).to(dev).reshape(
+                shape)
+        check_divisible(shape[0], self.axis_size, Homing.LOCAL_CHUNKED,
+                        str(self.axis))
+        rows = [torch.as_tensor(cb((slice(lo, hi),) + rest)).to(dev)
+                for lo, hi in chunk_bounds(shape[0], self.axis_size)]
+        return torch.stack(rows).view(shape)
+
     def workload(self, name: str, **kw):
         """Build the entry point of a registered workload:
 
+            locale.workload("sort")                      # constraint backend
             locale.workload("sort", backend="shard_map")
+            locale.workload("microbench", reps=R)
         """
         try:
             builder = _WORKLOADS[name]
@@ -150,19 +261,23 @@ class Locale:
 # ---------------------------------------------------------------------------
 @register_workload("sort")
 def _sort_workload(locale: Locale, *, backend: str = "constraint",
-                   num_workers=None, local_sort=None, local_phase: str = None):
+                   num_workers=None, local_sort=None, local_phase: str = None,
+                   device=None):
     """The paper's validation app: distributed merge sort (Algorithms 1-3).
 
-    The default backend is the reference's, ``"constraint"``, which is not
-    ported yet and raises NotImplementedError; pass ``backend="shard_map"``
-    for the per-home engine.  ``local_phase``: "kernel", "reference" or
-    None (auto by ``local_sort``).
+    The default backend is the reference's, ``"constraint"`` (the merge
+    tree relaid out between levels as the policy says);
+    ``backend="shard_map"`` is the per-home engine.  ``local_phase``:
+    "kernel", "reference" or None (auto by ``local_sort``; the constraint
+    tree takes None or "reference").  ``device``: where a mesh-less locale
+    runs the constraint tree (default ``"cuda"``); the engine places on
+    its mesh only.
     """
     from repro_torch.core.sort import make_sort_fn
     axis = locale.axis if locale.mesh is not None else "data"
     return make_sort_fn(locale.mesh, locale.policy, num_workers=num_workers,
                         local_sort=local_sort, backend=backend, axis=axis,
-                        local_phase=local_phase)
+                        local_phase=local_phase, device=device)
 
 
 @register_workload("engine")
@@ -173,3 +288,13 @@ def _engine_workload(locale: Locale, **kw):
         raise ValueError("workload('engine') is the shard_map backend; use "
                          "workload('sort', backend=...) to choose freely")
     return _sort_workload(locale, **kw)
+
+
+@register_workload("microbench")
+def _microbench_workload(locale: Locale, *, reps: int, device=None):
+    """The Fig-1 repetitive-copy micro-benchmark (`core.microbench`).
+    ``device``: where a mesh-less locale runs (default ``"cuda"``)."""
+    from repro_torch.core.microbench import make_microbench_fn
+    axis = locale.axis if locale.mesh is not None else "data"
+    return make_microbench_fn(locale.mesh, locale.policy, reps, axis=axis,
+                              device=device)

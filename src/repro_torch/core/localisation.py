@@ -4,18 +4,21 @@
   2. Assign each chunk to a worker by passing pointers.              (rows)
   3. Map each worker to a home — STATIC.                             (mesh order)
   4. Copy each part into a locally-homed buffer.                     (relayout)
-  5. Free the dynamic memory as soon as possible.
+  5. Free the dynamic memory as soon as possible.                    (donation)
 
-The counterpart of `repro/core/localisation.py`: `chunk_bounds` and
-`LocalisationPolicy`.  The reference's `localise`/`place` are constraint
-backend mechanics (`with_sharding_constraint`) and are not ported yet.
+The counterpart of `repro/core/localisation.py`: `chunk_bounds`,
+`LocalisationPolicy`, and the constraint-backend mechanics `localise`,
+`place` and `donate_buffers`.  Where the reference emits a sharding
+constraint, the port makes the relayout it stands for
+(`repro_torch.core.homing.relayout`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from repro_torch.core.homing import Homing
+from repro_torch.core.homing import (Axis, Homing, Layout, chunked_sharding,
+                                     constrain, relayout)
 
 
 def chunk_bounds(n: int, m: int) -> Tuple[Tuple[int, int], ...]:
@@ -75,3 +78,38 @@ class LocalisationPolicy:
         return (f"{hier}{'loc' if self.localised else 'nonloc'}-"
                 f"{'static' if self.static_mapping else 'auto'}-"
                 f"{self.homing.value}")
+
+
+def localise(x, mesh, axis: Axis = "data", src: Optional[Layout] = None):
+    """One-shot relayout of `x` (in `src`, default chunked) into the
+    chunk-contiguous locally-homed layout.  Identity without a mesh."""
+    if mesh is None:
+        return x
+    return relayout(x, mesh, chunked_sharding(mesh, axis), src)
+
+
+def place(x, mesh, policy: LocalisationPolicy, axis: Axis = "data",
+          src: Optional[Layout] = None):
+    """Layout an intermediate value according to the policy.
+
+    - static+localised: chunk-contiguous (the technique).
+    - static+non-localised: pinned to the input's homing.
+    - non-static: no relayout at all; the runtime keeps whatever layout
+      the value has (the 'leave it to the OS scheduler' baseline).
+    """
+    if mesh is None or not policy.static_mapping:
+        return x
+    if policy.localised:
+        return localise(x, mesh, axis, src)
+    return constrain(x, mesh, policy.homing, axis, src)
+
+
+def donate_buffers(fn):
+    """Paper step 5 ('free as soon as finished').
+
+    PyTorch runs eagerly, so there is no jit to wrap: this returns `fn`
+    itself, and documents that the function may reuse its first
+    argument's storage (the caller must not read that argument after the
+    call), as the reference's ``jax.jit(fn, donate_argnums=(0,))`` may.
+    """
+    return fn

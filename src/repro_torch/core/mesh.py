@@ -16,6 +16,29 @@ from typing import Dict, Mapping
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; ``"cuda"`` without a card raises here
+    instead of carrying on somewhere else."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' needs a CUDA device and none is available; pass "
+            "device='cpu' to run the plain versions")
+    return device
+
+
+def entry_device(mesh, device=None) -> torch.device:
+    """Where an entry point runs: the mesh's device, or without a mesh
+    `device` (default ``"cuda"``).  A `device` that differs from the
+    mesh's raises."""
+    if mesh is None:
+        return resolve_device(device or "cuda")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device={device!r} differs from the mesh's "
+                         f"{mesh.device}; a mesh runs on its own device")
+    return mesh.device
+
+
 class HomeMesh:
     """Named home axes (outer first) on one torch device.
 
@@ -31,13 +54,8 @@ class HomeMesh:
         for a, s in shape.items():
             if not isinstance(s, int) or s < 1 or (s & (s - 1)) != 0:
                 raise ValueError(f"axis {a!r} size {s} not a power of 2")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "HomeMesh(device='cuda') needs a CUDA device and none is "
-                "available; pass device='cpu' to run the plain versions")
         self._shape: Dict[str, int] = shape
-        self.device = device
+        self.device = resolve_device(device)
 
     @property
     def shape(self) -> Dict[str, int]:

@@ -2,16 +2,26 @@
 
 Structure mirrors Algorithm 3: a local sort per worker followed by a
 log2(N)-level merge tree.  The counterpart of `repro/core/sort.py`: the
-sentinel padding, the NaN guard, the gather-form stable merge and the
-backend dispatch.  Only the explicit engine (``backend="shard_map"``,
-`repro_torch.core.engine`) is ported; the constraint backend is a later
-slice (ROADMAP.md, "the constraint backend").
+sentinel padding, the NaN guard, the gather-form stable merge, the
+constraint backend (`distributed_merge_sort`, the default) and the
+backend dispatch; the explicit engine (``backend="shard_map"``) is
+`repro_torch.core.engine`.
+
+The constraint backend keeps the reference's (count, size) run matrix in
+logical order and, between tree levels, relayouts it as the policy says
+(`_constrain_runs`): each of the reference's sharding constraints is a
+counted relayout on the mesh's device (`repro_torch.core.homing`).
 """
 from __future__ import annotations
 
 import functools
+from typing import Callable, Optional
 
 import torch
+
+from repro_torch.core.homing import Axis, Homing, Layout, axis_size, relayout
+from repro_torch.core.localisation import LocalisationPolicy
+from repro_torch.core.mesh import entry_device
 
 BIG = {torch.int32: torch.iinfo(torch.int32).max,
        torch.float32: float("inf")}
@@ -111,23 +121,155 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                        torch.gather(b, -1, rb))
 
 
+def constraint_granule(mesh, policy: LocalisationPolicy,
+                       num_workers: Optional[int], axis: Axis) -> int:
+    """The constraint backend's padding granule: a chunk per worker, and,
+    under static mapping, every merge level's run size divisible by the
+    axis size, so no level falls back to a replicated layout.  Without a
+    mesh the tree has 8 workers, as in the reference."""
+    m = num_workers or (axis_size(mesh, axis) if mesh is not None else 8)
+    if mesh is not None and policy.static_mapping:
+        return m * axis_size(mesh, axis)
+    return m
+
+
+def check_pad_outside_trace(n: int, granule: int, mesh, axis: Axis,
+                            where: str) -> None:
+    """The reference's guard for padding inside a trace, kept as a
+    contract: on a mesh with homes outside `axis`, a direct call of
+    `distributed_merge_sort` takes only granular lengths (the reference's
+    partitioner mis-compiles the padding there).  The entry points
+    (`make_sort_fn`, `Locale.workload`) pad eagerly and never trip it."""
+    if mesh is None or n % granule == 0:
+        return
+    if mesh.size > axis_size(mesh, axis):
+        raise ValueError(
+            f"{where}: input length {n} needs sentinel padding to a multiple "
+            f"of {granule}, but mesh axes outside {axis!r} have size > 1. "
+            f"Pre-pad with pad_to_multiple(x, {granule}), or call through "
+            f"make_sort_fn / Locale.workload, which pad eagerly.")
+
+
+def stable_zeros(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Give the zeros of `y`, rows of `x` sorted on the total-order key,
+    the order a stable IEEE sort gives them (in place, returns `y`).
+
+    The key puts every ``-0.0`` before every ``+0.0``; the reference's
+    ``jnp.sort`` is stable and ties the two, keeping input order.  The
+    zeros of a sorted row are one block at the same place in both orders,
+    so the block is overwritten with the row's input zeros in input order
+    (a boolean-mask compaction, row-major over all rows at once).
+    """
+    if x.dtype.is_floating_point:
+        y[y == 0] = x[x == 0]
+    return y
+
+
+def _row_sort(runs: torch.Tensor, local_sort: Optional[Callable]):
+    """The leaves: sort the last dim of `runs` as ``jnp.sort`` does.
+    Default: the port's row sort (`kernels.ops.local_sort`: the kernel on
+    the card, its plain version on the CPU) with `stable_zeros`."""
+    if local_sort is not None:
+        return local_sort(runs)
+    from repro_torch.kernels import ops   # local: ops imports this module
+    rows = runs.reshape(-1, runs.shape[-1]).contiguous()
+    return stable_zeros(rows, ops.local_sort(rows)).view(runs.shape)
+
+
+def _constrain_runs(runs: torch.Tensor, layout: Optional[Layout], mesh,
+                    policy: LocalisationPolicy, axis: Axis = "data"):
+    """Relayout the (count, size) run matrix per policy, between tree
+    levels; returns ``(runs, layout)``.  ``layout=None`` is a plain tensor
+    (chunked).
+
+    Non-static or mesh-less: nothing moves.  Localised: runs homed on
+    their leaders' homes (chunked) while the runs outnumber the homes,
+    else each run chunked over the homes.  Non-localised hash homing:
+    every run striped element-wise.  Non-localised local homing (cases 2
+    and 4): replicated, the reference's ``P(None, None)`` -- one copy per
+    home, counted as an all-gather, and the work after it runs over the m
+    copies, a leading dim of `runs`, as the non-localised engine body does
+    every home's replicated work.
+    """
+    if mesh is None or not policy.static_mapping:
+        return runs, layout
+    N = axis_size(mesh, axis)
+    count, size = runs.shape[-2:]
+    if not policy.localised and policy.homing == Homing.LOCAL_CHUNKED:
+        dst = Layout("replicated", N)
+    elif policy.localised:
+        dst = (Layout("chunked", N) if count % N == 0 else
+               Layout("runs", N, count) if size % N == 0 else
+               Layout("replicated", N))
+    elif size % N == 0:
+        dst = Layout("interleaved", N)
+    else:
+        return runs, layout
+    return relayout(runs, mesh, dst, layout), dst
+
+
+def distributed_merge_sort(x: torch.Tensor, mesh=None,
+                           policy: LocalisationPolicy = LocalisationPolicy(),
+                           num_workers: Optional[int] = None,
+                           local_sort: Optional[Callable] = None,
+                           axis: Axis = "data") -> torch.Tensor:
+    """Sort a 1-D tensor with an m-worker merge tree (m = #homes of `axis`,
+    8 without a mesh), on the device it lies on.
+
+    Arbitrary lengths: the input is padded with BIG sentinels to a
+    multiple of `constraint_granule` and the padding stripped after the
+    tree.  Float inputs must be NaN-free.  The merge tree is the stable
+    IEEE rank merge `merge_sorted`, as in the reference.
+    """
+    n = x.shape[0]
+    m = num_workers or (axis_size(mesh, axis) if mesh is not None else 8)
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"num_workers={m} must be a power of two")
+    granule = constraint_granule(mesh, policy, num_workers, axis)
+    check_pad_outside_trace(n, granule, mesh, axis, "distributed_merge_sort")
+    x = pad_to_multiple(x, granule)
+    runs = x.reshape(m, x.shape[0] // m)
+    runs, lay = _constrain_runs(runs, None, mesh, policy, axis)
+    runs = _row_sort(runs, local_sort)                 # leaves of the tree
+    runs, lay = _constrain_runs(runs, lay, mesh, policy, axis)
+    while runs.shape[-2] > 1:
+        merged = merge_sorted(runs[..., 0::2, :], runs[..., 1::2, :])
+        runs, lay = _constrain_runs(merged, lay, mesh, policy, axis)
+    out = runs[0] if lay is not None and lay.kind == "replicated" else runs
+    return out[0][:n]
+
+
 def make_sort_fn(mesh, policy, num_workers=None, local_sort=None,
                  backend: str = "constraint", axis="data",
-                 local_phase: str = None):
-    """Sort function for one Table-1 case.
+                 local_phase: str = None, device=None):
+    """Sort function for one Table-1 case: ``fn(x) -> sorted 1-D``.
 
-    backend="shard_map": the explicit per-home engine
-    (`repro_torch.core.engine`).  backend="constraint" is not ported yet and
-    raises NotImplementedError.  Callers normally reach this through
-    `Locale.workload("sort", ...)`.
+    backend="constraint" (the default, as in the reference): the merge
+    tree of `distributed_merge_sort`, relaid out between levels as the
+    policy says.  backend="shard_map": the explicit per-home engine
+    (`repro_torch.core.engine`).  The input is NaN-checked, moved to the
+    mesh's device (without a mesh: `device`, default ``"cuda"``; the
+    engine places only on its mesh) and padded eagerly.  ``local_sort=None`` picks the backend default (the
+    row sort for the constraint tree, "bitonic" for the engine).  Callers
+    normally reach this through `Locale.workload("sort", ...)`.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
-    if backend == "constraint":
-        raise NotImplementedError(
-            "backend='constraint' is not ported yet (ROADMAP.md Queue 1, "
-            "'the constraint backend'); use backend='shard_map'")
-    from repro_torch.core.engine import make_engine_fn   # local: avoid cycle
-    return make_engine_fn(mesh, policy, num_workers=num_workers,
-                          local_sort=local_sort or "bitonic", axis=axis,
-                          local_phase=local_phase)
+    dev = entry_device(mesh, device)
+    if backend == "shard_map":
+        from repro_torch.core.engine import make_engine_fn  # local: cycle
+        if mesh is None and device is not None:
+            raise ValueError("backend='shard_map' places on its mesh; give "
+                             "a HomeMesh(..., device=...) instead of device=")
+        return make_engine_fn(mesh, policy, num_workers=num_workers,
+                              local_sort=local_sort or "bitonic", axis=axis,
+                              local_phase=local_phase)
+    if local_phase not in (None, "reference"):
+        raise ValueError(
+            f"local_phase={local_phase!r} needs backend='shard_map' -- the "
+            f"constraint tree's local phase is the reference's by nature")
+    fn = functools.partial(distributed_merge_sort, mesh=mesh, policy=policy,
+                           num_workers=num_workers, local_sort=local_sort,
+                           axis=axis)
+    granule = constraint_granule(mesh, policy, num_workers, axis)
+    return sort_entry(fn, granule, dev)

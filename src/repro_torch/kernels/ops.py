@@ -11,12 +11,15 @@ import torch
 
 from repro_torch.core.sort import merge_sorted
 from repro_torch.kernels.bitonic_sort import bitonic_sort
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.local_sort import local_sort
+from repro_torch.kernels.localised_copy import localised_copy
 from repro_torch.kernels.merge_split import merge_split
 
 #: every counted wrapper, by name
 WRAPPERS = {"local_sort": local_sort, "merge_split": merge_split,
-            "bitonic_sort": bitonic_sort}
+            "bitonic_sort": bitonic_sort, "localised_copy": localised_copy,
+            "flash_attention": flash_attention}
 
 
 def chunked_sort(x: torch.Tensor) -> torch.Tensor:
@@ -45,5 +48,6 @@ def merged_elems() -> int:
     return WRAPPERS["merge_split"].merged_elems
 
 
-__all__ = ["bitonic_sort", "chunked_sort", "launch_counts", "local_sort",
-           "merge_split", "merged_elems", "reset_launches"]
+__all__ = ["bitonic_sort", "chunked_sort", "flash_attention",
+           "launch_counts", "local_sort", "localised_copy", "merge_split",
+           "merged_elems", "reset_launches"]

@@ -215,13 +215,18 @@ def test_hierarchical_policies_sort_on_pods(inner, outer):
 
 def test_sort_workload_keeps_reference_default_backend():
     locale = Locale(HomeMesh({"data": 8}, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        locale.workload("sort")
+    # the default is the reference's, the constraint backend
+    fn = locale.workload("sort")
+    assert fn.__wrapped__.func.__name__ == "distributed_merge_sort"
+    np.testing.assert_array_equal(fn(np.arange(9, 0, -1, dtype=np.int32))
+                                  .numpy(), np.arange(1, 10))
     with pytest.raises(ValueError, match="unknown backend"):
         locale.workload("sort", backend="nope")
     with pytest.raises(ValueError, match="shard_map"):
         locale.workload("engine", backend="constraint")
     with pytest.raises(ValueError, match="unknown workload"):
+        locale.workload("nope")
+    with pytest.raises(TypeError, match="reps"):
         locale.workload("microbench")
     with pytest.raises(ValueError, match="hierarchical"):
         locale.with_policy(LocalisationPolicy.hierarchical()).workload(
@@ -302,4 +307,5 @@ def test_cpu_engine_launches_no_kernel():
     port_sort(make_sort_data(777, "int32", 0), {"data": 8}, "data",
               case_policy(8))
     assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0,
-                                   "bitonic_sort": 0}
+                                   "bitonic_sort": 0, "localised_copy": 0,
+                                   "flash_attention": 0}

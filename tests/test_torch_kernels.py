@@ -168,7 +168,8 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     np.testing.assert_array_equal(ops.merge_split(a, b, True).numpy(),
                                   merge_split_reference(a, b, True).numpy())
     assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0,
-                                   "bitonic_sort": 0}
+                                   "bitonic_sort": 0, "localised_copy": 0,
+                                   "flash_attention": 0}
 
 
 def test_wrappers_reject_other_devices_and_dtypes():
@@ -184,7 +185,8 @@ def test_wrappers_reject_other_devices_and_dtypes():
 
 
 def test_build_names_every_source_by_content_hash(monkeypatch, tmp_path):
-    assert set(_build.sources()) == {"local_sort", "merge_split"}
+    assert set(_build.sources()) == {"flash_attention", "local_sort",
+                                     "localised_copy", "merge_split"}
     t = _build._target("local_sort")
     assert t.parent == _build.BUILD_DIR and t.suffix == ".so"
     assert t != _build._target("merge_split")
