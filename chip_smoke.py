@@ -39,7 +39,21 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 blocked version (and the dense one at the qwen shape)
                 within `KERNEL_TOL` (bf16: one rounding step), and two
                 planted faults, a dropped KV tile and a scale 1 % off,
-                that must fall outside it on the long rows.
+                that must fall outside it on the long rows;
+  9. analysis — the analyser's path: the four mutant kernels of
+                `repro_torch.kernels.fixtures` against their plain versions
+                (bit for bit; the raced rows of `overlapping_index_map`
+                element by element one of their two writers, with the
+                winners counted over 100 launches), the rules on each
+                mutant's recorded launch (the reference's findings by rule,
+                severity and kind), `check_workload` clean on the card for
+                both sort backends and the engine on {"data": 8} and
+                {"pod": 2, "data": 4}, the microbench and the attention
+                cells; the rules again over every launch recorded in the
+                n = 100 M sorts, the 100 M Fig-1 run and the attention
+                cells; and, for every kernel call recorded, the Python
+                launch plan against the C entry's dry-run twin and the
+                coverage probe of its output tile maps.
 
 Every path's counted run sets the launch counts to 0 just before it and
 reads them just after (`bitonic_sort`'s path is ``ops.chunked_sort``).
@@ -52,6 +66,7 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -73,8 +88,23 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 OPS_32BIT_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 
+#: the launches of every phase's untimed correctness runs (`untimed`); the
+#: analysis phase holds each distinct call's plan to the C entry's dry run
+#: and probes its tile maps
+UNTIMED = []
+
+
 class SmokeFailure(Exception):
     pass
+
+
+@contextlib.contextmanager
+def untimed():
+    """Record the kernel launches of an untimed run into `UNTIMED`."""
+    from repro_torch.analysis import record
+    with record() as launches:
+        yield
+    UNTIMED.extend(launches)
 
 
 def need(cond, msg: str) -> None:
@@ -107,6 +137,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(launch, count: int = 100) -> float:
+    """Milliseconds a launch of `count` captured in one CUDA graph and
+    replayed: the device's time per launch without the host's cost of
+    issuing each one."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(count):
+            launch()
+    return cuda_ms(graph.replay, reps=5) / count
 
 
 def peak_run(fn, x):
@@ -175,23 +218,26 @@ def phase_kernels(seed: int) -> dict:
     grid_c = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7)
     bad = {"local_sort": 0, "merge_split": 0, "bitonic_sort": 0}
     cases = 0
-    for name in GRID_NAMES:
-        for C in grid_c:
-            x = torch.from_numpy(grid_rows(name, C, seed=seed)).to(cuda)
-            bad["local_sort"] += mismatches(ops.local_sort(x),
-                                            local_sort_reference(x))
-            a = torch.from_numpy(np.sort(grid_rows(name, C, 4, seed), -1))
-            b = torch.from_numpy(np.sort(grid_rows(name, C, 4, seed + 7), -1))
-            a, b = a.to(cuda), b.to(cuda)
-            for keep in (torch.tensor([True, False, False, True]), True, False):
-                bad["merge_split"] += mismatches(
-                    ops.merge_split(a, b, keep),
-                    merge_split_reference(a, b, keep))
-            cases += 1
-    for C in (1, 256, TILE, 4 * TILE):
-        x = torch.from_numpy(grid_rows("rand_float", C, seed=seed)).to(cuda)
-        bad["bitonic_sort"] += mismatches(ops.bitonic_sort(x),
-                                          bitonic_stages(x))
+    with untimed():
+        for name in GRID_NAMES:
+            for C in grid_c:
+                x = torch.from_numpy(grid_rows(name, C, seed=seed)).to(cuda)
+                bad["local_sort"] += mismatches(ops.local_sort(x),
+                                                local_sort_reference(x))
+                a, b = (torch.from_numpy(np.sort(grid_rows(name, C, 4, sd),
+                                                 -1)).to(cuda)
+                        for sd in (seed, seed + 7))
+                for keep in (torch.tensor([True, False, False, True]), True,
+                             False):
+                    bad["merge_split"] += mismatches(
+                        ops.merge_split(a, b, keep),
+                        merge_split_reference(a, b, keep))
+                cases += 1
+        for C in (1, 256, TILE, 4 * TILE):
+            x = torch.from_numpy(grid_rows("rand_float", C,
+                                           seed=seed)).to(cuda)
+            bad["bitonic_sort"] += mismatches(ops.bitonic_sort(x),
+                                              bitonic_stages(x))
     torch.cuda.synchronize()
 
     # bitonic_sort at (8, 1024) (the reference's kernel benchmark) and
@@ -223,10 +269,11 @@ def phase_kernels(seed: int) -> dict:
     rows, C = 8, N_FLAGSHIP // 8
     x = torch.from_numpy(make_sort_data(N_FLAGSHIP, "int32", seed)).to(cuda)
     x = x.view(rows, C)
-    got, plain = ops.local_sort(x), local_sort_reference(x)
-    ls_err = max_abs_err(got, plain)
-    bad["local_sort"] += mismatches(got, plain)
-    del got, plain
+    with untimed():
+        got, plain = ops.local_sort(x), local_sort_reference(x)
+        ls_err = max_abs_err(got, plain)
+        bad["local_sort"] += mismatches(got, plain)
+        del got, plain
     ls_ms = cuda_ms(lambda: ops.local_sort(x), reps=5)
     ls_plain_ms = cuda_ms(lambda: local_sort_reference(x), reps=1)
     ls_lib_ms = cuda_ms(lambda: torch.sort(x, dim=-1), reps=5)
@@ -243,8 +290,9 @@ def phase_kernels(seed: int) -> dict:
     for r in (8, 16):
         a, b = sorted_rows[:r], sorted_rows[16 - r:].flip(0).contiguous()
         keep = torch.arange(r, device=cuda) % 2 == 0
-        got, plain = ops.merge_split(a, b, keep), merge_split_reference(a, b,
-                                                                        keep)
+        with untimed():
+            got = ops.merge_split(a, b, keep)
+        plain = merge_split_reference(a, b, keep)
         bad["merge_split"] += mismatches(got, plain)
         ms_err = max(ms_err, max_abs_err(got, plain))
         del got, plain
@@ -324,7 +372,8 @@ def phase_engine(seed: int) -> dict:
             secs = time.perf_counter() - t0
             check_sorted(y, xc, f"case {k} {dt}")
             small = torch.from_numpy(make_sort_data(N_ENGINE_CPU, dt, seed + k))
-            on_card = fn(small.cuda()).cpu()
+            with untimed():
+                on_card = fn(small.cuda()).cpu()
             on_cpu = Locale(HomeMesh({"data": 8}, device="cpu"), "data",
                             policy).workload("sort", backend="shard_map")(small)
             need(torch.equal(bits(on_card), bits(on_cpu)),
@@ -339,6 +388,7 @@ def phase_engine(seed: int) -> dict:
 
 def phase_flagship(seed: int, tag: str, shape: dict, axis,
                    policy) -> dict:
+    from repro_torch.analysis import record
     from repro_torch.convert import make_sort_data
     from repro_torch.core import HomeMesh, Locale, exchange_schedule
     from repro_torch.kernels import ops
@@ -351,7 +401,8 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
         if r["op"] == "merge_split")
     # the main path's counted run: counts to 0 just before, read just after
     ops.reset_launches()
-    y, peak = peak_run(fn, x)
+    with record() as recorded:
+        y, peak = peak_run(fn, x)
     counts = ops.launch_counts()
     merged = ops.merged_elems()
     check_sorted(y, x, tag)
@@ -392,7 +443,8 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
     res = {"median_s": med / 1e3, "times_s": times,
            "launches": counts, "merged_elems": merged,
            "schedule_merge_elems": expect_merged,
-           "peak_bytes": peak, "kernel_ms": kernel_ms}
+           "peak_bytes": peak, "kernel_ms": kernel_ms,
+           "recorded": recorded}
     say(f"phase flagship {tag}: n={N_FLAGSHIP} int32 on {shape} "
         f"policy={policy.name}: median {res['median_s'] * 1e3:.3f} ms of 3 "
         f"({', '.join(f'{t * 1e3:.3f}' for t in times)}); launches {counts}; "
@@ -406,6 +458,7 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
 
 
 def phase_constraint(seed: int) -> dict:
+    from repro_torch.analysis import record
     from repro_torch.configs import CASES
     from repro_torch.convert import make_sort_data
     from repro_torch.core import HomeMesh, Homing, Locale, LocalisationPolicy
@@ -413,7 +466,7 @@ def phase_constraint(seed: int) -> dict:
     from repro_torch.kernels import ops
 
     mesh = HomeMesh({"data": 8})
-    out = {"cases": {}}
+    out = {"cases": {}, "recorded": []}
     for k, c in CASES.items():
         locale = Locale(mesh, "data", LocalisationPolicy(
             c.localised, c.static_mapping, Homing(c.homing)))
@@ -432,7 +485,8 @@ def phase_constraint(seed: int) -> dict:
             need(counts["local_sort"] == 1,
                  f"constraint case {k} {dt}: local_sort launches {counts}")
             if dt == "int32":
-                eng = locale.workload("sort", backend="shard_map")(x)
+                with untimed():
+                    eng = locale.workload("sort", backend="shard_map")(x)
                 need(torch.equal(y, eng), f"constraint case {k}: differs "
                                           f"from the shard_map engine")
             out["cases"][f"case{k}_{dt}"] = dict(first_call_s=secs,
@@ -456,8 +510,10 @@ def phase_constraint(seed: int) -> dict:
         # the path's counted run: counts to 0 just before, read just after
         reset_relayouts()
         ops.reset_launches()
-        y, peak = peak_run(fn, x)
+        with record() as recorded:
+            y, peak = peak_run(fn, x)
         counts, moved = ops.launch_counts(), relayout_counts()
+        out["recorded"] += recorded
         check_sorted(y, x, f"constraint flagship case {k}")
         del y
         need(counts["local_sort"] == 1,
@@ -481,6 +537,7 @@ FIG1_POLICIES = {"localised": (True, True, "local"),
 
 
 def phase_fig1(seed: int) -> dict:
+    from repro_torch.analysis import record
     from repro_torch.configs import SortConfig
     from repro_torch.convert import make_fig1_data
     from repro_torch.core import HomeMesh, Homing, Locale, LocalisationPolicy
@@ -503,7 +560,8 @@ def phase_fig1(seed: int) -> dict:
                     loc, static, Homing(h))).workload("microbench", reps=R)
                 reset_relayouts()
                 ops.reset_launches()           # the path's counted run
-                y = fn(x)
+                with record() as recorded:
+                    y = fn(x)
                 torch.cuda.synchronize()
                 counts, moved = ops.launch_counts(), relayout_counts()
                 bad["workload"] += mismatches(y, want)
@@ -516,6 +574,7 @@ def phase_fig1(seed: int) -> dict:
                                  relayouts=moved)
                 if name == "localised" and n == N_FLAGSHIP and R == 128:
                     counted = counts
+                    out["recorded"] = recorded
             row["gap"] = row["nonlocalised"]["median_ms"] / \
                 row["localised"]["median_ms"]
             out["workload"][f"n{n}_R{R}"] = row
@@ -524,8 +583,9 @@ def phase_fig1(seed: int) -> dict:
             # the path's own launch: one pass over the whole (1, n) array,
             # as `_pass` makes it, against its plain version
             x1 = x.view(1, n)
-            got, plain = ops.localised_copy(x1, 1), \
-                localised_copy_reference(x1, 1)
+            with untimed():
+                got = ops.localised_copy(x1, 1)
+            plain = localised_copy_reference(x1, 1)
             bad["path"] += mismatches(got, plain)
             path_err = max_abs_err(got, plain)
             del got, plain
@@ -557,7 +617,8 @@ def phase_fig1(seed: int) -> dict:
                 for _ in range(R):
                     v = ops.localised_copy(v, 1)
                 return v.to(x.dtype)
-            one, many = ops.localised_copy(x, R), stream()
+            with untimed():
+                one, many = ops.localised_copy(x, R), stream()
             plain = localised_copy_reference(x, R)
             bad["one"] += int((one.view(ib) != plain.view(ib)).sum())
             bad["stream"] += int((many.view(ib) != one.view(ib)).sum())
@@ -654,6 +715,7 @@ def dropped_tile_attention(q, k, v, window: int, block: int):
 
 def phase_attention(seed: int) -> dict:
     import torch.nn.functional as F
+    from repro_torch.analysis import record
     from repro_torch.convert import make_attention_inputs
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
@@ -665,6 +727,7 @@ def phase_attention(seed: int) -> dict:
     peak = {"float32": OPS_32BIT_PER_S, "bfloat16": 989e12}
     out = {}
     counted = None
+    recorded = {}
     for tag, (B, H, KV, S, hd, window, dt) in ATTN_CELLS.items():
         q, k, v = (torch.from_numpy(a).to(getattr(torch, dt)).cuda() for a in
                    make_attention_inputs(B, H, KV, S, S, hd, dt, seed))
@@ -672,7 +735,8 @@ def phase_attention(seed: int) -> dict:
         kw = dict(causal=True, window=window, block_q=ATTN_BLOCK,
                   block_k=ATTN_BLOCK)
         ops.reset_launches()                   # the path's counted run
-        got = ops.flash_attention(q, k, v, **kw)
+        with record() as recorded[tag]:
+            got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         need(counts["flash_attention"] == 1,
@@ -775,6 +839,226 @@ def phase_attention(seed: int) -> dict:
         shape=list(ATTN_CELLS["qwen3-0.6b_bf16"][:4]),
         mismatches=sum(v["beyond"] + v.get("dense_beyond", 0)
                        for v in out.values()))
+    out["recorded"] = recorded
+    return out
+
+
+#: the reference's findings on its four fixtures (pinned against the
+#: reference's own rules in tests/test_torch_analysis.py), by rule,
+#: severity and kind, and the pallas_call line of each fixture
+MUTANT_FINDINGS = {
+    "overlapping": ([("R5", "ERROR", "write race"),
+                     ("R5", "WARN", "coverage gap")], 59),
+    "gapped": ([("R5", "WARN", "coverage gap")], 72),
+    "oob": ([("R5", "ERROR", "out-of-bounds read")], 85),
+    "dead_lane": ([("R8", "WARN", "dead lane")], 105),
+}
+FINDING_KINDS = ("write race", "coverage gap", "out-of-bounds read",
+                 "dead lane")
+
+
+def run_rules(launches):
+    """R3/R5/R7/R8 over recorded launches, the launches of a wrapper call
+    made again with the same arguments replayed once (the rules are
+    functions of the facts alone); returns (report, distinct calls)."""
+    from repro_torch.analysis import check_artifacts
+    seen = set()
+    facts = []
+    for f in launches:
+        if (f.call, f.step) not in seen:
+            seen.add((f.call, f.step))
+            facts.append(f)
+    rep = check_artifacts("launches", facts, rules=("R3", "R5", "R7", "R8"))
+    return rep, {f.call for f in facts}
+
+
+def signature(report):
+    return sorted((f.rule, f.severity.name,
+                   next(k for k in FINDING_KINDS if k in f.message))
+                  for f in report.findings)
+
+
+def phase_analysis(seed: int, full_width: dict) -> dict:
+    """The analyser's path on the card (see the module docstring, 9)."""
+    from repro_torch.analysis import record
+    from repro_torch.analysis.fixtures import mutant_launches
+    from repro_torch.analysis.kernelcheck import MAX_GRID_POINTS
+    from repro_torch.analysis.launches import distinct_calls, plan_of
+    from repro_torch.analysis.probe import coverage_probe
+    from repro_torch.convert import grid_rows, make_fig1_data
+    from repro_torch.core import HomeMesh, Locale, LocalisationPolicy
+    from repro_torch.kernels import fixtures, ops
+    from repro_torch.kernels.local_sort import TILE
+
+    t0 = time.perf_counter()
+    out = {"mutants": {}, "workloads": {}}
+    all_recorded = []
+
+    # 1-2. the mutants: the counted run drives each through the analyser's
+    # path (run under record(), rules on the recorded launch), then each
+    # is held against its plain version
+    rows, cols = 4, 128
+    x = torch.from_numpy(make_fig1_data((rows, cols), "float32", seed)).cuda()
+    ops.reset_launches()
+    reports = {}
+    for kind in fixtures.KINDS:
+        _, launches = mutant_launches(kind, x=x)
+        all_recorded += launches
+        reports[kind] = run_rules(launches)[0]
+    torch.cuda.synchronize()
+    counted = ops.launch_counts()
+    for kind, fn in fixtures.MUTANTS.items():
+        need(counted[fn.__name__] == 1,
+             f"analysis: {fn.__name__} launches {counted}")
+        want = MUTANT_FINDINGS[kind][0]
+        need(signature(reports[kind]) == want,
+             f"analysis: {kind} findings {signature(reports[kind])}, the "
+             f"reference's {want}:\n{reports[kind].format()}")
+    for kind, fn in fixtures.MUTANTS.items():
+        got, entered = fixtures.run_mutant(kind, x)
+        plain, plain_entered = fixtures.mutant_reference(kind, x)
+        need(int(entered) == 0 and int(plain_entered) == 0,
+             f"analysis: {kind} entered the dead lane {int(entered)} times")
+        rec = {"entered": int(entered)}
+        if kind == "overlapping":
+            # a real race: every element of row k is x[2k]'s or x[2k+1]'s
+            # (so its error against the nearer writer is 0)
+            winners = {"whole_first": 0, "whole_second": 0, "mixed": 0}
+            for _ in range(100):
+                got, _ = fixtures.run_mutant(kind, x)
+                for k in range(rows // 2):
+                    a = bits(got[k]) == bits(x[2 * k])
+                    b = bits(got[k]) == bits(x[2 * k + 1])
+                    need(bool((a | b).all()), f"analysis: overlapping row "
+                         f"{k} holds a value neither writer wrote")
+                    winners["whole_first" if bool(a.all()) else
+                            "whole_second" if bool(b.all()) else "mixed"] += 1
+                need(bool(torch.isnan(got[rows // 2:]).all()),
+                     "analysis: overlapping wrote a row no block maps to")
+            rec.update(winners=winners, mismatches=0, max_abs_err=0.0)
+        else:
+            rec.update(mismatches=mismatches(got, plain),
+                       max_abs_err=max_abs_err(got, plain))
+            need(rec["mismatches"] == 0,
+                 f"analysis: {kind} differs from its plain version")
+        src = fixtures._source(kind, x)
+        buf = torch.full_like(x, float("nan"))
+        ctr = torch.zeros(1, dtype=torch.int32, device=x.device)
+        grid, _ = fixtures.spec(kind, rows)
+        rec.update(
+            ms=graph_ms(lambda: fixtures._launch(kind, src, buf, ctr)),
+            launch_ms=cuda_ms(lambda: fixtures._launch(kind, src, buf, ctr),
+                              reps=100),
+            wrapper_ms=cuda_ms(lambda: fixtures.run_mutant(kind, x), reps=100),
+            plain_ms=cuda_ms(lambda: fixtures.mutant_reference(kind, x),
+                             reps=20),
+            bound_ms=(grid + rows) * cols * 4 / HBM_BYTES_PER_S * 1e3,
+            findings=[f.format() for f in reports[kind].findings])
+        out["mutants"][kind] = rec
+    say("phase analysis mutants: (4, 128) f32 on the card, findings "
+        + json.dumps({k: signature(r) for k, r in reports.items()})
+        + "; ms per launch in a CUDA graph / per launch from the host / "
+        "wrapper / plain / bound "
+        + json.dumps({k: [round(v["ms"], 5), round(v["launch_ms"], 5),
+                          round(v["wrapper_ms"], 5), round(v["plain_ms"], 4),
+                          v["bound_ms"]]
+                      for k, v in out["mutants"].items()})
+        + "; overlapping row winners over 100 launches "
+        + json.dumps(out["mutants"]["overlapping"]["winners"])
+        + f"; dead-lane entries {out['mutants']['dead_lane']['entered']}")
+
+    # 3. check_workload on the card, clean (each path's counted run: counts
+    # to 0 just before, read just after)
+    flat = Locale(HomeMesh({"data": 8}), "data", LocalisationPolicy())
+    hier = Locale(HomeMesh({"pod": 2, "data": 4}), ("pod", "data"),
+                  LocalisationPolicy.hierarchical(inner="hash"))
+    cells = [(f"{m}-{w}-{b or 'shard_map'}", loc, w, b)
+             for m, loc in (("flat", flat), ("hier", hier))
+             for w, b in (("sort", "constraint"), ("sort", "shard_map"),
+                          ("engine", None))]
+    cells.append(("flat-microbench", flat, "microbench", None))
+    for tag, locale, workload, backend in cells:
+        ops.reset_launches()
+        with record() as launches:
+            rep = locale.check(workload, backend=backend, logn=20)
+        counts = ops.launch_counts()
+        all_recorded += launches
+        kernel = "localised_copy" if workload == "microbench" else "local_sort"
+        need(counts[kernel] > 0, f"analysis {tag}: {kernel} not launched")
+        need(rep.clean, f"analysis {tag}: not clean:\n{rep.format()}")
+        out["workloads"][tag] = dict(launches=len(launches), counts={
+            k: v for k, v in counts.items() if v}, notes=rep.notes)
+    for tag, launches in full_width["attention"].items():
+        rep, _ = run_rules(launches)
+        need(rep.clean, f"analysis attention {tag}:\n{rep.format()}")
+        out["workloads"][f"attention-{tag}"] = dict(launches=len(launches))
+    say("phase analysis check_workload: clean on the card, launches "
+        + json.dumps({k: v["launches"] for k, v in out["workloads"].items()}))
+
+    # 4. the rules over every launch of the full-width runs
+    full = [f for group in (full_width["flagship"], full_width["fig1"],
+                            *full_width["attention"].values())
+            for f in group]
+    rep, calls = run_rules(full)
+    capped = sum(1 for f in full if f.blocks > MAX_GRID_POINTS)
+    out["full_width"] = dict(launches=len(full), distinct_calls=len(calls),
+                             skipped_over_cap=capped,
+                             findings=[f.format() for f in rep.findings],
+                             notes=rep.notes)
+    need(capped == 0 and rep.clean,
+         f"analysis full width: {capped} launches over the grid cap, "
+         f"findings:\n{rep.format()}")
+    say(f"phase analysis full width: {len(full)} launches of the n = 100 M "
+        f"sorts, the 100 M Fig-1 run and the attention cells checked "
+        f"({len(calls)} distinct calls, each replayed once); "
+        f"{capped} skipped over the grid cap; "
+        f"{len(rep.findings)} findings")
+
+    # 5. every call recorded (and bitonic_sort's shapes): Python plan ==
+    # the C entry's dry run, and the coverage probe of its tile maps
+    with record() as bit:
+        for L in (1024, TILE):
+            ops.bitonic_sort(torch.from_numpy(
+                grid_rows("rand_float", L, 8, seed)).cuda())
+    probes = {}
+    for call in distinct_calls(all_recorded + full + bit + UNTIMED):
+        module, args = call
+        mod = sys.modules[module]
+        py = [f.launch_tuple() for f in plan_of(call)]
+        c = mod.c_plan(*args)
+        need(c == py, f"analysis: plan of {call} differs from the C entry's "
+                      f"dry run:\n python {py[:4]}...\n C {c[:4]}...")
+        probe = coverage_probe(call)
+        need(all(p["mismatches"] == 0 for p in probe.values()),
+             f"analysis: coverage probe of {call}: {probe}")
+        probes[f"{module.rsplit('.', 1)[-1]}{list(args)}"] = dict(
+            launches=len(py), probe=probe)
+        torch.cuda.empty_cache()
+    out["plans"] = probes
+    per_kernel = {}
+    for key, v in probes.items():
+        rec = per_kernel.setdefault(key.split("[")[0], [0, 0, 0])
+        rec[0] += 1
+        rec[1] += v["launches"]
+        rec[2] += sum(p["image"] for p in v["probe"].values())
+    say(f"phase analysis plans: {len(probes)} distinct calls recorded in "
+        f"the untimed runs of every phase; for each, the Python plan == the "
+        f"C dry run launch for launch and the coverage probe exact; "
+        f"[calls, launches, elements imaged] per kernel module "
+        + json.dumps(per_kernel))
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase analysis: {out['seconds']:.2f} s")
+    out["lines"] = [dict(
+        name=fn.__name__, route="cuda",
+        source="src/repro_torch/csrc/fixtures.cu",
+        replaces=f"src/repro/analysis/fixtures.py:{MUTANT_FINDINGS[kind][1]}",
+        launches=counted[fn.__name__],
+        max_abs_err=out["mutants"][kind]["max_abs_err"],
+        ms=out["mutants"][kind]["ms"],
+        plain_ms=out["mutants"][kind]["plain_ms"],
+        bound_ms=out["mutants"][kind]["bound_ms"], bound_by="bytes",
+        library_ms=None, mismatches=out["mutants"][kind]["mismatches"])
+        for kind, fn in fixtures.MUTANTS.items()]
     return out
 
 
@@ -814,6 +1098,11 @@ def main(argv=None) -> int:
     constraint = phase_constraint(args.seed)
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
+    full_width = {
+        "flagship": flat.pop("recorded") + hier.pop("recorded")
+        + constraint.pop("recorded"),
+        "fig1": fig1.pop("recorded"), "attention": attention.pop("recorded")}
+    analysis = phase_analysis(args.seed, full_width)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -821,13 +1110,15 @@ def main(argv=None) -> int:
     rows = [dict(kernels[name], launches=flat["launches"][name])
             for name in ("local_sort", "merge_split")]
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
+    rows += analysis.pop("lines")
     line = [{key: k[key] for key in keys} for k in rows]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
              "engine": engine, "flat": flat, "hier": hier,
-             "constraint": constraint, "fig1": fig1, "attention": attention},
+             "constraint": constraint, "fig1": fig1, "attention": attention,
+             "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))
     say(smi)

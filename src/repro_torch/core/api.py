@@ -19,6 +19,8 @@ The counterpart of `repro/core/api.py`, on a `HomeMesh`:
     ``locale.make(s, cb)``  a tensor born locally homed, built home by home.
     ``locale.workload(n)``  a registered workload (``"sort"``, ``"engine"``,
                             ``"microbench"``).
+    ``locale.check(n)``     homecheck: run the workload, check the kernel
+                            launches it makes (R3/R5-R8); a `Report`.
     ==================  ====================================================
 
 `Homed`
@@ -254,6 +256,25 @@ class Locale:
             raise ValueError(f"unknown workload {name!r}; registered: "
                              f"{sorted(_WORKLOADS)}") from None
         return builder(self, **kw)
+
+    def check(self, workload: str = "sort", *, rules=None, suppress=(),
+              **kw):
+        """Check a workload's kernel launches against this locale.
+
+        The homecheck hook (`repro_torch.analysis.check_workload`): runs
+        ``self.workload(workload, ...)`` once on a representative input
+        while recording every kernel launch it makes, and runs rules R3
+        (shared memory per block), R5 (write races, coverage, out-of-bounds
+        reads), R6 (exchange-network certification), R7 (index arithmetic,
+        sentinel) and R8 (dead ``blockIdx`` lanes) on them.  Returns an
+        `analysis.Report`; ``report.clean`` is the contract.  `rules`
+        selects a subset (e.g. ``rules=("R5", "R6")``; None = all, the
+        rules without a port counterpart yet noted as skipped); `suppress`
+        drops findings by rule id.
+        """
+        from repro_torch.analysis import check_workload
+        return check_workload(self, workload, rules=rules, suppress=suppress,
+                              **kw)
 
 
 # ---------------------------------------------------------------------------

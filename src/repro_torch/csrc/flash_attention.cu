@@ -36,7 +36,14 @@
 // runs on the fp32 pipe from shared memory, without tensor cores
 // (wgmma and TMA are later work), so it stays far from the bf16 bound.
 #include <cuda_bf16.h>
+//
+// Launch plan: the host code is one template over the executors of
+// launch_plan.cuh, so `repro_flash_attention_plan` is a dry run of exactly the
+// launches `repro_flash_attention` makes (held equal to the Python
+// `repro_torch.kernels.flash_attention.plan` on the card).
 #include <cuda_runtime.h>
+
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -215,37 +222,56 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int Sq, int Skv, int bq, int bk, int causal,
-           int window, float scale, cudaStream_t st) {
+// The host code, once for launching and for planning (launch_plan.cuh).
+template <typename T, int HD, class Exec>
+int run_typed(Exec& ex, const void* q, const void* k, const void* v, void* out,
+              int B, int H, int KV, int Sq, int Skv, int bq, int bk, int causal,
+              int window, float scale, cudaStream_t st) {
   const size_t smem = (size_t)(bq + 2 * bk) * (HD + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + bq - 1) / bq), (unsigned)H, (unsigned)B);
-  fa_kernel<T, HD><<<grid, (bq / ROWS_PER_WARP) * 32, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KV, Sq, Skv, bq, bk,
-      causal, window, scale);
-  return (int)cudaGetLastError();
+  const int threads = (bq / ROWS_PER_WARP) * 32;
+  return ex("fa_kernel", (const void*)fa_kernel<T, HD>, grid, threads, smem,
+            [&] {
+              const cudaError_t e = cudaFuncSetAttribute(
+                  fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  (int)smem);
+              if (e != cudaSuccess) return e;
+              fa_kernel<T, HD><<<grid, threads, smem, st>>>(
+                  (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KV, Sq,
+                  Skv, bq, bk, causal, window, scale);
+              return cudaSuccess;
+            });
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int KV, int Sq, int Skv, int hd, int bq, int bk,
+template <typename T, class Exec>
+int dispatch(Exec& ex, const void* q, const void* k, const void* v, void* out,
+             int B, int H, int KV, int Sq, int Skv, int hd, int bq, int bk,
              int causal, int window, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                  causal, window, scale, st);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                  causal, window, scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                  causal, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                    causal, window, scale, st);
+    case 16: return run_typed<T, 16>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                     bk, causal, window, scale, st);
+    case 32: return run_typed<T, 32>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                     bk, causal, window, scale, st);
+    case 64: return run_typed<T, 64>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                     bk, causal, window, scale, st);
+    case 128: return run_typed<T, 128>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                       bk, causal, window, scale, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <class Exec>
+int run(Exec& ex, const void* q, const void* k, const void* v, void* out,
+        int B, int H, int KV, int Sq, int Skv, int hd, int bq, int bk,
+        int causal, int window, int is_bf16, float scale, cudaStream_t st) {
+  if (bq % ROWS_PER_WARP || bq > 128 || bq < 16 || bk % 32 || bk > 128 ||
+      bk < 32 || H % KV)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(ex, q, k, v, out, B, H, KV, Sq, Skv, hd, bq,
+                                   bk, causal, window, scale, st);
+  return dispatch<float>(ex, q, k, v, out, B, H, KV, Sq, Skv, hd, bq, bk,
+                         causal, window, scale, st);
 }
 
 }  // namespace
@@ -262,13 +288,20 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int KV, int Sq, int Skv, int hd, int bq,
                                      int bk, int causal, int window,
                                      int is_bf16, float scale, void* stream) {
-  if (bq % ROWS_PER_WARP || bq > 128 || bq < 16 || bk % 32 || bk > 128 ||
-      bk < 32 || H % KV)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, H, KV, Sq, Skv, hd, bq,
-                                   bk, causal, window, scale, st);
-  return dispatch<float>(q, k, v, out, B, H, KV, Sq, Skv, hd, bq, bk, causal,
-                         window, scale, st);
+  Launcher ex;
+  return run(ex, q, k, v, out, B, H, KV, Sq, Skv, hd, bq, bk, causal, window,
+             is_bf16, scale, (cudaStream_t)stream);
+}
+
+// The dry run of repro_flash_attention: fills out[0..max) with the launches
+// it would make, launches nothing; returns their count or minus a CUDA error.
+extern "C" int repro_flash_attention_plan(int B, int H, int KV, int Sq,
+                                          int Skv, int hd, int bq, int bk,
+                                          int causal, int window, int is_bf16,
+                                          ReproLaunch* out, int max) {
+  Planner ex{out, max, 0};
+  const int err = run(ex, nullptr, nullptr, nullptr, nullptr, B, H, KV, Sq, Skv,
+                      hd, bq, bk, causal, window, is_bf16, 1.f,
+                      (cudaStream_t)0);
+  return plan_result(err, ex);
 }

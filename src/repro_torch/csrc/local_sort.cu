@@ -34,8 +34,16 @@
 // rows * L/2 * log2(L) * (log2(L)+1) / 2 compare-exchanges, data-independent.
 // This first version is plain: every global substage moves the whole
 // scratch through device memory, and no warp shuffles are used.
+//
+// Launch plan: the host code is one template over the executors of
+// launch_plan.cuh, so `repro_local_sort_plan` is a dry run of exactly the
+// launches `repro_local_sort` makes (held equal to the Python
+// `repro_torch.kernels.local_sort.plan` on the card).
 #include <cuda_runtime.h>
+
 #include <climits>
+
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -151,60 +159,97 @@ extern "C" const char* repro_local_sort_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// in, out: (rows, C) contiguous int32 bits; scratch: (rows, L) int32 when
-// L > TILE, else unused.  L is the next power of two >= C.  Launches on
-// `stream`, does not synchronise, returns cudaGetLastError().
-extern "C" int repro_local_sort(const void* in, void* out, void* scratch,
-                                long long rows, long long C, long long L,
-                                int is_float, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+namespace {
+
+// The host code, once for launching and for planning (launch_plan.cuh).
+template <class Exec>
+int run(Exec& ex, const int* x, int* y, int* sc, long long rows, long long C,
+        long long L, int is_float, cudaStream_t st) {
   const int pad_key = is_float ? 0x7f800000 : INT_MAX;  // key of +inf / BIG
-  const int* x = (const int*)in;
-  int* y = (int*)out;
-  cudaError_t err;
+  int err;
   if (rows == 0) return 0;
   if (L <= TILE) {
     const size_t smem = (size_t)L * sizeof(int);
-    err = cudaFuncSetAttribute(sort_rows_smem,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
     const long long half = L / 2;
     const int threads = half >= SORT_THREADS ? SORT_THREADS
                         : (half > 32 ? (int)half : 32);
-    sort_rows_smem<<<(unsigned)rows, threads, smem, st>>>(x, y, C, (int)L,
-                                                          is_float, pad_key);
-    return (int)cudaGetLastError();
+    return ex("sort_rows_smem", (const void*)sort_rows_smem,
+              dim3((unsigned)rows), threads, smem, [&] {
+                const cudaError_t e = cudaFuncSetAttribute(
+                    sort_rows_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                    (int)smem);
+                if (e != cudaSuccess) return e;
+                sort_rows_smem<<<(unsigned)rows, threads, smem, st>>>(
+                    x, y, C, (int)L, is_float, pad_key);
+                return cudaSuccess;
+              });
   }
-  int* sc = (int*)scratch;
   const size_t smem = (size_t)TILE * sizeof(int);
-  err = cudaFuncSetAttribute(tile_sort,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(tile_finish,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const long long tile_blocks = rows * (L / TILE);
-  tile_sort<<<(unsigned)tile_blocks, SORT_THREADS, smem, st>>>(
-      x, sc, C, L, is_float, pad_key);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  err = ex("tile_sort", (const void*)tile_sort, dim3((unsigned)tile_blocks),
+           SORT_THREADS, smem, [&] {
+             const cudaError_t e = cudaFuncSetAttribute(
+                 tile_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                 (int)smem);
+             if (e != cudaSuccess) return e;
+             tile_sort<<<(unsigned)tile_blocks, SORT_THREADS, smem, st>>>(
+                 x, sc, C, L, is_float, pad_key);
+             return cudaSuccess;
+           });
+  if (err) return err;
   const long long pairs = rows * (L / 2);
+  const unsigned step_blocks = (unsigned)blocks_for(pairs, STEP_THREADS);
   for (long long k = 2LL * TILE; k <= L; k <<= 1) {
     for (long long j = k >> 1; j >= TILE; j >>= 1) {
-      global_step<<<(unsigned)blocks_for(pairs, STEP_THREADS), STEP_THREADS, 0,
-                    st>>>(sc, L / 2, pairs, k, j);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
+      err = ex("global_step", (const void*)global_step, dim3(step_blocks),
+               STEP_THREADS, 0, [&] {
+                 global_step<<<step_blocks, STEP_THREADS, 0, st>>>(
+                     sc, L / 2, pairs, k, j);
+                 return cudaSuccess;
+               });
+      if (err) return err;
     }
-    tile_finish<<<(unsigned)tile_blocks, SORT_THREADS, smem, st>>>(sc, L, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    err = ex("tile_finish", (const void*)tile_finish,
+             dim3((unsigned)tile_blocks), SORT_THREADS, smem, [&] {
+               const cudaError_t e = cudaFuncSetAttribute(
+                   tile_finish, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   (int)smem);
+               if (e != cudaSuccess) return e;
+               tile_finish<<<(unsigned)tile_blocks, SORT_THREADS, smem, st>>>(
+                   sc, L, k);
+               return cudaSuccess;
+             });
+    if (err) return err;
   }
   const long long total = rows * C;
-  copy_out<<<(unsigned)blocks_for(total, STEP_THREADS), STEP_THREADS, 0, st>>>(
-      sc, y, C, L, total, is_float);
-  return (int)cudaGetLastError();
+  const unsigned copy_blocks = (unsigned)blocks_for(total, STEP_THREADS);
+  return ex("copy_out", (const void*)copy_out, dim3(copy_blocks), STEP_THREADS,
+            0, [&] {
+              copy_out<<<copy_blocks, STEP_THREADS, 0, st>>>(sc, y, C, L, total,
+                                                             is_float);
+              return cudaSuccess;
+            });
+}
+
+}  // namespace
+
+// in, out: (rows, C) contiguous int32 bits; scratch: (rows, L) int32 when
+// L > TILE, else unused.  L is the next power of two >= C.  Launches on
+// `stream`, does not synchronise, returns the first CUDA error (0 if none).
+extern "C" int repro_local_sort(const void* in, void* out, void* scratch,
+                                long long rows, long long C, long long L,
+                                int is_float, void* stream) {
+  Launcher ex;
+  return run(ex, (const int*)in, (int*)out, (int*)scratch, rows, C, L,
+             is_float, (cudaStream_t)stream);
+}
+
+// The dry run of repro_local_sort: fills out[0..max) with the launches it
+// would make, launches nothing; returns their count or minus a CUDA error.
+extern "C" int repro_local_sort_plan(long long rows, long long C, long long L,
+                                     int is_float, ReproLaunch* out, int max) {
+  Planner ex{out, max, 0};
+  const int err = run(ex, nullptr, nullptr, nullptr, rows, C, L, is_float,
+                      (cudaStream_t)0);
+  return plan_result(err, ex);
 }

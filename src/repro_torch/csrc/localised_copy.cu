@@ -22,8 +22,15 @@
 // Below R ~ 80 (f32) the kernel is bound by bytes, above it by the fp32
 // pipe; the passes never touch memory, which is the Fig-1 point.
 #include <cuda_bf16.h>
+//
+// Launch plan: the host code is one template over the executors of
+// launch_plan.cuh, so `repro_localised_copy_plan` is a dry run of exactly the
+// launches `repro_localised_copy` makes (held equal to the Python
+// `repro_torch.kernels.localised_copy.plan` on the card).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -75,23 +82,51 @@ extern "C" const char* repro_localised_copy_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x, y: n contiguous f32 (is_bf16 = 0) or bf16 (is_bf16 = 1) values on the
-// device.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
-extern "C" int repro_localised_copy(const void* x, void* y, long long n,
-                                    int reps, int is_bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+namespace {
+
+// The host code, once for launching and for planning (launch_plan.cuh).
+// `vec`: both buffers 16-byte aligned, so the 16-byte vector loop runs.
+template <class Exec>
+int run(Exec& ex, const void* x, void* y, long long n, int reps, int is_bf16,
+        int vec, cudaStream_t st) {
   if (n == 0) return 0;
-  const int vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
   const long long per = is_bf16 ? 8 : 4;
   const long long work = vec ? (n + per - 1) / per : n;
   long long blocks = (work + LC_THREADS - 1) / LC_THREADS;
   if (blocks > LC_MAX_BLOCKS) blocks = LC_MAX_BLOCKS;
+  const dim3 grid((unsigned)blocks);
   if (is_bf16)
-    lc_bf16<<<(unsigned)blocks, LC_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, reps, vec);
-  else
-    lc_f32<<<(unsigned)blocks, LC_THREADS, 0, st>>>((const float*)x, (float*)y,
-                                                    n, reps, vec);
-  return (int)cudaGetLastError();
+    return ex("lc_bf16", (const void*)lc_bf16, grid, LC_THREADS, 0, [&] {
+      lc_bf16<<<grid, LC_THREADS, 0, st>>>((const __nv_bfloat16*)x,
+                                           (__nv_bfloat16*)y, n, reps, vec);
+      return cudaSuccess;
+    });
+  return ex("lc_f32", (const void*)lc_f32, grid, LC_THREADS, 0, [&] {
+    lc_f32<<<grid, LC_THREADS, 0, st>>>((const float*)x, (float*)y, n, reps,
+                                        vec);
+    return cudaSuccess;
+  });
+}
+
+}  // namespace
+
+// x, y: n contiguous f32 (is_bf16 = 0) or bf16 (is_bf16 = 1) values on the
+// device.  Launches on `stream`, does not synchronise, returns the CUDA
+// error code (0 if none).
+extern "C" int repro_localised_copy(const void* x, void* y, long long n,
+                                    int reps, int is_bf16, void* stream) {
+  Launcher ex;
+  const int vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
+  return run(ex, x, y, n, reps, is_bf16, vec, (cudaStream_t)stream);
+}
+
+// The dry run of repro_localised_copy for buffers whose alignment gives
+// `vec`: fills out[0..max) with the launches it would make, launches
+// nothing; returns their count or minus a CUDA error.
+extern "C" int repro_localised_copy_plan(long long n, int reps, int is_bf16,
+                                         int vec, ReproLaunch* out, int max) {
+  Planner ex{out, max, 0};
+  const int err = run(ex, nullptr, nullptr, n, reps, is_bf16, vec,
+                      (cudaStream_t)0);
+  return plan_result(err, ex);
 }

@@ -20,13 +20,21 @@
 //
 // Bound on an H100: both runs read once and the kept half written once,
 // 3 * rows * C * 4 bytes over 3.35 TB/s; the compare work is O(rows * C).
+//
+// Launch plan: the host code is one template over the executors of
+// launch_plan.cuh, so `repro_merge_split_plan` is a dry run of exactly the
+// launches `repro_merge_split` makes (held equal to the Python
+// `repro_torch.kernels.merge_split.plan` on the card).
 #include <cuda_runtime.h>
+
+#include "launch_plan.cuh"
 
 namespace {
 
 constexpr int MS_THREADS = 256;
 constexpr int MS_ITEMS = 8;
 constexpr int MS_TILE = MS_THREADS * MS_ITEMS;   // output ranks per block
+constexpr long long MAX_ROWS = 65535;            // rows ride on gridDim.y
 
 // Number of elements of a among the first k outputs of the stable merge.
 template <typename T>
@@ -90,20 +98,48 @@ extern "C" const char* repro_merge_split_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+namespace {
+
+template <typename T, class Exec>
+int run_typed(Exec& ex, const void* a, const void* b, const void* keep,
+              void* out, long long rows, long long C, cudaStream_t st) {
+  const dim3 grid((unsigned)((C + MS_TILE - 1) / MS_TILE), (unsigned)rows);
+  return ex("merge_split_kernel", (const void*)merge_split_kernel<T>, grid,
+            MS_THREADS, 0, [&] {
+              merge_split_kernel<T><<<grid, MS_THREADS, 0, st>>>(
+                  (const T*)a, (const T*)b, (const int*)keep, (T*)out, C);
+              return cudaSuccess;
+            });
+}
+
+// The host code, once for launching and for planning (launch_plan.cuh).
+template <class Exec>
+int run(Exec& ex, const void* a, const void* b, const void* keep, void* out,
+        long long rows, long long C, int is_float, cudaStream_t st) {
+  if (rows == 0 || C == 0) return 0;
+  if (rows > MAX_ROWS) return (int)cudaErrorInvalidConfiguration;
+  if (is_float) return run_typed<float>(ex, a, b, keep, out, rows, C, st);
+  return run_typed<int>(ex, a, b, keep, out, rows, C, st);
+}
+
+}  // namespace
+
 // a, b, out: (rows, C) contiguous int32 or float32; keep: (rows,) int32 on
-// the device.  rows <= 65535.  Launches on `stream`, does not synchronise,
-// returns cudaGetLastError().
+// the device.  rows <= MAX_ROWS (gridDim.y).  Launches on `stream`, does not
+// synchronise, returns the CUDA error code (0 if none).
 extern "C" int repro_merge_split(const void* a, const void* b, const void* keep,
                                  void* out, long long rows, long long C,
                                  int is_float, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (rows == 0 || C == 0) return 0;
-  const dim3 grid((unsigned)((C + MS_TILE - 1) / MS_TILE), (unsigned)rows);
-  if (is_float)
-    merge_split_kernel<float><<<grid, MS_THREADS, 0, st>>>(
-        (const float*)a, (const float*)b, (const int*)keep, (float*)out, C);
-  else
-    merge_split_kernel<int><<<grid, MS_THREADS, 0, st>>>(
-        (const int*)a, (const int*)b, (const int*)keep, (int*)out, C);
-  return (int)cudaGetLastError();
+  Launcher ex;
+  return run(ex, a, b, keep, out, rows, C, is_float, (cudaStream_t)stream);
+}
+
+// The dry run of repro_merge_split: fills out[0..max) with the launches it
+// would make, launches nothing; returns their count or minus a CUDA error.
+extern "C" int repro_merge_split_plan(long long rows, long long C, int is_float,
+                                      ReproLaunch* out, int max) {
+  Planner ex{out, max, 0};
+  const int err = run(ex, nullptr, nullptr, nullptr, nullptr, rows, C, is_float,
+                      (cudaStream_t)0);
+  return plan_result(err, ex);
 }

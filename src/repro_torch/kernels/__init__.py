@@ -5,6 +5,11 @@ the plain PyTorch version, a CUDA tensor to the kernel (built from
 ``repro_torch/csrc`` at first use, see `_build`), and anything else raises.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``launches``); `ops.reset_launches` / `ops.launch_counts` read them all.
+Each kernel module also states the launches it makes for a shape as data
+(``plan``, `repro_torch.analysis.launches`), hands them to an open
+`launches.record()` on either device, and on the card reads the same list
+from its C entry's dry run (``c_plan``) and runs a poisoned-output call for
+the coverage probe (``probe``).
 """
 
 # Dynamic shared memory one block may use on an H100 (227 KB of the SM's

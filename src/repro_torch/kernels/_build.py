@@ -7,10 +7,15 @@ a shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 The output goes to ``build/repro_torch/`` at the root of the checkout and
-is named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  All sources are compiled
+is named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is.  All sources are compiled
 in parallel (one ``nvcc`` each).  A failed build raises with the compiler's
 output.  Nothing here runs when the module is imported.
+
+Every source has a dry-run twin of its launch entry, ``repro_<name>_plan``
+(``csrc/launch_plan.cuh``): the same host code, recording each launch it
+would make instead of making it.  `c_plan` reads it.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,7 +53,10 @@ def sources() -> Tuple[str, ...]:
 
 
 def _target(name: str) -> Path:
-    text = (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    text += " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -106,3 +114,30 @@ def check(rc: int, lib: ctypes.CDLL, error_fn: str, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {rc} "
                            f"({fn(rc).decode(errors='replace')})")
+
+
+class Launch(ctypes.Structure):
+    """One launch as a plan twin reports it (`ReproLaunch` of
+    ``csrc/launch_plan.cuh``)."""
+    _fields_ = [("name", ctypes.c_char * 32), ("grid", ctypes.c_uint * 3),
+                ("threads", ctypes.c_int), ("smem_static", ctypes.c_int),
+                ("smem_dynamic", ctypes.c_int)]
+
+
+def c_plan(lib: ctypes.CDLL, name: str, *args) -> List[Tuple]:
+    """The launches the C entry ``repro_<name>`` would make for `args`, from
+    its dry-run twin ``repro_<name>_plan``: a list of ``(kernel, (gx, gy,
+    gz), threads, static smem, dynamic smem)``.  Needs a card (the static
+    shared memory is read from the compiled kernels)."""
+    fn = getattr(lib, f"repro_{name}_plan")
+    fn.restype = ctypes.c_int
+    cap = 64
+    while True:
+        buf = (Launch * cap)()
+        n = fn(*args, buf, cap)
+        if n < 0:
+            check(-n, lib, f"repro_{name}_error", f"{name} plan")
+        if n <= cap:
+            return [(r.name.decode(), tuple(r.grid), r.threads, r.smem_static,
+                     r.smem_dynamic) for r in buf[:n]]
+        cap = n

@@ -68,14 +68,17 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     """Row-wise sort of (chunks, L), L a power of two.
 
     CPU: `bitonic_stages`.  CUDA: the `local_sort` kernel's device code
-    (`csrc/local_sort.cu`), counted in ``bitonic_sort.launches``.
+    (`csrc/local_sort.cu`), counted in ``bitonic_sort.launches``; its
+    launches are `local_sort.plan`'s.
     """
     if x.dim() != 2 or x.shape[1] & (x.shape[1] - 1) or x.shape[1] == 0:
         raise ValueError(f"bitonic_sort takes (chunks, L) with L a power of "
                          f"2, got shape {tuple(x.shape)}")
+    from repro_torch.analysis.launches import dtype_name, note
+    from repro_torch.kernels.local_sort import launch_local_sort, plan
+    note(lambda: plan(x.shape[0], x.shape[1], dtype_name(x.dtype)))
     if _device(x, "bitonic_sort") == "cpu":
         return bitonic_stages(x)
-    from repro_torch.kernels.local_sort import launch_local_sort
     out = launch_local_sort(x)
     bitonic_sort.launches += 1
     return out

@@ -27,15 +27,24 @@ ends before the first key, or for the padding rows past Sq) averages the
 masked entries of its live tiles, as the reference does; that value
 depends on the tile sides, which the kernel rounds up (`kernel_tiles`).
 Every other row's masked entries are wiped by its first real score.
+
+`plan` states the kernel's one launch: a (q tiles, H, B) grid -- the
+reference's KV grid axis is a loop inside the block here -- with the KV
+tiles each block reads (its live ones), and the block's shared memory
+(`smem_bytes`); `c_plan` reads the same launch from the C entry's
+dry-run twin on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.launches import (LaunchFacts, OperandFacts,
+                                          dtype_name, note, stack_tiles)
 from repro_torch.kernels import SMEM_BYTES_PER_BLOCK, _build, _device
 
 NEG_INF = -1e30
@@ -61,6 +70,9 @@ def _lib() -> ctypes.CDLL:
     lib.repro_flash_attention.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                       ctypes.c_void_p])
+    lib.repro_flash_attention_plan.restype = ctypes.c_int
+    lib.repro_flash_attention_plan.argtypes = (
+        [ctypes.c_int] * 11 + [ctypes.POINTER(_build.Launch), ctypes.c_int])
     return lib
 
 
@@ -193,6 +205,90 @@ def smem_bytes(bq: int, bk: int, hd: int) -> int:
     return (bq + 2 * bk) * (hd + 1) * 4
 
 
+def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
+         block_q: int, block_k: int, causal: bool, window: int,
+         dtype: str) -> List[LaunchFacts]:
+    """The launch `repro_flash_attention` makes (no check of the kernel's
+    limits on hd and the blocks: R3 reads this plan for any tile sides).
+
+    Block (iq, h, b) reads q tile iq of head h, the live KV tiles of KV
+    head h // (H / KV) -- those that neither the causal mask nor the
+    window empties for its rows, as the kernel's loop skips them -- and
+    writes out tile iq of head h.
+    """
+    if B * H * Sq == 0 or Skv == 0:
+        return []
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
+    nq, nk = -(-Sq // bq), -(-Skv // bk)
+    first_q = np.arange(nq)[:, None] * bq
+    first_k = np.arange(nk)[None, :] * bk
+    live = np.ones((nq, nk), dtype=bool)
+    if causal:
+        live &= first_k <= first_q + bq - 1
+    if window:
+        live &= first_k + bk - 1 > first_q - window
+    G = H // KV
+
+    def q_tile(bx, by, bz):
+        return stack_tiles(bx, bz, by, bx, 0)
+
+    def kv_tiles(bx, by, bz):
+        blk, ik = np.nonzero(live[bx])
+        return blk, stack_tiles(blk, bz[blk], by[blk] // G, ik, 0)
+
+    kv = functools.partial(OperandFacts, "in", array_shape=(B, KV, Skv, hd),
+                           dtype=dtype, tile_shape=(1, 1, bk, hd),
+                           tile_map=kv_tiles)
+    return [LaunchFacts(
+        "fa_kernel", (nq, H, B), (bq // 16) * 32, 0, smem_bytes(bq, bk, hd),
+        "int32",
+        inputs=(OperandFacts("in", "q", (B, H, Sq, hd), dtype, (1, 1, bq, hd),
+                             q_tile), kv(buffer="k"), kv(buffer="v")),
+        outputs=(OperandFacts("out", "out", (B, H, Sq, hd), dtype,
+                              (1, 1, bq, hd), q_tile),),
+        call=(__name__, (B, H, KV, Sq, Skv, hd, block_q, block_k, causal,
+                         window, dtype)))]
+
+
+def c_plan(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype):
+    """`plan`'s launch as the C entry's dry-run twin gives it (card)."""
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
+    return _build.c_plan(_lib(), "flash_attention", B, H, KV, Sq, Skv, hd, bq,
+                         bk, int(causal), int(window),
+                         int(dtype == "bfloat16"))
+
+
+def _launch(q, k, v, out, causal: bool, window: int, block_q: int,
+            block_k: int) -> None:
+    """Run the C entry on CUDA tensors (uncounted, unrecorded)."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KV, Sq, Skv, hd, bq, bk, int(causal), int(window),
+            int(q.dtype == torch.bfloat16), hd ** -0.5, stream)
+    _build.check(rc, lib, "repro_flash_attention_error", "flash_attention")
+
+
+def probe(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype,
+          device="cuda") -> Dict[str, torch.Tensor]:
+    """One launch on normal inputs (finite outputs) into an output filled
+    with `analysis.probe.poisoned`; returns the output."""
+    from repro_torch.analysis.probe import poisoned
+    gen = torch.Generator().manual_seed(B * H * Sq + Skv)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, H, Sq, hd, generator=gen).to(dt).to(device)
+    k, v = (torch.randn(B, KV, Skv, hd, generator=gen).to(dt).to(device)
+            for _ in range(2))
+    out = poisoned((B, H, Sq, hd), dt, device)
+    _launch(q, k, v, out, causal, window, block_q, block_k)
+    return {"out": out}
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """q (B, H, Sq, hd), k/v (B, KV, Skv, hd) -> (B, H, Sq, hd).
@@ -202,6 +298,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     hd in `HEAD_DIMS` and blocks up to `MAX_BLOCK`.
     """
     _check(q, k, v, window)
+    note(lambda: plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                      k.shape[2], q.shape[3], block_q, block_k, causal,
+                      window, dtype_name(q.dtype)))
     if _device(q, "flash_attention") == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, window=window,
                                          block_q=block_q, block_k=block_k)
@@ -222,14 +321,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out.zero_()
     bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
     assert smem_bytes(bq, bk, hd) <= SMEM_BYTES_PER_BLOCK
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KV, Sq, Skv, hd, bq, bk, int(causal), int(window),
-            int(q.dtype == torch.bfloat16), hd ** -0.5, stream)
-    _build.check(rc, lib, "repro_flash_attention_error", "flash_attention")
+    _launch(q, k, v, out, causal, window, block_q, block_k)
     flash_attention.launches += 1
     return out
 

@@ -11,15 +11,21 @@ import torch
 
 from repro_torch.core.sort import merge_sorted
 from repro_torch.kernels.bitonic_sort import bitonic_sort
+from repro_torch.kernels.fixtures import (dead_lane_kernel, gapped_index_map,
+                                          oob_index_map, overlapping_index_map)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.local_sort import local_sort
 from repro_torch.kernels.localised_copy import localised_copy
 from repro_torch.kernels.merge_split import merge_split
 
-#: every counted wrapper, by name
+#: every counted wrapper, by name (the last four: the analysis mutants)
 WRAPPERS = {"local_sort": local_sort, "merge_split": merge_split,
             "bitonic_sort": bitonic_sort, "localised_copy": localised_copy,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "overlapping_index_map": overlapping_index_map,
+            "gapped_index_map": gapped_index_map,
+            "oob_index_map": oob_index_map,
+            "dead_lane_kernel": dead_lane_kernel}
 
 
 def chunked_sort(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +54,7 @@ def merged_elems() -> int:
     return WRAPPERS["merge_split"].merged_elems
 
 
-__all__ = ["bitonic_sort", "chunked_sort", "flash_attention",
-           "launch_counts", "local_sort", "localised_copy", "merge_split",
-           "merged_elems", "reset_launches"]
+__all__ = ["bitonic_sort", "chunked_sort", "dead_lane_kernel",
+           "flash_attention", "gapped_index_map", "launch_counts",
+           "local_sort", "localised_copy", "merge_split", "merged_elems",
+           "oob_index_map", "overlapping_index_map", "reset_launches"]

@@ -308,4 +308,7 @@ def test_cpu_engine_launches_no_kernel():
               case_policy(8))
     assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0,
                                    "bitonic_sort": 0, "localised_copy": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "overlapping_index_map": 0,
+                                   "gapped_index_map": 0, "oob_index_map": 0,
+                                   "dead_lane_kernel": 0}

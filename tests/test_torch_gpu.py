@@ -9,7 +9,10 @@ This file imports torch, numpy and the port only (no JAX), so it runs on a
 machine that has no JAX.  Tolerance: bit-exact, floats compared as int32
 bit patterns, except `flash_attention`, held to its plain version within
 `KERNEL_TOL`: rtol = atol = 2e-5 (float32), and one bfloat16 rounding step
-(rtol = 2**-7, atol = 1e-5) for bfloat16: its sums run in another order.
+(rtol = 2**-7, atol = 1e-5) for bfloat16: its sums run in another order;
+and the raced rows of the `overlapping` mutant, a real race on the card,
+each element one of its two writers'.  Each kernel's Python launch plan
+must equal its C entry's dry run, and its coverage probe be exact.
 """
 import numpy as np
 import pytest
@@ -87,7 +90,10 @@ def test_wrappers_count_kernel_launches_and_raise_on_bad_input():
     ops.merge_split(x, x, True)
     assert ops.launch_counts() == {"local_sort": 1, "merge_split": 1,
                                    "bitonic_sort": 0, "localised_copy": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "overlapping_index_map": 0,
+                                   "gapped_index_map": 0, "oob_index_map": 0,
+                                   "dead_lane_kernel": 0}
     assert ops.merged_elems() == x.numel()
     with pytest.raises(ValueError, match="contiguous"):
         ops.local_sort(x.t())
@@ -220,3 +226,61 @@ def test_constraint_sort_on_card_matches_cpu(case):
         want = Locale(HomeMesh({"data": 8}, device="cpu"), "data",
                       policy).workload("sort")(x)
         np.testing.assert_array_equal(bits(got), bits(want))
+
+
+# ---------------------------------------------------------------------------
+# the analysis slice: the mutants, the launch plans, the coverage probe
+# ---------------------------------------------------------------------------
+MUTANT_KINDS = ("overlapping", "gapped", "oob", "dead_lane")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MUTANT_KINDS)
+def test_mutant_kernel_matches_plain_on_card(kind):
+    _need_card()
+    from repro_torch.kernels.fixtures import (MUTANTS, mutant_reference,
+                                              run_mutant)
+    x = torch.from_numpy(make_fig1_data((4, 128), "float32", 5))
+    want, want_entered = mutant_reference(kind, x)
+    ops.reset_launches()
+    got, entered = run_mutant(kind, x.cuda())
+    assert MUTANTS[kind].launches == 1
+    assert int(entered) == 0 and int(want_entered) == 0
+    got = got.cpu()
+    if kind == "overlapping":
+        # a real race: each element of row k is one of its two writers'
+        for k in range(2):
+            one = (bits(got[k]) == bits(x[2 * k])) | \
+                (bits(got[k]) == bits(x[2 * k + 1]))
+            assert one.all()
+        assert torch.isnan(got[2:]).all()
+    else:
+        np.testing.assert_array_equal(bits(got), bits(want))
+
+
+PLAN_CASES = {
+    "local_sort": [(8, 1000, "int32"), (3, 3 * TILE + 7, "float32")],
+    "merge_split": [(8, 5000, "int32"), (16, 2049, "float32")],
+    "localised_copy": [(1003, 3, "bfloat16", True), (4097, 1, "float32",
+                                                     False)],
+    "flash_attention": [(1, 4, 2, 200, 200, 32, 64, 64, True, 0, "float32"),
+                        (1, 2, 2, 512, 512, 128, 128, 128, True, 64,
+                         "bfloat16")],
+    "fixtures": [(k, 4, 128) for k in MUTANT_KINDS],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(PLAN_CASES))
+def test_python_plan_equals_c_plan_and_probe(kernel):
+    _need_card()
+    import importlib
+
+    from repro_torch.analysis.probe import coverage_probe
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    for args in PLAN_CASES[kernel]:
+        want = [f.launch_tuple() for f in mod.plan(*args)]
+        assert mod.c_plan(*args) == want, args
+        probe = coverage_probe((mod.__name__, args))
+        assert all(p["mismatches"] == 0 for p in probe.values()), (args,
+                                                                   probe)

@@ -169,7 +169,10 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                                   merge_split_reference(a, b, True).numpy())
     assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0,
                                    "bitonic_sort": 0, "localised_copy": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "overlapping_index_map": 0,
+                                   "gapped_index_map": 0, "oob_index_map": 0,
+                                   "dead_lane_kernel": 0}
 
 
 def test_wrappers_reject_other_devices_and_dtypes():
@@ -185,8 +188,9 @@ def test_wrappers_reject_other_devices_and_dtypes():
 
 
 def test_build_names_every_source_by_content_hash(monkeypatch, tmp_path):
-    assert set(_build.sources()) == {"flash_attention", "local_sort",
-                                     "localised_copy", "merge_split"}
+    assert set(_build.sources()) == {"fixtures", "flash_attention",
+                                     "local_sort", "localised_copy",
+                                     "merge_split"}
     t = _build._target("local_sort")
     assert t.parent == _build.BUILD_DIR and t.suffix == ".so"
     assert t != _build._target("merge_split")
