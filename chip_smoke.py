@@ -9,8 +9,11 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
   1. device   — the card's name and `nvidia-smi` name and power limit;
   2. build    — every kernel of ``src/repro_torch/csrc`` built with nvcc;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                bit for bit (floats as int32 bits), on the property grid and
-                at the main path's shapes, with their times;
+                bit for bit (floats as int32 bits), on the property grid
+                (with row lengths that take `local_sort` through 1, 2, 3
+                and 6 merge passes) and at the main path's shapes, with
+                their times; `local_sort` at (8, 12.5 M) also by kernel
+                (tile pass, partitions, merge passes) from `torch.profiler`;
   4. engine   — the 8 Table-1 cases through
                 ``Locale(...).workload("sort", backend="shard_map")`` on 8
                 homes, checked against torch.sort, and held bit for bit
@@ -176,6 +179,52 @@ def median_ms(fn, x, calls: int = 3):
     return statistics.median(times), times
 
 
+#: the kernels of one `local_sort` call by the names the profiler gives
+#: them (a substring of the demangled name) and the pass each runs
+LOCAL_SORT_KERNELS = {"block_sort": "tile pass", "merge_partition":
+                      "partition", "merge_pass": "merge pass"}
+
+
+def kernel_breakdown(fn, kernels: dict) -> dict:
+    """Device milliseconds and launches of one call of fn() by kernel,
+    from `torch.profiler`'s `key_averages()`; where the profiler shows no
+    device time, the call's time by CUDA events instead, under "whole"."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        us = ev.cuda_time_total if us is None else us
+        for key, tag in kernels.items():
+            if key in ev.key and us:
+                rec = out.setdefault(tag, {"ms": 0.0, "launches": 0})
+                rec["ms"] += us / 1e3
+                rec["launches"] += ev.count
+    if not out:
+        return {"whole": {"ms": cuda_ms(fn, reps=1), "launches": None,
+                          "note": "the profiler showed no device time"}}
+    return out
+
+
+def transient_bytes(fn) -> int:
+    """Bytes one call of fn() asks the caching allocator for beyond what
+    it returns: the peak of the requested bytes during the call less
+    those still held after it, which include fn()'s output."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    y = fn()
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    del y
+    return (stats["requested_bytes.all.peak"]
+            - stats["requested_bytes.all.current"])
+
+
 def bits(t):
     return t.view(torch.int32)
 
@@ -211,11 +260,15 @@ def phase_kernels(seed: int) -> dict:
     from repro_torch.convert import GRID_NAMES, grid_rows, make_sort_data
     from repro_torch.kernels import ops
     from repro_torch.kernels.bitonic_sort import bitonic_stages
-    from repro_torch.kernels.local_sort import TILE, local_sort_reference
+    from repro_torch.kernels.local_sort import (TILE, local_sort_reference,
+                                                scratch_shapes)
+    from repro_torch.kernels.local_sort import plan as local_sort_plan
     from repro_torch.kernels.merge_split import merge_split_reference
 
     cuda = torch.device("cuda")
-    grid_c = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7)
+    # above TILE: 1, 2, 3 and 6 merge passes, odd run counts, ragged runs
+    grid_c = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7,
+              5 * TILE + 3, 37 * TILE + 11)
     bad = {"local_sort": 0, "merge_split": 0, "bitonic_sort": 0}
     cases = 0
     with untimed():
@@ -277,6 +330,19 @@ def phase_kernels(seed: int) -> dict:
     ls_ms = cuda_ms(lambda: ops.local_sort(x), reps=5)
     ls_plain_ms = cuda_ms(lambda: local_sort_reference(x), reps=1)
     ls_lib_ms = cuda_ms(lambda: torch.sort(x, dim=-1), reps=5)
+    ls_breakdown = kernel_breakdown(lambda: ops.local_sort(x), LOCAL_SORT_KERNELS)
+    ls_scratch = transient_bytes(lambda: ops.local_sort(x))
+    plan_scratch = sum(4 * math.prod(shape)
+                       for shape in scratch_shapes(rows, C).values())
+    need(ls_scratch == plan_scratch, f"local_sort requested {ls_scratch} B "
+         f"beside its output, its plan states {plan_scratch} B")
+    plan_launches = len(local_sort_plan(rows, C, "int32"))
+    ls_launches = None
+    if "whole" not in ls_breakdown:
+        ls_launches = sum(k["launches"] for k in ls_breakdown.values())
+        need(ls_launches == plan_launches,
+             f"the profiler saw {ls_launches} local_sort launches, its plan "
+             f"states {plan_launches}")
     ls_bytes_ms = 2 * rows * C * 4 / HBM_BYTES_PER_S * 1e3
     # the comparisons a sort of each row needs, C log2 C, not the padded
     # bitonic network's (that is this kernel's choice of algorithm)
@@ -306,7 +372,10 @@ def phase_kernels(seed: int) -> dict:
     ms_ops_ms = 8 * C / OPS_32BIT_PER_S * 1e3
     say(f"phase kernels: grid cases={cases} (C in {list(grid_c)}, tile={TILE})"
         f" mismatches={bad}; local_sort (8, {C}) {ls_ms:.3f} ms "
-        f"(plain {ls_plain_ms:.3f} ms, torch.sort {ls_lib_ms:.3f} ms); "
+        f"(plain {ls_plain_ms:.3f} ms, torch.sort {ls_lib_ms:.3f} ms; "
+        f"{ls_launches} launches (plan {plan_launches}), scratch "
+        f"{ls_scratch} B (plan {plan_scratch} B); by kernel "
+        + json.dumps(ls_breakdown) + "); "
         f"merge_split (8, {C}) {ms[8][0]:.3f} ms (plain {ms[8][1]:.3f} ms), "
         f"(16, {C}) {ms[16][0]:.3f} ms (plain {ms[16][1]:.3f} ms); "
         f"bitonic_sort (8, 1024) {bitonic[1024]['ms']:.4f} ms (torch.sort "
@@ -324,7 +393,9 @@ def phase_kernels(seed: int) -> dict:
             bound_ms=max(ls_bytes_ms, ls_ops_ms),
             bound_by="bytes" if ls_bytes_ms >= ls_ops_ms else "operations",
             library_ms=ls_lib_ms, bytes_ms=ls_bytes_ms, ops_ms=ls_ops_ms,
-            shape=[rows, C], mismatches=bad["local_sort"]),
+            shape=[rows, C], mismatches=bad["local_sort"],
+            scratch_bytes=ls_scratch, launches_per_call=ls_launches,
+            by_kernel=ls_breakdown),
         "merge_split": dict(
             name="merge_split", route="cuda",
             source="src/repro_torch/csrc/merge_split.cu",
@@ -1084,7 +1155,7 @@ def main(argv=None) -> int:
 
     secs, reports = _build.build_all()
     regs = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
-            if "Used" in ln or "Compiling entry" in ln]
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     say(f"phase build: {sorted(_build.sources())} in {secs:.2f} s; ptxas: "
         + " | ".join(regs))
 
@@ -1111,7 +1182,8 @@ def main(argv=None) -> int:
             for name in ("local_sort", "merge_split")]
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
-    line = [{key: k[key] for key in keys} for k in rows]
+    extra = ("scratch_bytes", "launches_per_call", "by_kernel")
+    line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

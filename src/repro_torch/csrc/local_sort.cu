@@ -3,37 +3,73 @@
 // Replaces the TPU kernel src/repro/kernels/local_sort.py::local_sort (the
 // fused VMEM-resident local phase of the merge-sort engine: leaf sorts and
 // the whole local merge tree as one bitonic network, rows padded to the
-// next power of two L with the BIG sentinel in scratch only).
+// next power of two with the BIG sentinel in scratch only).
 //
 // Order.  Elements are compared by a total-order key: int32 as is, float32
 // as its bits k ^ ((k >> 31) & 0x7fffffff) compared as signed int32.  That
-// puts -0.0 before +0.0, as XLA's min/max do in the reference network, so
-// the result is bit-identical to the reference and to the plain version
-// (`repro_torch.kernels.bitonic_sort.bitonic_stages`).  The key map is an
-// involution: applying it again on the way out restores the bits.
-//
-// Design.  TILE = 16384 keys (64 KB of dynamic shared memory per block).
-//   * L <= TILE: one block per row.  The row is loaded into shared memory,
-//     the padding tail is filled with the sentinel key in shared memory
-//     only, the whole network runs with __syncthreads() between substages,
-//     and the first C entries are written back.  One launch.
-//   * L > TILE: a 12.5 M-key chunk does not fit in one block's 227 KB, so
-//     the wrapper passes a padded (rows, L) scratch in device memory; this
-//     is the one place where padding reaches device memory.  Passes:
-//       1. a shared-memory pass runs every stage k <= TILE on each TILE
-//          segment (direction from bit k of the index within the row);
-//       2. for each stage k > TILE: one global compare-exchange launch per
-//          substage j >= TILE, then one shared-memory launch finishing the
-//          substages j < TILE of every segment;
-//       3. a copy writes the real prefix back.
-//     1 + sum over log2(L/TILE) stages of (stage substages + 1) + 1 launches,
-//     O(log^2(L/TILE)).
+// puts -0.0 before +0.0, as XLA's min/max do in the reference network, and
+// equal keys are equal bits, so any correct sort of the keys is bit-identical
+// to the reference and to the plain version
+// (`repro_torch.kernels.local_sort.local_sort_reference`).  The key map is
+// an involution: applying it again on the way out restores the bits.  (A
+// positive-NaN key sorts above the +inf padding, so in a padded tile, as in
+// the plain version's padded row, such NaNs fall past the real keys and +inf
+// is written in their place; only a tile of exactly N keys keeps them.  The
+// sort entry points refuse NaN.)
 //
 // Bound on an H100.  The function reads each input element once and writes
-// each output once: 2 * rows * C * 4 bytes over 3.35 TB/s.  The network does
-// rows * L/2 * log2(L) * (log2(L)+1) / 2 compare-exchanges, data-independent.
-// This first version is plain: every global substage moves the whole
-// scratch through device memory, and no warp shuffles are used.
+// each output once: 2 * rows * C * 4 bytes over 3.35 TB/s (0.239 ms at
+// (8, 12.5 M)); a comparison sort needs about C log2 C comparisons a row.
+// On a TPU the whole row sat in VMEM; a block here has at most 227 KB of
+// shared memory, so a 12.5 M-key row has to go through device memory
+// between passes.  The design keeps the number of those passes small:
+//
+//   1. Tile sort (`block_sort`): a block of T threads sorts N = 16 T keys
+//      (N = TILE = 16384 for the tile pass) with a bitonic network whose keys
+//      live in registers, 16 per thread.  Substages with partners inside a
+//      thread run in registers, those with partners inside a warp by
+//      __shfl_xor_sync, and only those with partners in another warp
+//      (j >= 512) go through shared memory: the block writes its keys out
+//      once, reads them back in a layout that puts up to four such partner
+//      bits inside each thread, runs those substages in registers and
+//      writes back.  13 barriers at N = 16384 (the plain network has 105).
+//      Partners and directions are bit operations, and every compare-
+//      exchange is ascending: a key whose block runs descending in a stage
+//      is held complemented (~key) for that stage, so a register substage
+//      is one min and one max per pair.  The tile arrives by cp.async (all
+//      of a thread's loads in flight, no registers held); a ragged tile is
+//      padded with the sentinel key (INT_MAX, or the key of +inf) in shared
+//      memory only, and only real keys are written.
+//   2. Merge passes (C > TILE): the tile pass writes sorted TILE-key runs;
+//      each pass merges neighbouring runs of width w into runs of 2w, until
+//      one run covers the row: ceil(log2(ceil(C / TILE))) passes, each
+//      reading and writing the row once.  A pass is two launches:
+//      `merge_partition` finds, for the first output of every merge block,
+//      its merge-path co-rank (how many of its outputs come from the left
+//      run) by a binary search in device memory, one thread per block;
+//      `merge_pass` loads the two input windows its MT = 8192 outputs
+//      consume into shared memory with coalesced 4-byte cp.async copies
+//      (rows start at any offset, so 16-byte loads would need a peeled
+//      head), each thread finds its own co-rank inside them and merges
+//      ITEMS outputs, and the block stores through shared memory,
+//      coalesced.  A run with no partner (an odd run count,
+//      a short last run) is copied by the same code (its co-ranks are the
+//      diagonal itself).  Merges compare the int32 keys, never IEEE values,
+//      so -0.0 stays before +0.0 across a run boundary.
+//   3. The passes ping-pong between `out` and one (rows, C) int32 scratch;
+//      the tile pass writes whichever of the two makes the last pass land
+//      in `out`, and the last pass undoes the key map.  No padded scratch, no
+//      copy pass: 1 + 2 * passes launches (21 at (8, 12.5 M)).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 4.81 ms
+// at (8, 12.5 M) int32 against torch.sort's 5.44 ms -- the tile pass
+// 1.75 ms, the 10 partitions 0.21 ms, the 10 merge passes 2.82 ms (each
+// 0.28 ms against the 0.239 ms its bytes need); 20x the byte bound, which
+// no comparison sort that passes the row through device memory ten times
+// can reach.
+//
+// Index width: array offsets are 64-bit; co-ranks inside a pair of runs are
+// stored as int32, so C <= INT_MAX.
 //
 // Launch plan: the host code is one template over the executors of
 // launch_plan.cuh, so `repro_local_sort_plan` is a dry run of exactly the
@@ -47,108 +83,311 @@
 
 namespace {
 
-constexpr int TILE = 16384;          // keys per shared-memory tile
-constexpr int SORT_THREADS = 1024;   // threads of a shared-memory pass
-constexpr int STEP_THREADS = 256;    // threads of a global substage / copy
+constexpr int KPT = 16;               // keys per thread of a block sort
+constexpr int TILE = 16384;           // keys of a tile-pass block (1024 threads)
+constexpr int MIN_N = 512;            // the smallest block sort: one warp
+constexpr int WARP_BITS = 9;          // log2 of the keys one warp holds
+constexpr int MT_THREADS = 256;       // threads of a merge block
+constexpr int ITEMS = 32;             // outputs each merge thread writes
+constexpr int MT = MT_THREADS * ITEMS;   // outputs of a merge block
+constexpr int PART_THREADS = 256;     // threads of a partition block
+
+__host__ __device__ constexpr int ilog2(int n) {
+  return n > 1 ? 1 + ilog2(n / 2) : 0;
+}
 
 __device__ __forceinline__ int flip_key(int v, int is_float) {
   return is_float ? (v ^ ((v >> 31) & 0x7fffffff)) : v;
 }
 
-// Substages of stages k_lo..k_hi on the n keys in s (n a power of two),
-// whose first key sits at index `base` of its row.  For stages k > n only
-// the substages j < n run here (the rest ran as global substages).
-__device__ void bitonic_block(int* s, int n, long long base, long long k_lo,
-                              long long k_hi) {
-  const int half = n >> 1;
-  for (long long k = k_lo; k <= k_hi; k <<= 1) {
-    int j = (int)((k < n ? k : n) >> 1);
-    for (; j >= 1; j >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int i = 2 * j * (p / j) + (p % j);
-        const int l = i + j;
-        const bool asc = ((base + i) & k) == 0;
-        const int a = s[i], b = s[l];
-        if ((a > b) == asc) { s[i] = b; s[l] = a; }
-      }
-      __syncthreads();
+// A 4-byte copy from device memory into shared memory that holds no
+// register (cp.async): a thread issues all of its copies, then waits.
+__device__ __forceinline__ void copy_async(int* smem, const int* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Shared-memory slot of key i: XOR swizzle inside each 32-word row, so the
+// layouts below read and write without bank conflicts.
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 5) & 31); }
+
+// Index of register r of thread t in the layout whose in-thread bits are
+// [lo, lo + 4): layout 0 holds 16 consecutive keys per thread.
+__device__ __forceinline__ int elem(int t, int lo, int r) {
+  return (t & ((1 << lo) - 1)) | (r << lo) | ((t >> lo) << (lo + 4));
+}
+
+__device__ __forceinline__ void store_layout(const int (&v)[KPT], int* s,
+                                             int lo) {
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) s[swz(elem(threadIdx.x, lo, r))] = v[r];
+}
+
+__device__ __forceinline__ void load_layout(int (&v)[KPT], const int* s,
+                                            int lo) {
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) v[r] = s[swz(elem(threadIdx.x, lo, r))];
+}
+
+// One ascending substage on register bit RB: pairs (r, r | 2^RB) of one
+// thread, the smaller key to r.  (Stages run ascending everywhere: a key
+// whose block of the stage runs descending is held complemented, ~key,
+// which reverses the order without overflow.)
+template <int RB>
+__device__ __forceinline__ void reg_step(int (&v)[KPT]) {
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) {
+    if (r & (1 << RB)) continue;
+    const int r2 = r | (1 << RB);
+    const int lo_key = min(v[r], v[r2]);
+    v[r2] = max(v[r], v[r2]);
+    v[r] = lo_key;
+  }
+}
+
+__device__ __forceinline__ void reg_substage(int (&v)[KPT], int rb) {
+  switch (rb) {
+    case 0: reg_step<0>(v); break;
+    case 1: reg_step<1>(v); break;
+    case 2: reg_step<2>(v); break;
+    default: reg_step<3>(v); break;
+  }
+}
+
+// Stage 2^ST < 16 of layout 0: inside each thread, the direction of each
+// register's block known at compile time.
+template <int ST>
+__device__ __forceinline__ void small_stage(int (&v)[KPT]) {
+#pragma unroll
+  for (int b = ST - 1; b >= 0; --b) {
+#pragma unroll
+    for (int r = 0; r < KPT; ++r) {
+      if (r & (1 << b)) continue;
+      const int r2 = r | (1 << b);
+      const int lo_key = min(v[r], v[r2]), hi_key = max(v[r], v[r2]);
+      const bool asc = (r & (1 << ST)) == 0;
+      v[r] = asc ? lo_key : hi_key;
+      v[r2] = asc ? hi_key : lo_key;
     }
   }
 }
 
-// L <= TILE: one block sorts one row, padding in shared memory only.
-__global__ void sort_rows_smem(const int* __restrict__ in, int* __restrict__ out,
-                               long long C, int L, int is_float, int pad_key) {
-  extern __shared__ int s[];
-  const long long row = blockIdx.x;
-  const int* src = in + row * C;
-  for (int i = threadIdx.x; i < L; i += blockDim.x)
-    s[i] = i < C ? flip_key(src[i], is_float) : pad_key;
-  __syncthreads();
-  bitonic_block(s, L, 0, 2, L);
-  int* dst = out + row * C;
-  for (int i = threadIdx.x; i < C; i += blockDim.x)
-    dst[i] = flip_key(s[i], is_float);
+// One substage with partner j = 2^b, 16 <= j < 512 (layout 0): the partner
+// key sits in the same register of lane ^ (j / 16); the lower lane keeps
+// the smaller key.
+__device__ __forceinline__ void shfl_substage(int (&v)[KPT], int b) {
+  const int m = 1 << (b - 4);
+  const bool keep_min = (threadIdx.x & m) == 0;
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) {
+    const int o = __shfl_xor_sync(0xffffffffu, v[r], m);
+    v[r] = keep_min ? min(v[r], o) : max(v[r], o);
+  }
 }
 
-// L > TILE, pass 1: every stage k <= TILE on each segment, input -> scratch.
-__global__ void tile_sort(const int* __restrict__ in, int* __restrict__ scratch,
-                          long long C, long long L, int is_float, int pad_key) {
+// The bitonic network over the N = 2^logn keys of the block, held in
+// layout 0; s is N ints of shared memory.  Stage k sorts each aligned block
+// of k keys ascending iff bit k of its index is 0.  Ends ascending.
+__device__ __forceinline__ void sort_registers(int (&v)[KPT], int* s,
+                                               int logn) {
+  const int t = threadIdx.x;
+  small_stage<1>(v);
+  small_stage<2>(v);
+  small_stage<3>(v);
+  int held = 0;                      // the complement mask v is held under
+  for (int st = 4; st <= logn; ++st) {
+    // from stage 16 on, a thread's keys of layout 0 share one direction
+    const int want = ((t << 4) >> st) & 1 ? -1 : 0;
+#pragma unroll
+    for (int r = 0; r < KPT; ++r) v[r] ^= held ^ want;
+    held = want;
+    if (st - 1 >= WARP_BITS) {       // partners in other warps: bits st-1..9
+      store_layout(v, s, 0);
+      for (int h = st - 1; h >= WARP_BITS; h -= 4) {
+        const int lo = h - 3;        // bits lo..h inside each thread
+        __syncthreads();
+        load_layout(v, s, lo);
+        const int low = lo > WARP_BITS ? lo : WARP_BITS;
+        for (int b = h; b >= low; --b) reg_substage(v, b - lo);
+        store_layout(v, s, lo);      // the slots this thread read
+      }
+      __syncthreads();
+      load_layout(v, s, 0);
+    }
+    for (int b = min(st - 1, WARP_BITS - 1); b >= 4; --b) shfl_substage(v, b);
+    for (int b = 3; b >= 0; --b) reg_substage(v, b);
+  }
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) v[r] ^= held;
+}
+
+// The keys of block_sort's block: n of them from element `offset` of the
+// (rows, C) array (tile blockIdx.x % tiles of row blockIdx.x / tiles).
+struct Tile {
+  long long offset;
+  int n;
+};
+
+__device__ __forceinline__ Tile tile_of(long long C, long long tiles, int N) {
+  const long long base = (blockIdx.x % tiles) * N;
+  const long long rest = C - base;
+  return {blockIdx.x / tiles * C + base, rest < N ? (int)rest : N};
+}
+
+// Sort N = THREADS * 16 keys per block: tile (blockIdx.x % tiles) of row
+// (blockIdx.x / tiles), keys [tile N, tile N + N) of the row, padded with
+// pad_key past C in shared memory only.  Writes the real keys, as keys
+// (flip_out = 0) or as values (flip_out = 1).
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+block_sort(const int* __restrict__ in, int* __restrict__ out, long long C,
+           long long tiles, int is_float, int flip_out, int pad_key) {
   extern __shared__ int s[];
-  const long long tiles = L / TILE;
-  const long long row = blockIdx.x / tiles;
-  const long long base = (blockIdx.x % tiles) * TILE;
-  const int* src = in + row * C;
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-    const long long g = base + i;
-    s[i] = g < C ? flip_key(src[g], is_float) : pad_key;
+  constexpr int N = THREADS * KPT;
+  constexpr int LOGN = ilog2(N);
+  const int t = threadIdx.x;
+  {
+    const Tile tile = tile_of(C, tiles, N);
+    const int* src = in + tile.offset;
+    for (int i = t; i < N; i += THREADS) {   // coalesced, all in flight
+      if (i < tile.n) copy_async(&s[swz(i)], src + i);
+      else s[swz(i)] = pad_key;              // its own key and value
+    }
+    copy_async_wait();
   }
   __syncthreads();
-  bitonic_block(s, TILE, base, 2, TILE);
-  int* dst = scratch + row * L + base;
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) dst[i] = s[i];
-}
-
-// L > TILE, pass 2a: one substage (k, j >= TILE) over all rows of scratch.
-__global__ void global_step(int* scratch, long long pairs_per_row,
-                            long long total, long long k, long long j) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  const long long row = p / pairs_per_row;
-  const long long q = p % pairs_per_row;
-  const long long i = 2 * j * (q / j) + (q % j);
-  const long long l = i + j;
-  const bool asc = (i & k) == 0;
-  int* r = scratch + row * (2 * pairs_per_row);
-  const int a = r[i], b = r[l];
-  if ((a > b) == asc) { r[i] = b; r[l] = a; }
-}
-
-// L > TILE, pass 2b: the substages j < TILE of stage k on each segment.
-__global__ void tile_finish(int* scratch, long long L, long long k) {
-  extern __shared__ int s[];
-  const long long tiles = L / TILE;
-  const long long row = blockIdx.x / tiles;
-  const long long base = (blockIdx.x % tiles) * TILE;
-  int* seg = scratch + row * L + base;
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) s[i] = seg[i];
+  int v[KPT];
+  load_layout(v, s, 0);
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) v[r] = flip_key(v[r], is_float);
+  sort_registers(v, s, LOGN);
+  store_layout(v, s, 0);
   __syncthreads();
-  bitonic_block(s, TILE, base, k, k);
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) seg[i] = s[i];
+  const Tile tile = tile_of(C, tiles, N);
+  int* dst = out + tile.offset;
+  const int flip = flip_out ? is_float : 0;
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) {
+    const int i = r * THREADS + t;
+    if (i < tile.n) dst[i] = flip_key(s[swz(i)], flip);
+  }
 }
 
-// L > TILE, pass 3: the real prefix of every row, keys back to values.
-__global__ void copy_out(const int* __restrict__ scratch, int* __restrict__ out,
-                         long long C, long long L, long long total,
-                         int is_float) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long row = idx / C;
-  out[idx] = flip_key(scratch[row * L + idx % C], is_float);
+// Of the first d outputs of the stable merge of a[0, na) and b[0, nb)
+// (ties to a), how many come from a.
+template <typename I, typename GetA, typename GetB>
+__device__ __forceinline__ I co_rank(GetA a, I na, GetB b, I nb, I d) {
+  I lo = d > nb ? d - nb : 0;
+  I hi = d < na ? d : na;
+  while (lo < hi) {
+    const I mid = (lo + hi) >> 1;
+    if (a(mid) <= b(d - 1 - mid)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
 }
 
-long long blocks_for(long long total, int threads) {
-  return (total + threads - 1) / threads;
+// The runs of width w that merge block q (outputs [q MT, q MT + MT) of its
+// row) reads: the pair starting at ps, left run [ps, ps + la), right run
+// [ps + w, ps + w + lb) (lb = 0: no partner, the block copies).
+struct Pair {
+  long long ps, la, lb;
+};
+
+__device__ __forceinline__ Pair pair_of(long long o0, long long C,
+                                        long long w) {
+  Pair p;
+  p.ps = o0 / (2 * w) * (2 * w);
+  p.la = C - p.ps < w ? C - p.ps : w;
+  const long long r = C - p.ps - w;
+  p.lb = r <= 0 ? 0 : (r < w ? r : w);
+  return p;
+}
+
+// Merge pass, step 1: diag[g] = co-rank of the first output of merge block
+// g (g = row * blocks_per_row + q) inside its pair.
+__global__ void merge_partition(const int* __restrict__ src,
+                                int* __restrict__ diag, long long C,
+                                long long w, long long blocks_per_row,
+                                long long total) {
+  const long long g = (long long)blockIdx.x * PART_THREADS + threadIdx.x;
+  if (g >= total) return;
+  const long long row = g / blocks_per_row;
+  const long long o0 = (g % blocks_per_row) * MT;
+  const Pair p = pair_of(o0, C, w);
+  const int* a = src + row * C + p.ps;
+  const int* b = a + w;
+  diag[g] = (int)co_rank<long long>([a](long long i) { return a[i]; }, p.la,
+                                    [b](long long i) { return b[i]; }, p.lb,
+                                    o0 - p.ps);
+}
+
+__device__ __forceinline__ int pad_slot(int i) { return i + (i >> 5); }
+
+// Merge pass, step 2: block g writes outputs [q MT, q MT + MT) of its row
+// of dst, merging the windows of its pair's two runs in src that diag says
+// they consume.  flip_out: the last pass, keys back to values.
+__global__ void __launch_bounds__(MT_THREADS)
+merge_pass(const int* __restrict__ src, int* __restrict__ dst,
+           const int* __restrict__ diag, long long C, long long w,
+           long long blocks_per_row, int is_float, int flip_out) {
+  __shared__ int s[MT + MT / 32];
+  const long long g = blockIdx.x;
+  const long long row = g / blocks_per_row;
+  const long long o0 = (g % blocks_per_row) * MT;
+  const int n_out = C - o0 < MT ? (int)(C - o0) : MT;
+  const Pair p = pair_of(o0, C, w);
+  const long long d0 = o0 - p.ps;
+  const long long d1 = d0 + n_out;
+  const long long a0 = diag[g];
+  const long long a1 = d1 < p.la + p.lb ? diag[g + 1] : p.la;
+  const int na = (int)(a1 - a0);
+  const int nb = n_out - na;
+  const int* a = src + row * C + p.ps + a0;
+  const int* b = src + row * C + p.ps + w + (d0 - a0);
+  for (int x = threadIdx.x; x < n_out; x += MT_THREADS)  // coalesced
+    copy_async(&s[pad_slot(x)], x < na ? a + x : b + (x - na));
+  copy_async_wait();
+  __syncthreads();
+  const int r0 = threadIdx.x * ITEMS;
+  const int cnt = n_out - r0 < ITEMS ? (n_out - r0 > 0 ? n_out - r0 : 0)
+                                     : ITEMS;
+  int vals[ITEMS];
+  if (cnt > 0) {
+    const int* sp = s;
+    int ia = co_rank<int>([sp](int i) { return sp[pad_slot(i)]; }, na,
+                          [sp, na](int i) { return sp[pad_slot(na + i)]; },
+                          nb, r0);
+    int ib = r0 - ia;
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      if (q < cnt) {
+        const int ka = ia < na ? s[pad_slot(ia)] : INT_MAX;
+        const int kb = ib < nb ? s[pad_slot(na + ib)] : INT_MAX;
+        const bool take_a = ib >= nb || (ia < na && ka <= kb);
+        vals[q] = take_a ? ka : kb;
+        ia += take_a;
+        ib += !take_a;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q)
+    if (q < cnt) s[pad_slot(r0 + q)] = vals[q];
+  __syncthreads();
+  int* o = dst + row * C + o0;
+  const int flip = flip_out ? is_float : 0;
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    const int x = q * MT_THREADS + threadIdx.x;
+    if (x < n_out) o[x] = flip_key(s[pad_slot(x)], flip);
+  }
 }
 
 }  // namespace
@@ -161,95 +400,105 @@ extern "C" const char* repro_local_sort_error(int code) {
 
 namespace {
 
-// The host code, once for launching and for planning (launch_plan.cuh).
-template <class Exec>
-int run(Exec& ex, const int* x, int* y, int* sc, long long rows, long long C,
-        long long L, int is_float, cudaStream_t st) {
-  const int pad_key = is_float ? 0x7f800000 : INT_MAX;  // key of +inf / BIG
-  int err;
-  if (rows == 0) return 0;
-  if (L <= TILE) {
-    const size_t smem = (size_t)L * sizeof(int);
-    const long long half = L / 2;
-    const int threads = half >= SORT_THREADS ? SORT_THREADS
-                        : (half > 32 ? (int)half : 32);
-    return ex("sort_rows_smem", (const void*)sort_rows_smem,
-              dim3((unsigned)rows), threads, smem, [&] {
-                const cudaError_t e = cudaFuncSetAttribute(
-                    sort_rows_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                    (int)smem);
-                if (e != cudaSuccess) return e;
-                sort_rows_smem<<<(unsigned)rows, threads, smem, st>>>(
-                    x, y, C, (int)L, is_float, pad_key);
-                return cudaSuccess;
-              });
-  }
-  const size_t smem = (size_t)TILE * sizeof(int);
-  const long long tile_blocks = rows * (L / TILE);
-  err = ex("tile_sort", (const void*)tile_sort, dim3((unsigned)tile_blocks),
-           SORT_THREADS, smem, [&] {
-             const cudaError_t e = cudaFuncSetAttribute(
-                 tile_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                 (int)smem);
-             if (e != cudaSuccess) return e;
-             tile_sort<<<(unsigned)tile_blocks, SORT_THREADS, smem, st>>>(
-                 x, sc, C, L, is_float, pad_key);
-             return cudaSuccess;
-           });
-  if (err) return err;
-  const long long pairs = rows * (L / 2);
-  const unsigned step_blocks = (unsigned)blocks_for(pairs, STEP_THREADS);
-  for (long long k = 2LL * TILE; k <= L; k <<= 1) {
-    for (long long j = k >> 1; j >= TILE; j >>= 1) {
-      err = ex("global_step", (const void*)global_step, dim3(step_blocks),
-               STEP_THREADS, 0, [&] {
-                 global_step<<<step_blocks, STEP_THREADS, 0, st>>>(
-                     sc, L / 2, pairs, k, j);
-                 return cudaSuccess;
-               });
-      if (err) return err;
-    }
-    err = ex("tile_finish", (const void*)tile_finish,
-             dim3((unsigned)tile_blocks), SORT_THREADS, smem, [&] {
-               const cudaError_t e = cudaFuncSetAttribute(
-                   tile_finish, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                   (int)smem);
-               if (e != cudaSuccess) return e;
-               tile_finish<<<(unsigned)tile_blocks, SORT_THREADS, smem, st>>>(
-                   sc, L, k);
-               return cudaSuccess;
-             });
-    if (err) return err;
-  }
-  const long long total = rows * C;
-  const unsigned copy_blocks = (unsigned)blocks_for(total, STEP_THREADS);
-  return ex("copy_out", (const void*)copy_out, dim3(copy_blocks), STEP_THREADS,
-            0, [&] {
-              copy_out<<<copy_blocks, STEP_THREADS, 0, st>>>(sc, y, C, L, total,
-                                                             is_float);
+template <int THREADS, class Exec>
+int launch_block_sort(Exec& ex, const char* name, long long blocks,
+                      const int* x, int* y, long long C, long long tiles,
+                      int is_float, int flip_out, int pad_key,
+                      cudaStream_t st) {
+  const size_t smem = (size_t)THREADS * KPT * sizeof(int);
+  return ex(name, (const void*)block_sort<THREADS>, dim3((unsigned)blocks),
+            THREADS, smem, [&] {
+              const cudaError_t e = cudaFuncSetAttribute(
+                  block_sort<THREADS>,
+                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+              if (e != cudaSuccess) return e;
+              block_sort<THREADS><<<(unsigned)blocks, THREADS, smem, st>>>(
+                  x, y, C, tiles, is_float, flip_out, pad_key);
               return cudaSuccess;
             });
 }
 
+// One block per row for C <= TILE: N = max(512, next power of two >= C).
+template <class Exec>
+int sort_rows(Exec& ex, const int* x, int* y, long long rows, long long C,
+              int is_float, int pad_key, cudaStream_t st) {
+  long long n = MIN_N;
+  while (n < C) n <<= 1;
+  const char* name = "sort_rows_smem";
+  switch (n / KPT) {
+    case 32: return launch_block_sort<32>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+    case 64: return launch_block_sort<64>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+    case 128: return launch_block_sort<128>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+    case 256: return launch_block_sort<256>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+    case 512: return launch_block_sort<512>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+    default: return launch_block_sort<1024>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+  }
+}
+
+// The host code, once for launching and for planning (launch_plan.cuh).
+template <class Exec>
+int run(Exec& ex, const int* x, int* y, int* sc, int* diag, long long rows,
+        long long C, int is_float, cudaStream_t st) {
+  const int pad_key = is_float ? 0x7f800000 : INT_MAX;  // key of +inf / BIG
+  if (rows == 0) return 0;
+  if (C > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (C <= TILE) return sort_rows(ex, x, y, rows, C, is_float, pad_key, st);
+  const long long tiles = (C + TILE - 1) / TILE;
+  int passes = 0;
+  while ((1LL << passes) < tiles) ++passes;
+  // the tile pass writes the buffer that makes the last pass land in y
+  int* src = passes % 2 ? sc : y;
+  int err = launch_block_sort<TILE / KPT>(ex, "tile_sort", rows * tiles, x,
+                                          src, C, tiles, is_float, 0,
+                                          pad_key, st);
+  if (err) return err;
+  const long long bpr = (C + MT - 1) / MT;
+  const long long total = rows * bpr;
+  const unsigned part_blocks =
+      (unsigned)((total + PART_THREADS - 1) / PART_THREADS);
+  long long w = TILE;
+  for (int pass = 1; pass <= passes; ++pass, w *= 2) {
+    int* dst = (passes - pass) % 2 ? sc : y;
+    const int last = pass == passes;
+    err = ex("merge_partition", (const void*)merge_partition,
+             dim3(part_blocks), PART_THREADS, 0, [&] {
+               merge_partition<<<part_blocks, PART_THREADS, 0, st>>>(
+                   src, diag, C, w, bpr, total);
+               return cudaSuccess;
+             });
+    if (err) return err;
+    err = ex("merge_pass", (const void*)merge_pass, dim3((unsigned)total),
+             MT_THREADS, 0, [&] {
+               merge_pass<<<(unsigned)total, MT_THREADS, 0, st>>>(
+                   src, dst, diag, C, w, bpr, is_float, last);
+               return cudaSuccess;
+             });
+    if (err) return err;
+    src = dst;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// in, out: (rows, C) contiguous int32 bits; scratch: (rows, L) int32 when
-// L > TILE, else unused.  L is the next power of two >= C.  Launches on
+// in, out: (rows, C) contiguous int32 bits.  When C > TILE: scratch is a
+// (rows, C) int32 buffer and diag a rows * ceil(C / MT) int32 buffer (MT =
+// 8192 outputs per merge block); else both are unused.  Launches on
 // `stream`, does not synchronise, returns the first CUDA error (0 if none).
 extern "C" int repro_local_sort(const void* in, void* out, void* scratch,
-                                long long rows, long long C, long long L,
+                                void* diag, long long rows, long long C,
                                 int is_float, void* stream) {
   Launcher ex;
-  return run(ex, (const int*)in, (int*)out, (int*)scratch, rows, C, L,
-             is_float, (cudaStream_t)stream);
+  return run(ex, (const int*)in, (int*)out, (int*)scratch, (int*)diag, rows,
+             C, is_float, (cudaStream_t)stream);
 }
 
 // The dry run of repro_local_sort: fills out[0..max) with the launches it
 // would make, launches nothing; returns their count or minus a CUDA error.
-extern "C" int repro_local_sort_plan(long long rows, long long C, long long L,
-                                     int is_float, ReproLaunch* out, int max) {
+extern "C" int repro_local_sort_plan(long long rows, long long C, int is_float,
+                                     ReproLaunch* out, int max) {
   Planner ex{out, max, 0};
-  const int err = run(ex, nullptr, nullptr, nullptr, rows, C, L, is_float,
-                      (cudaStream_t)0);
+  const int err = run(ex, nullptr, nullptr, nullptr, nullptr, rows, C,
+                      is_float, (cudaStream_t)0);
   return plan_result(err, ex);
 }

@@ -14,7 +14,8 @@ the coverage probe (``probe``).
 
 # Dynamic shared memory one block may use on an H100 (227 KB of the SM's
 # 256 KB).  Takes the place of the reference's VMEM_BYTES_PER_CORE: every
-# kernel bounds its tiles against it (`local_sort` uses 64 KB tiles).
+# kernel bounds its tiles against it (`local_sort`'s tile pass uses 64 KB,
+# its merge blocks 33 KB).
 SMEM_BYTES_PER_BLOCK = 232_448
 
 # Device memory of one H100 SXM.

@@ -8,8 +8,11 @@ is, float32 as its bits ``k ^ ((k >> 31) & 0x7fffffff)``.  That orders
 ``-0.0`` before ``+0.0``, as XLA's min/max do in the reference network
 (``torch.minimum`` and ``torch.sort`` treat the two zeros as ties).
 
-`bitonic_sort` is the wrapper over `local_sort`'s device code for rows
-whose length is a power of two.
+`bitonic_sort` is the wrapper over the `local_sort` kernel's device code
+for rows whose length is a power of two: a row of up to TILE = 16384 keys
+is one block's network, its keys in registers and warp shuffles (the
+(8, 16384) rows of the reference's benchmark take one launch of 8
+blocks); a longer row is sorted in 16384-key tiles and merged.
 """
 from __future__ import annotations
 
@@ -68,7 +71,8 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     """Row-wise sort of (chunks, L), L a power of two.
 
     CPU: `bitonic_stages`.  CUDA: the `local_sort` kernel's device code
-    (`csrc/local_sort.cu`), counted in ``bitonic_sort.launches``; its
+    (`csrc/local_sort.cu`: one block per row up to 16384 keys, tile and
+    merge passes above), counted in ``bitonic_sort.launches``; its
     launches are `local_sort.plan`'s.
     """
     if x.dim() != 2 or x.shape[1] & (x.shape[1] - 1) or x.shape[1] == 0:

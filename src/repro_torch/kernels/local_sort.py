@@ -5,19 +5,23 @@ device's chunk in VMEM for its leaf sorts and its whole local merge tree,
 padding a row to the next power of two with the BIG sentinel in scratch
 only).  On a CUDA tensor this launches the hand-written kernel of
 ``csrc/local_sort.cu``; on a CPU tensor it runs the plain version,
-`local_sort_reference`, the same bitonic network in PyTorch.  Both order
-floats by the total-order key of `bitonic_sort.to_key` (``-0.0`` before
-``+0.0``), so both are bit-identical to the reference kernel.
+`local_sort_reference`, the bitonic network in PyTorch.  Both order floats
+by the total-order key of `bitonic_sort.to_key` (``-0.0`` before ``+0.0``),
+so both are bit-identical to the reference kernel.
 
-Rows up to TILE keys are sorted in one block's shared memory; longer rows
-go through a padded ``(rows, L)`` device scratch that the wrapper
-allocates (see the source note in ``csrc/local_sort.cu``).
+The kernel sorts TILE-key tiles with their keys in registers and warp
+shuffles (one block per row when C <= TILE), then merges the sorted runs
+of each row pairwise, one merge pass per doubling, ping-ponging between
+the output and a ``(rows, C)`` int32 scratch (see the source note in
+``csrc/local_sort.cu``).  `local_sort_schedule` emulates that schedule in
+PyTorch, tile pass and merge passes with their merge-path co-ranks, for
+the tests (the counterpart of Pallas ``interpret=True``); nothing on the
+main path calls it.
 
 `plan` states the launches the C entry makes for a shape, each with its
-tile maps: one for L <= TILE; above it the tile sort, then for each stage
-k > TILE its substages j >= TILE and one tile finish, then the copy (67
-launches at (8, 12.5 M)).  `c_plan` reads the same list from the entry's
-dry-run twin on the card.
+tile maps: one for C <= TILE; above it the tile sort, then for each merge
+pass a partition and a merge (21 launches at (8, 12.5 M)).  `c_plan` reads
+the same list from the entry's dry-run twin on the card.
 """
 from __future__ import annotations
 
@@ -35,11 +39,19 @@ from repro_torch.kernels import _build, _device
 from repro_torch.kernels.bitonic_sort import (KEY_DTYPES, _network, from_key,
                                                to_key)
 
-#: keys per shared-memory tile of the kernel (64 KB); must match the source
+#: keys per tile of the tile pass (1024 threads x 16 keys in registers,
+#: 64 KB of shared memory); must match the source
 TILE = 16384
-#: threads of a shared-memory pass, and of a global substage or the copy
-SORT_THREADS = 1024
-STEP_THREADS = 256
+#: keys a block-sort thread holds; the smallest block sort (one warp)
+KPT = 16
+MIN_N = 512
+#: threads of a merge block and the outputs it writes; threads of a
+#: partition block (one co-rank each)
+MT_THREADS = 256
+MT = MT_THREADS * 32
+PART_THREADS = 256
+#: co-ranks are stored as int32
+MAX_C = 2**31 - 1
 
 
 @functools.cache
@@ -47,12 +59,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("local_sort")
     lib.repro_local_sort.restype = ctypes.c_int
     lib.repro_local_sort.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.repro_local_sort_plan.restype = ctypes.c_int
     lib.repro_local_sort_plan.argtypes = [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.POINTER(_build.Launch), ctypes.c_int]
     lib.repro_local_sort_tile.restype = ctypes.c_int
     if lib.repro_local_sort_tile() != TILE:
@@ -71,9 +82,21 @@ def _check(x: torch.Tensor, what: str):
     return x.shape
 
 
+def _check_width(C: int) -> None:
+    """The kernel's limit: merge-path co-ranks are stored as int32."""
+    if C > MAX_C:
+        raise ValueError(f"local_sort: the kernel sorts rows of at most "
+                         f"{MAX_C} keys, got {C}")
+
+
 def padded_length(C: int) -> int:
-    """The power-of-two length L >= C the network runs on."""
+    """The power-of-two length L >= C the plain network runs on."""
     return 1 << max(0, (C - 1).bit_length())
+
+
+def merge_passes(C: int, tile: int = TILE) -> int:
+    """Merge passes after the tile pass: ceil(log2(ceil(C / tile)))."""
+    return (-(-C // tile) - 1).bit_length()
 
 
 def local_sort_reference(x: torch.Tensor) -> torch.Tensor:
@@ -89,108 +112,217 @@ def local_sort_reference(x: torch.Tensor) -> torch.Tensor:
     return from_key(_network(keys)[:, :C].contiguous(), x.dtype)
 
 
+def _pairs(o0, C: int, w: int):
+    """(ps, la, lb) of the pair of width-w runs holding output o0: the pair
+    starts at ps, its left run has la keys, its right run lb (0: none)."""
+    ps = o0 // (2 * w) * (2 * w)
+    return ps, (C - ps).clip(max=w), (C - ps - w).clip(0, w)
+
+
+def _co_rank(keys, a0, na, b0, nb, d):
+    """Of the first d outputs of the stable merge of keys[a0 : a0 + na]
+    and keys[b0 : b0 + nb] (flat int32 keys, ties to a), how many come
+    from a: the kernel's binary search, elementwise over int64 tensors."""
+    lo = (d - nb).clamp(min=0)
+    hi = torch.minimum(d, na)
+    last = keys.numel() - 1
+    while True:
+        live = lo < hi
+        if not bool(live.any()):
+            return lo
+        mid = (lo + hi) // 2
+        take = (keys[(a0 + mid).clamp(0, last)]
+                <= keys[(b0 + d - 1 - mid).clamp(0, last)])
+        lo = torch.where(live & take, mid + 1, lo)
+        hi = torch.where(live & ~take, mid, hi)
+
+
+def local_sort_schedule(x: torch.Tensor, tile: int = TILE,
+                        block: int = MT) -> torch.Tensor:
+    """The kernel's schedule in PyTorch, for the tests: sort each
+    tile-key segment of a row (padded with the sentinel key), then merge
+    neighbouring runs pass by pass, each merge block of min(block, tile)
+    outputs taking its first co-rank from a partition search and its last
+    from the next block's (or the pair's end), and each output its own
+    co-rank inside the block's two windows.  Equals `local_sort_reference`
+    bit for bit."""
+    rows, C = _check(x, "local_sort")
+    for name, v in (("tile", tile), ("block", block)):
+        if v & (v - 1) or v < 1:
+            raise ValueError(f"{name} must be a power of two, got {v}")
+    dev = x.device
+    keys = to_key(x.contiguous())
+    tiles = -(-C // tile)
+    pad = to_key(torch.full((1, 1), pad_value(x.dtype), dtype=x.dtype,
+                            device=dev))
+    segs = torch.cat([keys, pad.expand(rows, tiles * tile - C)], dim=1)
+    keys = _network(segs.view(rows * tiles, tile)).view(rows, -1)[:, :C]
+    mt = min(block, tile)
+    bpr = -(-C // mt)
+    q = torch.arange(bpr, device=dev)
+    o0 = q * mt
+    row_base = (torch.arange(rows, device=dev) * C)[:, None]
+    o = torch.arange(C, device=dev)              # every output of a row
+    x_in_block = o - o // mt * mt
+    w = tile
+    while w < C:
+        flat = keys.reshape(-1)
+        ps, la, lb = _pairs(o0, C, w)
+        # the partition launch: each block's first co-rank in its pair
+        diag = _co_rank(flat, row_base + ps, la, row_base + ps + w, lb,
+                        (o0 - ps).expand(rows, bpr))
+        n_out = torch.clamp(C - o0, max=mt)
+        d1 = o0 - ps + n_out
+        nxt = torch.cat([diag[:, 1:], diag[:, -1:]], dim=1)
+        a1 = torch.where(d1 < la + lb, nxt, la.expand(rows, bpr))
+        # the merge launch: every output from the block's two windows
+        blk = o // mt
+        a0 = diag[:, blk]
+        na = a1[:, blk] - a0
+        nb = n_out[blk] - na
+        wa = row_base + ps[blk] + a0               # window starts, flat
+        wb = row_base + ps[blk] + w + (o0 - ps)[blk] - a0
+        xi = x_in_block.expand(rows, C)
+        c0 = _co_rank(flat, wa, na, wb, nb, xi)
+        c1 = _co_rank(flat, wa, na, wb, nb, xi + 1)
+        from_a = c1 > c0
+        keys = torch.where(from_a, flat[(wa + c0).clamp(max=flat.numel() - 1)],
+                           flat[(wb + xi - c0).clamp(max=flat.numel() - 1)])
+        w *= 2
+    return from_key(keys.contiguous(), x.dtype)
+
+
+def block_keys(C: int) -> int:
+    """Keys of the one-block sort of a row of C <= TILE keys."""
+    return max(MIN_N, padded_length(C))
+
+
 def plan(rows: int, C: int, dtype: str) -> List[LaunchFacts]:
     """The launches `repro_local_sort` makes for a (rows, C) `dtype` sort.
 
-    Tiles: a row (L <= TILE); a TILE-key segment of a row for the
-    shared-memory passes; for a global substage (k, j >= TILE), the two
-    256-key runs of the scratch its block's 256 pairs exchange in place
-    (i and i + j, each contiguous since j >= TILE); for the copy, 256
-    output elements of the flat result, reading the tiles of the first
-    and last of them from the scratch.
+    C <= TILE: one block per row (``sort_rows_smem``), its N = max(512,
+    next power of two) keys in dynamic shared memory, N / 16 threads.
+    Above: ``tile_sort`` (block bx sorts TILE-key segment bx % tiles of
+    row bx // tiles), then per merge pass of run width w a
+    ``merge_partition`` (thread g writes co-rank g of the flat (rows *
+    blocks per row) ``diag``; a block reads the pairs of runs from its
+    first diagonal's to its last's, stated as those two) and a
+    ``merge_pass`` (block g writes MT outputs of its row; it reads the two
+    width-w runs of its pair, the second only where there is one, and
+    ``diag[g]``, ``diag[g + 1]`` where the block ends inside its pair).
+    Passes alternate between ``out`` and ``scratch``, the last one
+    writing ``out``.  Array offsets are 64-bit.  Raises ValueError past
+    `MAX_C`, as the kernel would refuse it.
     """
+    _check_width(C)
     if rows == 0:
         return []
     call = (__name__, (rows, C, dtype))
-    L = padded_length(C)
     x = functools.partial(OperandFacts, "in", "x", (rows, C), dtype)
-    row_tile = (1, C)
-    if L <= TILE:
-        half = L // 2
-        threads = SORT_THREADS if half >= SORT_THREADS else max(half, 32)
+    if C <= TILE:
+        n = block_keys(C)
         rows_map = lambda bx, by, bz: stack_tiles(bx, bx, 0)  # noqa: E731
         return [LaunchFacts(
-            "sort_rows_smem", (rows, 1, 1), threads, 0, L * 4, "int32",
-            inputs=(x(row_tile, rows_map),),
-            outputs=(OperandFacts("out", "out", (rows, C), dtype, row_tile,
+            "sort_rows_smem", (rows, 1, 1), n // KPT, 0, n * 4, "int64",
+            inputs=(x((1, C), rows_map),),
+            outputs=(OperandFacts("out", "out", (rows, C), dtype, (1, C),
                                   rows_map),), call=call)]
-    tiles = L // TILE
-    seg = (1, TILE)
-    scratch = functools.partial(OperandFacts, buffer="scratch",
-                                array_shape=(rows, L), dtype="int32")
+    tiles = -(-C // TILE)
+    passes = merge_passes(C)
+    bpr = -(-C // MT)
+    total = rows * bpr
+
+    def keys(role, p, tile_shape, tile_map):
+        """Pass p's buffer (0 = the tile pass's destination)."""
+        last = (passes - p) % 2 == 0
+        return OperandFacts(role, "out" if last else "scratch", (rows, C),
+                            dtype if last else "int32", tile_shape, tile_map)
 
     def segments(bx, by, bz):
         return stack_tiles(bx, bx // tiles, bx % tiles)
 
-    def read_segments(bx, by, bz):       # segments past C read no input
-        live = np.flatnonzero((bx % tiles) * TILE < C)
-        return live, segments(bx[live], by, bz)
-
+    diag = functools.partial(OperandFacts, buffer="diag", array_shape=(total,),
+                             dtype="int32")
     out: List[LaunchFacts] = []
 
-    def add(name, grid, threads, smem, idx, inputs, outputs):
-        out.append(LaunchFacts(name, (grid, 1, 1), threads, 0, smem, idx,
-                               inputs=inputs, outputs=outputs, call=call,
-                               step=len(out)))
+    def add(name, grid, threads, smem_static, smem_dynamic, inputs, outputs):
+        out.append(LaunchFacts(name, (grid, 1, 1), threads, smem_static,
+                               smem_dynamic, "int64", inputs=inputs,
+                               outputs=outputs, call=call, step=len(out)))
 
-    add("tile_sort", rows * tiles, SORT_THREADS, TILE * 4, "int64",
-        (x(seg, read_segments),),
-        (scratch(role="out", tile_shape=seg, tile_map=segments),))
-    half_row = L // 2
-    step_blocks = -(-rows * half_row // STEP_THREADS)
-    k = 2 * TILE
-    while k <= L:
-        j = k // 2
-        while j >= TILE:
-            def pair_runs(bx, by, bz, j=j):
-                p0 = bx * STEP_THREADS             # first pair of the block
-                row, q0 = p0 // half_row, p0 % half_row
-                i0 = 2 * j * (q0 // j) + q0 % j
-                blk = np.repeat(np.arange(len(bx)), 2)
-                runs = np.stack([i0, i0 + j], axis=1).reshape(-1)
-                return blk, stack_tiles(blk, row[blk], runs // STEP_THREADS)
-            run = (1, STEP_THREADS)
-            add("global_step", step_blocks, STEP_THREADS, 0, "int64",
-                (scratch(role="in", tile_shape=run, tile_map=pair_runs),),
-                (scratch(role="out", tile_shape=run, tile_map=pair_runs),))
-            j //= 2
-        add("tile_finish", rows * tiles, SORT_THREADS, TILE * 4, "int64",
-            (scratch(role="in", tile_shape=seg, tile_map=segments),),
-            (scratch(role="out", tile_shape=seg, tile_map=segments),))
-        k *= 2
-    total = rows * C
+    add("tile_sort", rows * tiles, TILE // KPT, 0, TILE * 4,
+        (x((1, TILE), segments),), (keys("out", 0, (1, TILE), segments),))
+    w = TILE
+    for p in range(1, passes + 1):
+        def runs(g, w=w):
+            """Row, left run and last run read for the pair of block g."""
+            row, o0 = g // bpr, g % bpr * MT
+            ps, _, lb = _pairs(o0, C, w)
+            return row, ps // w, ps // w + (lb > 0)
 
-    def copied_from(bx, by, bz):
-        first = bx * STEP_THREADS
-        last = np.minimum(first + STEP_THREADS, total) - 1
-        blk = np.repeat(np.arange(len(bx)), 2)
-        idx = np.stack([first, last], axis=1).reshape(-1)
-        return blk, stack_tiles(blk, idx // C, (idx % C) // STEP_THREADS)
+        def part_reads(bx, by, bz, runs=runs):
+            first = bx * PART_THREADS
+            r0, left, _ = runs(first)
+            r1, _, right = runs(np.minimum(first + PART_THREADS, total) - 1)
+            blk = np.repeat(np.arange(len(bx)), 2)
+            return blk, np.stack([np.stack([r0, left], 1),
+                                  np.stack([r1, right], 1)], 1).reshape(-1, 2)
 
-    add("copy_out", -(-total // STEP_THREADS), STEP_THREADS, 0, "int64",
-        (scratch(role="in", tile_shape=(1, STEP_THREADS),
-                 tile_map=copied_from),),
-        (OperandFacts("out", "out", (total,), dtype, (STEP_THREADS,),
-                      lambda bx, by, bz: bx[:, None]),))
+        def merge_reads(bx, by, bz, runs=runs):
+            row, left, right = runs(bx)
+            two = right > left
+            blk = np.concatenate([np.arange(len(bx)), np.flatnonzero(two)])
+            return blk, np.stack([row[blk], np.concatenate([left,
+                                                            right[two]])], 1)
+
+        def diag_reads(bx, by, bz, w=w):
+            o0 = bx % bpr * MT
+            ps, la, lb = _pairs(o0, C, w)
+            inner = o0 - ps + np.minimum(C - o0, MT) < la + lb
+            blk = np.concatenate([np.arange(len(bx)), np.flatnonzero(inner)])
+            return blk, np.concatenate([bx, bx[inner] + 1])[:, None]
+
+        def blocks(bx, by, bz):
+            return stack_tiles(bx, bx // bpr, bx % bpr)
+
+        add("merge_partition", -(-total // PART_THREADS), PART_THREADS, 0, 0,
+            (keys("in", p - 1, (1, w), part_reads),),
+            (diag(role="out", tile_shape=(PART_THREADS,),
+                  tile_map=lambda bx, by, bz: bx[:, None]),))
+        add("merge_pass", total, MT_THREADS, (MT + MT // 32) * 4, 0,
+            (keys("in", p - 1, (1, w), merge_reads),
+             diag(role="in", tile_shape=(1,), tile_map=diag_reads)),
+            (keys("out", p, (1, MT), blocks),))
+        w *= 2
     return out
 
 
 def c_plan(rows: int, C: int, dtype: str):
     """`plan`'s launches as the C entry's dry-run twin gives them (card)."""
-    return _build.c_plan(_lib(), "local_sort", rows, C, padded_length(C),
+    return _build.c_plan(_lib(), "local_sort", rows, C,
                          int(dtype == "float32"))
 
 
-def _launch(x: torch.Tensor, out: torch.Tensor, scratch: torch.Tensor) -> None:
+def scratch_shapes(rows: int, C: int) -> Dict[str, tuple]:
+    """The int32 buffers the kernel needs beside its output: none for
+    C <= TILE, else the (rows, C) ping-pong scratch and the co-ranks."""
+    if C <= TILE:
+        return {}
+    return {"scratch": (rows, C), "diag": (rows * -(-C // MT),)}
+
+
+def _launch(x: torch.Tensor, out: torch.Tensor,
+            bufs: Dict[str, torch.Tensor]) -> None:
     """Run the C entry on CUDA tensors (uncounted, unrecorded)."""
     rows, C = x.shape
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.repro_local_sort(x.data_ptr(), out.data_ptr(),
-                                  scratch.data_ptr(), rows, C,
-                                  padded_length(C),
-                                  int(x.dtype == torch.float32), stream)
+        rc = lib.repro_local_sort(
+            x.data_ptr(), out.data_ptr(),
+            bufs["scratch"].data_ptr() if bufs else None,
+            bufs["diag"].data_ptr() if bufs else None, rows, C,
+            int(x.dtype == torch.float32), stream)
     _build.check(rc, lib, "repro_local_sort_error", "local_sort")
 
 
@@ -199,29 +331,28 @@ def launch_local_sort(x: torch.Tensor) -> torch.Tensor:
     rows, C = _check(x, "local_sort")
     if not x.is_contiguous():
         raise ValueError("local_sort: the kernel takes a contiguous tensor")
-    L = padded_length(C)
+    _check_width(C)
     out = torch.empty_like(x)
-    scratch = (torch.empty((rows, L), dtype=torch.int32, device=x.device)
-               if L > TILE else out)
-    _launch(x, out, scratch)
+    _launch(x, out, {name: torch.empty(shape, dtype=torch.int32,
+                                       device=x.device)
+                     for name, shape in scratch_shapes(rows, C).items()})
     return out
 
 
 def probe(rows: int, C: int, dtype: str,
           device="cuda") -> Dict[str, torch.Tensor]:
-    """One call on keys from [0, 2^20) with the output and scratch filled
-    with `analysis.probe.poisoned`, which no such key can write; returns
-    the buffers."""
+    """One call on keys from [0, 2^20) with the output, the scratch and
+    the co-ranks filled with `analysis.probe.poisoned`, which no such key
+    and no co-rank can write; returns the buffers."""
     from repro_torch.analysis.probe import poisoned
     gen = torch.Generator().manual_seed(rows * 7919 + C)
     x = torch.randint(0, 1 << 20, (rows, C), generator=gen, dtype=torch.int32)
     x = x.to(getattr(torch, dtype)).to(device)
-    bufs = {"out": poisoned((rows, C), x.dtype, device)}
-    L = padded_length(C)
-    if L > TILE:
-        bufs["scratch"] = poisoned((rows, L), torch.int32, device)
-    _launch(x, bufs["out"], bufs.get("scratch", bufs["out"]))
-    return bufs
+    bufs = {name: poisoned(shape, torch.int32, device)
+            for name, shape in scratch_shapes(rows, C).items()}
+    out = poisoned((rows, C), x.dtype, device)
+    _launch(x, out, bufs)
+    return {"out": out, **bufs}
 
 
 def local_sort(x: torch.Tensor) -> torch.Tensor:

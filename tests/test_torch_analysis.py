@@ -320,14 +320,38 @@ def test_r3_budget_on_the_flash_plan():
 
 
 def test_local_sort_plan_counts_its_launches():
-    facts = tlocal_sort.plan(8, 12_500_000, "int32")
+    """(8, 12.5 M): 763 tiles, so the tile sort and ceil(log2 763) = 10
+    merge passes of a partition and a merge, ping-ponging between the
+    output and a (rows, C) scratch so that the last pass writes the output;
+    no global compare-exchange substage and no copy pass."""
+    rows, C = 8, 12_500_000
+    facts = tlocal_sort.plan(rows, C, "int32")
     names = [f.name for f in facts]
-    assert len(facts) == 67
-    assert names.count("global_step") == 55
-    assert names.count("tile_finish") == 10
-    assert names[0] == "tile_sort" and names[-1] == "copy_out"
-    assert [f.step for f in facts] == list(range(67))
+    assert tlocal_sort.merge_passes(C) == 10
+    assert len(facts) == 21
+    assert names == ["tile_sort"] + ["merge_partition", "merge_pass"] * 10
+    assert "global_step" not in names and "copy_out" not in names
+    assert [f.step for f in facts] == list(range(21))
+    assert facts[0].grid == (rows * 763, 1, 1)
+    bpr = -(-C // tlocal_sort.MT)
+    assert [f.grid[0] for f in facts[2::2]] == [rows * bpr] * 10
+    dst = [f.outputs[0].buffer for f in facts[::2]]
+    assert dst == ["out", "scratch"] * 5 + ["out"]
+    assert {f.outputs[0].array_shape for f in facts[::2]} == {(rows, C)}
+    assert tlocal_sort.scratch_shapes(rows, C) == {"scratch": (rows, C),
+                                                   "diag": (rows * bpr,)}
+    assert {f.index_dtype for f in facts} == {"int64"}
     assert len(tlocal_sort.plan(8, 16384, "int32")) == 1
+    assert tlocal_sort.scratch_shapes(8, 16384) == {}
+    with pytest.raises(ValueError, match="at most"):
+        tlocal_sort.plan(1, 2**31, "int32")
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_local_sort_full_width_plan_is_clean(dtype):
+    rep = check_artifacts("local_sort", tlocal_sort.plan(8, 12_500_000, dtype),
+                          rules=("R3", "R5", "R7", "R8"))
+    assert rep.clean and not rep.notes, rep.format()
 
 
 # ---------------------------------------------------------------------------
@@ -359,12 +383,12 @@ def test_record_collects_the_launches_the_card_would_make():
     assert launches[0].grid == (2, 4, 1)          # (q tiles, H, B)
 
 
-@pytest.mark.parametrize("C", [1000, 3 * 16384 + 7])
+@pytest.mark.parametrize("C", [1000, 3 * 16384 + 7, 37 * 16384 + 11])
 def test_image_of_the_sort_plans_covers_their_outputs(C):
     facts = tlocal_sort.plan(3, C, "int32")
     assert bool(image(facts, "out", 3 * C).all())
-    if C > 16384:
-        assert bool(image(facts, "scratch", 3 * 65536).all())
+    for name, shape in tlocal_sort.scratch_shapes(3, C).items():
+        assert bool(image(facts, name, int(np.prod(shape))).all())
     gapped = mutant_launches("gapped_index_map")[1]
     assert image(gapped, "out", 512).view(4, 128).all(1).tolist() == \
         [True, True, False, False]

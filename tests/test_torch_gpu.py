@@ -26,11 +26,15 @@ from repro_torch.core import (HomeMesh, Homing, Locale, LocalisationPolicy,
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (KERNEL_TOL,
                                                  flash_attention_reference)
-from repro_torch.kernels.local_sort import TILE, local_sort_reference
+from repro_torch.kernels.local_sort import (TILE, local_sort_reference,
+                                            local_sort_schedule)
 from repro_torch.kernels.localised_copy import localised_copy_reference
 from repro_torch.kernels.merge_split import merge_split_reference
 
-CARD_C = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7)
+# C > TILE: 2, 4, 6 and 38 sorted runs (1, 2, 3 and 6 merge passes, odd
+# run counts and ragged last runs on the last three)
+CARD_C = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7,
+          5 * TILE + 3, 37 * TILE + 11)
 
 
 def bits(t: torch.Tensor) -> np.ndarray:
@@ -55,8 +59,18 @@ def test_local_sort_kernel_matches_plain_on_card(C):
     for name in GRID_NAMES:
         x = torch.from_numpy(grid_rows(name, C))
         np.testing.assert_array_equal(bits(ops.local_sort(x.cuda())),
-                                      bits(local_sort_reference(x)),
+                                      bits(local_sort_reference(x.cuda())),
                                       err_msg=f"{name} {C}")
+
+
+@pytest.mark.gpu
+def test_local_sort_kernel_matches_schedule_emulation_on_card():
+    _need_card()
+    for name in GRID_NAMES:
+        x = torch.from_numpy(grid_rows(name, 5 * TILE + 3, rows=2))
+        np.testing.assert_array_equal(bits(ops.local_sort(x.cuda())),
+                                      bits(local_sort_schedule(x)),
+                                      err_msg=name)
 
 
 @pytest.mark.gpu
@@ -259,7 +273,8 @@ def test_mutant_kernel_matches_plain_on_card(kind):
 
 
 PLAN_CASES = {
-    "local_sort": [(8, 1000, "int32"), (3, 3 * TILE + 7, "float32")],
+    "local_sort": [(8, 1000, "int32"), (3, 3 * TILE + 7, "float32"),
+                   (3, 37 * TILE + 11, "int32")],
     "merge_split": [(8, 5000, "int32"), (16, 2049, "float32")],
     "localised_copy": [(1003, 3, "bfloat16", True), (4097, 1, "float32",
                                                      False)],

@@ -21,7 +21,7 @@ from repro.core.sort import merge_sorted as jax_merge_sorted
 from repro.kernels import ops as jops
 from repro_torch.convert import GRID_NAMES, grid_rows
 from repro_torch.core.sort import merge_sorted
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, local_sort, ops
 from repro_torch.kernels.local_sort import local_sort_reference
 from repro_torch.kernels.merge_split import merge_split_reference
 
@@ -68,6 +68,47 @@ def test_signed_zeros_order_like_reference():
     np.testing.assert_array_equal(
         bits(ops.local_sort(torch.from_numpy(x5)).numpy()),
         bits(np.asarray(jops.local_sort(jnp.asarray(x5)))))
+
+
+# the kernel's schedule (tile pass, then merge passes with merge-path
+# co-ranks) emulated in PyTorch, at small tiles: C values giving 1, 2, 3,
+# 6 and 7 merge passes, odd run counts and ragged last runs; `block` below
+# the tile puts several merge blocks in every pair, as MT < TILE does
+SCHEDULE_CASES = [(64, 64, C) for C in (5, 64, 65, 3 * 64 + 7, 5 * 64 + 3,
+                                        37 * 64 + 11, 64 * 64 + 1)] + \
+    [(256, 32, C) for C in (257, 3 * 256 + 7, 5 * 256 + 3, 37 * 256 + 11)] + \
+    [(64, 1, 5 * 64 + 3)]
+
+
+@pytest.mark.parametrize("tile,block,C", SCHEDULE_CASES, ids=str)
+def test_local_sort_schedule_matches_plain_version(tile, block, C):
+    for name in GRID_NAMES:
+        x = torch.from_numpy(grid_rows(name, C))
+        got = local_sort.local_sort_schedule(x, tile=tile, block=block)
+        np.testing.assert_array_equal(bits(got), bits(local_sort_reference(x)),
+                                      err_msg=f"{name} {tile} {block} {C}")
+
+
+@pytest.mark.parametrize("name", ["rand_float", "dups_int"])
+def test_local_sort_schedule_at_the_real_tile_matches_reference_kernel(name):
+    C = 3 * local_sort.TILE + 7                  # 4 tiles, 2 merge passes
+    x = grid_rows(name, C, rows=2, seed=5)
+    ref = np.asarray(jops.local_sort(jnp.asarray(x)))
+    got = local_sort.local_sort_schedule(torch.from_numpy(x))
+    np.testing.assert_array_equal(bits(got), bits(ref))
+
+
+def test_local_sort_schedule_merges_by_the_total_order_key():
+    """Run 0 holds +0.0 only and run 1 -0.0 only: an IEEE merge with ties
+    to the left run would keep +0.0 first; the key merge puts -0.0 first."""
+    x = np.concatenate([np.zeros(64, np.float32), -np.zeros(64, np.float32),
+                        np.full(5, -1.0, np.float32)])[None]
+    got = local_sort.local_sort_schedule(torch.from_numpy(x), tile=64,
+                                         block=16).numpy()
+    assert got[0, :5].tolist() == [-1.0] * 5
+    assert np.signbit(got[0, 5:]).tolist() == [True] * 64 + [False] * 64
+    np.testing.assert_array_equal(
+        bits(got), bits(np.asarray(jops.local_sort(jnp.asarray(x)))))
 
 
 def test_bitonic_sort_rejects_non_power_of_two():
