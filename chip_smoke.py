@@ -7,7 +7,11 @@ Run from the root of a checkout, on a machine with one CUDA card (an H100
 is the target: the kernels are built for sm_90a).  Phases, one line each:
 
   1. device   — the card's name and `nvidia-smi` name and power limit;
-  2. build    — every kernel of ``src/repro_torch/csrc`` built with nvcc;
+  2. build    — every kernel of ``src/repro_torch/csrc`` built with nvcc,
+                with `-Xptxas -v`'s registers and spills; the bf16
+                attention kernel's (`fa_wgmma`) registers, spills and
+                shared memory by instance, and its SASS (`cuobjdump`),
+                which must hold HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bit for bit (floats as int32 bits), on the property grid
                 (with row lengths that take `local_sort` through 1, 2, 3
@@ -40,7 +44,10 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 (S = 4096, causal, bf16 and f32) and mixtral-8x7b
                 (S = 8192, causal, window 4096, bf16) against its plain
                 blocked version (and the dense one at the qwen shape)
-                within `KERNEL_TOL` (bf16: one rounding step), and two
+                within `KERNEL_TOL` (bf16: one rounding step), the kernel
+                each dtype ran (`fa_wgmma` bf16, `fa_kernel` f32), the
+                bf16 kernel with P rounded once (no hi + lo split: its
+                time and how far it leaves the tolerance), and two
                 planted faults, a dropped KV tile and a scale 1 % off,
                 that must fall outside it on the long rows;
   9. analysis — the analyser's path: the four mutant kernels of
@@ -254,6 +261,77 @@ def check_sorted(y, x, what: str) -> None:
         nz = expect != 0
         need(torch.equal(bits(y[nz]), bits(expect[nz])),
              f"{what}: non-zero bits differ")
+
+
+def ptxas_entries(report: str) -> dict:
+    """`nvcc -Xptxas -v` output by kernel entry: registers, spill bytes
+    (stores + loads), static shared memory (0 where ptxas names none), the
+    `warpgroup.arrive`s ptxas injected around wgmma (C7519), and its
+    warnings."""
+    import re
+    out, name = {}, None
+    injected = {}
+    for ln in report.splitlines():
+        m = re.search(r"C7519.*in function '([^']+)'", ln)
+        if m:
+            injected[m.group(1)] = injected.get(m.group(1), 0) + 1
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {"smem": 0, "warnings": []}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            out[name]["smem"] = int(m.group(1))
+        if "warning" in ln.lower():
+            out[name]["warnings"].append(ln.strip())
+    for name, rec in out.items():
+        rec["arrives_injected"] = injected.get(name, 0)
+    return out
+
+
+def wgmma_instances(entries: dict) -> dict:
+    """The `fa_wgmma<HD, BK>` entries of `ptxas_entries`, by "HD/BK"."""
+    import re
+    out = {}
+    for name, rec in entries.items():
+        m = re.search(r"fa_wgmmaILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"{m.group(1)}/{m.group(2)}"] = rec
+    return out
+
+
+def sass_check() -> dict:
+    """`cuobjdump -sass` of the built flash-attention library: each
+    `fa_wgmma` instance must hold tensor-core (HGMMA) and TMA (UTMALDG)
+    instructions, or the bf16 kernel never reached them."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    r = subprocess.run([str(tool), "-sass", str(_build._target(
+        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    need(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()[:400]}")
+    found = {}
+    for part in r.stdout.split("Function : ")[1:]:
+        m = re.search(r"fa_wgmmaILi(\d+)ELi(\d+)E", part.split("\n", 1)[0])
+        if m:
+            found[f"{m.group(1)}/{m.group(2)}"] = {
+                op: part.count(op) for op in ("HGMMA", "UTMALDG")}
+    need(len(found) == 8, f"cuobjdump: fa_wgmma instances {sorted(found)}")
+    for key, n in found.items():
+        need(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
+             f"fa_wgmma<{key}> SASS lacks HGMMA or UTMALDG: {n}")
+    return found
 
 
 def phase_kernels(seed: int) -> dict:
@@ -790,8 +868,8 @@ def phase_attention(seed: int) -> dict:
     from repro_torch.convert import make_attention_inputs
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        KERNEL_TOL, attention_ref, flash_attention_reference, kernel_tiles,
-        live_tiles)
+        KERNEL_TOL, KERNELS, _launch, attention_ref, flash_attention_reference,
+        kernel_tiles, live_tiles)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions: f32
     torch.backends.cudnn.allow_tf32 = False
@@ -812,12 +890,30 @@ def phase_attention(seed: int) -> dict:
         counts = ops.launch_counts()
         need(counts["flash_attention"] == 1,
              f"attention {tag}: launches {counts}")
+        ran = [f.name for f in recorded[tag]]
+        need(ran == [KERNELS[dt]], f"attention {tag}: kernels {ran}, not "
+                                   f"{KERNELS[dt]}")
         if tag == "qwen3-0.6b_bf16":
             counted = counts
         plain = flash_attention_reference(q, k, v, **kw)
-        rec = {"max_abs_err": float((got.float() - plain.float()).abs().max()),
+        rec = {"kernel": ran[0],
+               "max_abs_err": float((got.float() - plain.float()).abs().max()),
                "rtol": rtol, "atol": atol,
                "beyond": beyond(got, plain, rtol, atol)}
+        if dt == "bfloat16":
+            # the design not taken: P rounded once to bf16 before P V
+            one = torch.empty_like(q)
+
+            def single():
+                _launch(q, k, v, one, True, window, ATTN_BLOCK, ATTN_BLOCK,
+                        p_split=False)
+            single()
+            torch.cuda.synchronize()
+            rec["single_p"] = dict(
+                beyond=beyond(one, plain, rtol, atol), elems=one.numel(),
+                max_abs_err=float((one.float() - plain.float()).abs().max()),
+                ms=cuda_ms(single, reps=20))
+            del one
         if tag.startswith("qwen"):
             dense = attention_ref(q, k, v, causal=True, window=window)
             rec["dense_max_abs_err"] = float(
@@ -869,7 +965,7 @@ def phase_attention(seed: int) -> dict:
         flops, nbytes = attention_work(B, H, KV, S, hd, window,
                                        q.element_size())
         rec.update(
-            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=5),
+            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=20),
             plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, **kw),
                              reps=1),
             library_ms=cuda_ms(library, reps=5),
@@ -878,20 +974,37 @@ def phase_attention(seed: int) -> dict:
         rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
         rec["bound_by"] = ("operations" if rec["ops_ms"] >= rec["bytes_ms"]
                            else "bytes")
+        rec["bound_fraction"] = rec["bound_ms"] / rec["ms"]
         ref_live = live_tiles(S, S, causal=True, window=window,
                               block_q=ATTN_BLOCK, block_k=ATTN_BLOCK)
-        kb = kernel_tiles(S, S, ATTN_BLOCK, ATTN_BLOCK)
+        kb = kernel_tiles(S, S, ATTN_BLOCK, ATTN_BLOCK, dt)
         ker_live = live_tiles(S, S, causal=True, window=window,
                               block_q=kb[0], block_k=kb[1])
         rec["tiles"] = dict(live=int(ref_live.sum()),
                             skipped=int((~ref_live).sum()),
                             kernel_live=int(ker_live.sum()),
                             kernel_skipped=int((~ker_live).sum()))
+        # the products the kernel issues: every live tile whole, P V twice
+        # in bf16 (the hi + lo split of P)
+        issued = (int(ker_live.sum()) * B * H * 2 * kb[0] * kb[1] * hd
+                  * (3 if dt == "bfloat16" else 2))
+        rec["tflops"] = dict(needed=flops / rec["ms"] / 1e9,
+                             issued=issued / rec["ms"] / 1e9)
+        rec["profile"] = kernel_breakdown(
+            lambda: ops.flash_attention(q, k, v, **kw),
+            {name: name for name in KERNELS.values()})
         out[tag] = rec
         say(f"phase attention {tag}: B={B} H={H} KV={KV} S={S} hd={hd} "
-            f"causal window={window} {dt}: kernel {rec['ms']:.3f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.3f} ms, "
-            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); max err "
+            f"causal window={window} {dt}: kernel {rec['kernel']} "
+            f"{rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_fraction']:.3f} of it); "
+            + f"TFLOP/s needed / issued {rec['tflops']['needed']:.1f} / "
+            f"{rec['tflops']['issued']:.1f}; profiler "
+            + json.dumps(rec["profile"]) + "; "
+            + (f"one bf16 P (no split): {json.dumps(rec['single_p'])}; "
+               if "single_p" in rec else "") + f"max err "
             f"{rec['max_abs_err']:.3g} (rtol={rtol:.3g} atol={atol:.3g}); "
             f"late-row rms {rec['late_rms']:.4g}; planted faults "
             + json.dumps(rec["faults"]) + f"; tiles live/skipped "
@@ -1158,6 +1271,13 @@ def main(argv=None) -> int:
             if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     say(f"phase build: {sorted(_build.sources())} in {secs:.2f} s; ptxas: "
         + " | ".join(regs))
+    wgmma = wgmma_instances(ptxas_entries(reports.get("flash_attention",
+                                                      "")))
+    say("phase build fa_wgmma<HD/BK> (registers, spill bytes, static smem, "
+        "ptxas warnings): " + (json.dumps(wgmma) if wgmma else
+                               "not rebuilt in this run"))
+    sass = sass_check()
+    say("phase build fa_wgmma SASS (cuobjdump): " + json.dumps(sass))
 
     kernels = phase_kernels(args.seed)
     engine = phase_engine(args.seed)

@@ -28,6 +28,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.analysis.launches import LaunchFacts, record
+from repro_torch.core.mesh import entry_device
 from repro_torch.kernels.fixtures import (KINDS, MUTANTS, dead_lane_kernel,
                                           gapped_index_map, oob_index_map,
                                           overlapping_index_map, run_mutant)
@@ -37,14 +38,16 @@ MUTANT_NAMES = {fn.__name__: kind for kind, fn in MUTANTS.items()}
 
 
 def mutant_launches(name: str, rows: int = 4, cols: int = 128,
-                    device="cpu", x=None) -> Tuple[torch.Tensor,
-                                                   List[LaunchFacts]]:
+                    device=None, x=None) -> Tuple[torch.Tensor,
+                                                  List[LaunchFacts]]:
     """Run the mutant `name` (a wrapper name or a kind) on `x` (default
-    ``arange`` rows on `device`); returns ``(y, launches recorded)``."""
+    ``arange`` rows on `device`, by default the card, as every entry point:
+    ``device="cpu"`` runs the plain versions); returns ``(y, launches
+    recorded)``.  A given `x` runs where it lies."""
     kind = MUTANT_NAMES.get(name, name)
     if x is None:
         x = torch.arange(rows * cols, dtype=torch.float32).view(rows, cols)
-        x = x.to(device)
+        x = x.to(entry_device(None, device))
     with record() as launches:
         y, _ = run_mutant(kind, x)
     return y, list(launches)

@@ -28,11 +28,19 @@ masked entries of its live tiles, as the reference does; that value
 depends on the tile sides, which the kernel rounds up (`kernel_tiles`).
 Every other row's masked entries are wiped by its first real score.
 
+Two kernels: float32 runs ``fa_kernel`` on the fp32 pipe, bfloat16
+``fa_wgmma``, both products on the tensor cores (wgmma) with the q tile
+and a 3-stage K/V ring brought by TMA, P V taken as two products of a
+bfloat16 hi + lo split of P (one rounding of P to bfloat16 misses
+`KERNEL_TOL`).  Their tile sides and shared memory differ
+(`kernel_tiles`, `smem_bytes`); ``fa_wgmma`` needs 16-byte aligned q, k, v.
+
 `plan` states the kernel's one launch: a (q tiles, H, B) grid -- the
 reference's KV grid axis is a loop inside the block here -- with the KV
 tiles each block reads (its live ones), and the block's shared memory
 (`smem_bytes`); `c_plan` reads the same launch from the C entry's
-dry-run twin on the card.
+dry-run twin on the card.  ``fa_wgmma`` takes its q tile from the
+block's linear index, last tile first (`wgmma_block_tiles`).
 """
 from __future__ import annotations
 
@@ -55,6 +63,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_BLOCK = 128
 
+#: the kernel each dtype launches
+KERNELS = {"float32": "fa_kernel", "bfloat16": "fa_wgmma"}
+#: ``fa_wgmma``: query rows of a consumer warpgroup (wgmma's M), threads of
+#: a warpgroup, K/V stages of its ring, alignment slack of its tiles
+WG_ROWS, WG, STAGES, SMEM_ALIGN = 64, 128, 3, 1024
+
 #: (rtol, atol) of the kernel against its plain version.  Its float32 sums
 #: run in another order, so float32 agrees to 2e-5.  A bfloat16 output may
 #: round the other way: one bfloat16 step, at most 2**-7 of its value; the
@@ -68,8 +82,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float,
-                                                      ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention_plan.restype = ctypes.c_int
     lib.repro_flash_attention_plan.argtypes = (
         [ctypes.c_int] * 11 + [ctypes.POINTER(_build.Launch), ctypes.c_int])
@@ -192,17 +206,43 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
-def kernel_tiles(Sq: int, Skv: int, block_q: int, block_k: int):
-    """The kernel's tile sides: the reference's, rounded up to a whole
-    number of 16-row warp slices (q) and 32-key lane slices (k)."""
+def kernel_tiles(Sq: int, Skv: int, block_q: int, block_k: int,
+                 dtype: str = "float32"):
+    """The kernel's tile sides: the reference's, rounded up -- float32 to a
+    whole number of 16-row warp slices (q) and 32-key lane slices (k),
+    bfloat16 to whole 64-row wgmma tiles (q) and 64-key tiles (k)."""
     bq, bk, _, _ = tiles(Sq, Skv, block_q, block_k)
+    if dtype == "bfloat16":
+        return -(-bq // WG_ROWS) * WG_ROWS, -(-bk // 64) * 64
     return -(-bq // 16) * 16, -(-bk // 32) * 32
 
 
-def smem_bytes(bq: int, bk: int, hd: int) -> int:
-    """Dynamic shared memory of one block: the q tile and one K and one V
-    tile in float32, rows padded by one word against bank conflicts."""
+def smem_bytes(bq: int, bk: int, hd: int, dtype: str = "float32") -> int:
+    """Dynamic shared memory of one block.  float32: the q tile and one K
+    and one V tile, rows padded by one word against bank conflicts.
+    bfloat16: alignment slack, the q tile, `STAGES` K+V stages and the
+    mbarriers (q, then full K, full V and empty per stage)."""
+    if dtype == "bfloat16":
+        return (SMEM_ALIGN + bq * hd * 2 + STAGES * 2 * bk * hd * 2
+                + 8 * (1 + 3 * STAGES))
     return (bq + 2 * bk) * (hd + 1) * 4
+
+
+def threads(bq: int, dtype: str = "float32") -> int:
+    """Threads of one block: a warp per 16 rows (float32); a consumer
+    warpgroup per 64 rows and one producer warpgroup (bfloat16)."""
+    if dtype == "bfloat16":
+        return (bq // WG_ROWS + 1) * WG
+    return (bq // 16) * 32
+
+
+def wgmma_block_tiles(nq: int, H: int, B: int, bx, by, bz):
+    """``(iq, h, b)`` of ``fa_wgmma``'s blocks: the linear block index
+    ``bx + nq (by + H bz)`` read with the q tile slowest-varying, last
+    tile first, so the heaviest causal tiles of every head start first."""
+    lin = bx + nq * (by + H * bz)
+    rest = lin % (H * B)
+    return nq - 1 - lin // (H * B), rest % H, rest // H
 
 
 def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
@@ -211,14 +251,15 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
     """The launch `repro_flash_attention` makes (no check of the kernel's
     limits on hd and the blocks: R3 reads this plan for any tile sides).
 
-    Block (iq, h, b) reads q tile iq of head h, the live KV tiles of KV
-    head h // (H / KV) -- those that neither the causal mask nor the
-    window empties for its rows, as the kernel's loop skips them -- and
-    writes out tile iq of head h.
+    The block that takes (iq, h, b) -- block (iq, h, b) itself in
+    float32, `wgmma_block_tiles` in bfloat16 -- reads q tile iq of head h,
+    the live KV tiles of KV head h // (H / KV) -- those that neither the
+    causal mask nor the window empties for its rows, as the kernel's loop
+    skips them -- and writes out tile iq of head h.
     """
     if B * H * Sq == 0 or Skv == 0:
         return []
-    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype)
     nq, nk = -(-Sq // bq), -(-Skv // bk)
     first_q = np.arange(nq)[:, None] * bq
     first_k = np.arange(nk)[None, :] * bk
@@ -229,19 +270,26 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
         live &= first_k + bk - 1 > first_q - window
     G = H // KV
 
+    def coords(bx, by, bz):
+        if dtype == "bfloat16":
+            return wgmma_block_tiles(nq, H, B, bx, by, bz)
+        return bx, by, bz
+
     def q_tile(bx, by, bz):
-        return stack_tiles(bx, bz, by, bx, 0)
+        iq, h, b = coords(bx, by, bz)
+        return stack_tiles(iq, b, h, iq, 0)
 
     def kv_tiles(bx, by, bz):
-        blk, ik = np.nonzero(live[bx])
-        return blk, stack_tiles(blk, bz[blk], by[blk] // G, ik, 0)
+        iq, h, b = coords(bx, by, bz)
+        blk, ik = np.nonzero(live[iq])
+        return blk, stack_tiles(blk, b[blk], h[blk] // G, ik, 0)
 
     kv = functools.partial(OperandFacts, "in", array_shape=(B, KV, Skv, hd),
                            dtype=dtype, tile_shape=(1, 1, bk, hd),
                            tile_map=kv_tiles)
     return [LaunchFacts(
-        "fa_kernel", (nq, H, B), (bq // 16) * 32, 0, smem_bytes(bq, bk, hd),
-        "int32",
+        KERNELS[dtype], (nq, H, B), threads(bq, dtype), 0,
+        smem_bytes(bq, bk, hd, dtype), "int32",
         inputs=(OperandFacts("in", "q", (B, H, Sq, hd), dtype, (1, 1, bq, hd),
                              q_tile), kv(buffer="k"), kv(buffer="v")),
         outputs=(OperandFacts("out", "out", (B, H, Sq, hd), dtype,
@@ -252,25 +300,27 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
 
 def c_plan(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype):
     """`plan`'s launch as the C entry's dry-run twin gives it (card)."""
-    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype)
     return _build.c_plan(_lib(), "flash_attention", B, H, KV, Sq, Skv, hd, bq,
                          bk, int(causal), int(window),
                          int(dtype == "bfloat16"))
 
 
 def _launch(q, k, v, out, causal: bool, window: int, block_q: int,
-            block_k: int) -> None:
-    """Run the C entry on CUDA tensors (uncounted, unrecorded)."""
+            block_k: int, p_split: bool = True) -> None:
+    """Run the C entry on CUDA tensors (uncounted, unrecorded).
+    ``p_split=False`` makes ``fa_wgmma`` round P once to bfloat16 (outside
+    `KERNEL_TOL`; only a measurement of what the split costs uses it)."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype_name(q.dtype))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KV, Sq, Skv, hd, bq, bk, int(causal), int(window),
-            int(q.dtype == torch.bfloat16), hd ** -0.5, stream)
+            int(q.dtype == torch.bfloat16), hd ** -0.5, int(p_split), stream)
     _build.check(rc, lib, "repro_flash_attention_error", "flash_attention")
 
 
@@ -295,7 +345,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     CPU tensors: `flash_attention_reference`.  CUDA tensors: the kernel,
     counted in ``flash_attention.launches``; it takes contiguous inputs,
-    hd in `HEAD_DIMS` and blocks up to `MAX_BLOCK`.
+    hd in `HEAD_DIMS`, blocks up to `MAX_BLOCK` and, in bfloat16, q, k and
+    v on 16-byte boundaries (TMA's rule).
     """
     _check(q, k, v, window)
     note(lambda: plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
@@ -316,11 +367,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
         raise ValueError(f"flash_attention: the kernel takes blocks of 1 to "
                          f"{MAX_BLOCK}, got ({block_q}, {block_k})")
+    dtype = dtype_name(q.dtype)
+    if dtype == "bfloat16" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bfloat16 kernel loads q, k, v "
+                         "by TMA, which needs 16-byte aligned tensors")
     out = torch.empty_like(q)
     if q.numel() == 0 or Skv == 0:
         return out.zero_()
-    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k)
-    assert smem_bytes(bq, bk, hd) <= SMEM_BYTES_PER_BLOCK
+    bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype)
+    assert smem_bytes(bq, bk, hd, dtype) <= SMEM_BYTES_PER_BLOCK
     _launch(q, k, v, out, causal, window, block_q, block_k)
     flash_attention.launches += 1
     return out

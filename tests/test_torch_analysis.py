@@ -165,7 +165,7 @@ EXPECTED = {
 @pytest.mark.parametrize("name", MUTANTS)
 def test_mutant_findings_match_the_reference(name):
     ref = ref_findings(getattr(ref_fixtures, name)())
-    _, launches = mutant_launches(name)
+    _, launches = mutant_launches(name, device="cpu")
     port = port_findings(launches)
     assert signature(ref.findings) == EXPECTED[name], ref.format()
     assert signature(port.findings) == EXPECTED[name], port.format()
@@ -175,9 +175,10 @@ def test_mutant_findings_match_the_reference(name):
 def test_mutant_findings_name_the_same_places():
     """The race, the gap and the read land where the reference says:
     blocks 0 and 1 on row 0, cell (2, 0), block 2 reading row 4, lane 7."""
-    msgs = {n: " ".join(f.message for f in
-                        port_findings(mutant_launches(n)[1]).findings)
-            for n in MUTANTS}
+    msgs = {n: " ".join(
+        f.message for f in
+        port_findings(mutant_launches(n, device="cpu")[1]).findings)
+        for n in MUTANTS}
     assert "blocks (0, 0, 0) and (1, 0, 0)" in msgs["overlapping_index_map"]
     assert "tile (0, 0)" in msgs["overlapping_index_map"]
     assert "cell (2, 0)" in msgs["overlapping_index_map"]
@@ -223,8 +224,18 @@ def test_dead_lane_is_never_entered_on_the_cpu():
     x = torch.ones(4, 128)
     _, entered = mutant_reference("dead_lane", x)
     assert int(entered) == 0
-    _, launches = mutant_launches("dead_lane_kernel")
+    _, launches = mutant_launches("dead_lane_kernel", device="cpu")
     assert launches[0].lanes == ((0, "eq", 7),)
+
+
+def test_mutant_launches_runs_on_the_card_by_default(monkeypatch):
+    """Like every entry point: without a device it asks for the card and
+    raises where there is none; ``device="cpu"`` runs the plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        mutant_launches("gapped_index_map")
+    y, launches = mutant_launches("gapped_index_map", device="cpu")
+    assert y.device.type == "cpu" and len(launches) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +252,9 @@ def test_real_kernels_clean_under_both_packages():
                   tlocal_sort.plan(3, 3 * 16384 + 7, "int32"),
                   tmerge_split.plan(2, 512, "float32"),
                   tflash.plan(2, 2, 2, 256, 256, 64, 128, 128, True, 0,
-                              "float32")):
+                              "float32"),
+                  tflash.plan(2, 4, 2, 200, 77, 64, 128, 64, True, 48,
+                              "bfloat16")):
         rep = port_findings(facts)
         assert rep.clean, rep.format()
 
@@ -308,9 +321,11 @@ def test_merge_split_plan_carries_the_grid_limit():
 
 def test_r3_budget_on_the_flash_plan():
     ok = tflash.plan(1, 16, 8, 4096, 4096, 128, 128, 128, True, 0, "bfloat16")
-    assert ok[0].smem_bytes == 198_144
+    assert ok[0].smem_bytes == 230_480          # fa_wgmma: 3 K/V stages
+    f32 = tflash.plan(1, 16, 8, 4096, 4096, 128, 128, 128, True, 0, "float32")
+    assert f32[0].smem_bytes == 198_144
     rep = Report(target="r3")
-    r3_smem_budget(rep, ok, SMEM_BYTES_PER_BLOCK)
+    r3_smem_budget(rep, ok + f32, SMEM_BYTES_PER_BLOCK)
     assert rep.clean, rep.format()
     big = tflash.plan(1, 16, 8, 4096, 4096, 128, 128, 256, True, 0,
                       "bfloat16")
@@ -389,7 +404,7 @@ def test_image_of_the_sort_plans_covers_their_outputs(C):
     assert bool(image(facts, "out", 3 * C).all())
     for name, shape in tlocal_sort.scratch_shapes(3, C).items():
         assert bool(image(facts, name, int(np.prod(shape))).all())
-    gapped = mutant_launches("gapped_index_map")[1]
+    gapped = mutant_launches("gapped_index_map", device="cpu")[1]
     assert image(gapped, "out", 512).view(4, 128).all(1).tolist() == \
         [True, True, False, False]
 
@@ -477,7 +492,7 @@ def test_locale_check_is_check_workload():
 
 
 def test_check_artifacts_reports_the_mutants():
-    _, launches = mutant_launches("overlapping_index_map")
+    _, launches = mutant_launches("overlapping_index_map", device="cpu")
     rep = check_artifacts("fixture", launches, rules=("R5",))
     assert not rep.clean and [f.rule for f in rep.errors] == ["R5"]
     assert rep.suppress(["R5"]).clean
@@ -499,8 +514,8 @@ def test_cli_exit_codes(capsys, monkeypatch):
     assert "2 target(s), 0 finding(s)" in capsys.readouterr().out
 
     def dirty(*a, **kw):
-        return check_artifacts("fixture",
-                               mutant_launches("oob_index_map")[1])
+        return check_artifacts(
+            "fixture", mutant_launches("oob_index_map", device="cpu")[1])
     monkeypatch.setattr("repro_torch.analysis.check_workload", dirty)
     assert cli.main(["--device", "cpu", "--rules", "R5"]) == 1
     monkeypatch.undo()

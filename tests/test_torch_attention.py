@@ -20,6 +20,7 @@ import repro.core  # noqa: F401  (import order of the reference package)
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.convert import make_attention_inputs
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_reference,
@@ -102,6 +103,70 @@ def test_kernel_tiles_fit_shared_memory():
     assert kernel_tiles(100, 50, 128, 128) == (112, 64)
     assert smem_bytes(128, 128, 128) == 198_144 <= SMEM_BYTES_PER_BLOCK
     assert smem_bytes(128, 128, 128) > 48 * 1024
+    # bfloat16 (fa_wgmma): 1 KiB of alignment slack, the q tile, three
+    # K+V stages and ten mbarriers
+    assert smem_bytes(128, 128, 128, "bfloat16") == (
+        1024 + 128 * 128 * 2 + 3 * 2 * 128 * 128 * 2 + 80) == 230_480
+    assert smem_bytes(128, 128, 128, "bfloat16") <= SMEM_BYTES_PER_BLOCK
+    assert smem_bytes(128, 256, 128, "bfloat16") > SMEM_BYTES_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((96, 96, 64, 64), (64, 64)),
+    ((100, 50, 128, 128), (128, 64)),       # ragged Sq and Skv
+    ((32, 32, 32, 32), (64, 64)),           # bq = 32 -> one wgmma tile
+    ((20, 300, 128, 128), (64, 128)),       # Sq < 64
+    ((200, 200, 128, 128), (128, 128)),
+    ((512, 512, 64, 16), (64, 64)),
+])
+def test_bf16_kernel_tiles_are_whole_wgmma_tiles(shape, want):
+    """bfloat16 rounds bq up to 64-row warpgroup tiles and bk to 64 keys;
+    float32 keeps its 16-row and 32-key rounding."""
+    assert kernel_tiles(*shape, "bfloat16") == want
+    bq, bk = kernel_tiles(*shape, "float32")
+    assert bq % 16 == 0 and bk % 32 == 0
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, Sq, Skv, hd, bq, bk, causal, window)
+    (1, 4, 2, 200, 200, 32, 64, 64, True, 0),
+    (2, 6, 2, 300, 300, 128, 128, 128, True, 100),
+    (1, 2, 1, 77, 130, 64, 128, 128, False, 0),
+    (1, 2, 2, 512, 512, 16, 64, 64, True, 64),
+])
+def test_bf16_plan_states_the_wgmma_launch(case):
+    """The bfloat16 plan: kernel fa_wgmma, (q tiles, H, B) grid, a consumer
+    warpgroup per 64 rows plus a producer, its shared memory; every
+    (q tile, head, batch) taken by one block, the last q tile by the first
+    blocks; each block reads exactly the live KV tiles of its q tile (of
+    KV head h // G) and writes its q tile."""
+    from repro_torch.analysis.launches import grid_blocks, operand_tiles
+    from repro_torch.analysis.probe import image
+    B, H, KV, Sq, Skv, hd, bq, bk, causal, window = case
+    (fc,) = tflash.plan(B, H, KV, Sq, Skv, hd, bq, bk, causal, window,
+                        "bfloat16")
+    kq, kk = kernel_tiles(Sq, Skv, bq, bk, "bfloat16")
+    nq, nk = -(-Sq // kq), -(-Skv // kk)
+    assert fc.name == "fa_wgmma" and fc.grid == (nq, H, B)
+    assert fc.threads == (kq // 64 + 1) * 128
+    assert (fc.smem_static, fc.smem_dynamic) == (
+        0, smem_bytes(kq, kk, hd, "bfloat16"))
+    blocks = grid_blocks(fc.grid)
+    _, qt = operand_tiles(fc.outputs[0], blocks)
+    assert sorted(map(tuple, qt.tolist())) == sorted(
+        (b, h, i, 0) for b in range(B) for h in range(H) for i in range(nq))
+    assert {tuple(t) for t in qt[:H * B].tolist()} == {
+        (b, h, nq - 1, 0) for b in range(B) for h in range(H)}
+    live = live_tiles(Sq, Skv, causal=causal, window=window, block_q=kq,
+                      block_k=kk).numpy()
+    for op in fc.inputs[1:]:
+        blk, kt = operand_tiles(op, blocks)
+        got = {(int(i), tuple(t)) for i, t in zip(blk, kt.tolist())}
+        want = {(i, (int(qt[i, 0]), int(qt[i, 1]) // (H // KV), j, 0))
+                for i in range(len(qt)) for j in range(nk)
+                if live[qt[i, 2], j]}
+        assert got == want
+    assert bool(image([fc], "out", B * H * Sq * hd).all())
 
 
 def test_flash_attention_rejects_bad_shapes():
@@ -116,3 +181,32 @@ def test_flash_attention_rejects_bad_shapes():
     ops.reset_launches()
     ops.flash_attention(q, q, q)
     assert ops.launch_counts()["flash_attention"] == 0      # CPU: plain
+
+
+def _pv_rounded(q, k, v, split: bool) -> torch.Tensor:
+    """Causal attention (one KV head) with fa_wgmma's rounding of P before
+    P V: bfloat16 once, or hi + lo bfloat16; float64 sums otherwise."""
+    S, hd = q.shape[-2:]
+    s = q[0].double() @ k[0, 0].double().T * hd ** -0.5
+    i = torch.arange(S)
+    s = s.masked_fill(i[None, None, :] > i[None, :, None], -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).float()
+    hi = p.bfloat16().float()
+    pp = hi + (p - hi).bfloat16().float() if split else hi
+    out = (pp.double() @ v[0, 0].double()) / p.double().sum(-1, keepdim=True)
+    return out.float().bfloat16()[None]
+
+
+def test_one_bf16_rounding_of_p_misses_the_kernel_tolerance():
+    """Why fa_wgmma splits P: rounded once to bfloat16 before P V, the
+    outputs of long rows leave `KERNEL_TOL` (one bfloat16 step); split
+    into hi + lo they stay inside it."""
+    from repro_torch.kernels.flash_attention import KERNEL_TOL
+    _, (q, k, v) = inputs((1, 2, 1, 1024, 1024, 128), "bfloat16", 0)
+    plain = flash_attention_reference(q, k, v, causal=True).float()
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    outside = {split: int((~torch.isclose(_pv_rounded(q, k, v, split).float(),
+                                          plain, rtol=rtol, atol=atol)).sum())
+               for split in (False, True)}
+    assert outside[True] == 0
+    assert outside[False] > plain.numel() // 50, outside

@@ -24,7 +24,8 @@ from repro_torch.convert import (GRID_NAMES, grid_rows, make_attention_inputs,
 from repro_torch.core import (HomeMesh, Homing, Locale, LocalisationPolicy,
                               exchange_schedule)
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (KERNEL_TOL,
+from repro_torch.analysis import record
+from repro_torch.kernels.flash_attention import (KERNEL_TOL, KERNELS,
                                                  flash_attention_reference)
 from repro_torch.kernels.local_sort import (TILE, local_sort_reference,
                                             local_sort_schedule)
@@ -184,6 +185,16 @@ FA_CASES = [
     (1, 2, 2, 512, 512, 128, True, 64, 64, 64),     # window: tiles skipped
     (1, 4, 4, 300, 300, 128, True, 0, 128, 128),
     (1, 2, 2, 100, 100, 16, True, 40, 32, 32),
+    # the bfloat16 kernel's edges: every head dim, Sq and Skv off 64 and
+    # 16, Sq < 64, cross attention, MQA and GQA, windows that empty tiles
+    (1, 2, 2, 40, 40, 16, True, 0, 64, 64),         # hd 16, Sq < 64
+    (1, 4, 1, 100, 100, 32, True, 0, 128, 128),     # hd 32, MQA
+    (2, 8, 2, 333, 333, 64, True, 0, 128, 128),     # hd 64, GQA
+    (1, 4, 2, 50, 333, 128, False, 0, 128, 128),    # cross, Sq < 64
+    (1, 2, 1, 300, 70, 128, False, 0, 64, 64),      # cross, Sq > Skv
+    (1, 2, 2, 1000, 1000, 128, True, 200, 128, 128),  # window: tiles empty
+    (1, 4, 2, 700, 700, 64, False, 150, 64, 64),    # window, no causal
+    (1, 4, 2, 1, 257, 128, True, 0, 128, 128),      # one query row
 ]
 
 
@@ -198,13 +209,31 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
     q, k, v = (torch.from_numpy(a).to(dt).cuda() for a in
                make_attention_inputs(B, H, KV, Sq, Skv, hd, dtype, 3))
     ops.reset_launches()
-    got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              block_q=bq, block_k=bk)
+    with record() as launches:
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_q=bq, block_k=bk)
     assert ops.launch_counts()["flash_attention"] == 1
+    assert [f.name for f in launches] == [KERNELS[dtype]]
     want = flash_attention_reference(q, k, v, causal=causal, window=window,
                                      block_q=bq, block_k=bk)
     rtol, atol = KERNEL_TOL[dt]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_rejects_misaligned_inputs():
+    """TMA needs 16-byte aligned tensors: an offset view raises (no
+    fallback to another kernel)."""
+    _need_card()
+    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device="cuda")
+    flat = torch.zeros(1 + q.numel(), dtype=torch.bfloat16, device="cuda")
+    odd = flat[1:].view(q.shape)
+    assert odd.data_ptr() % 16
+    ops.reset_launches()
+    for args in ((odd, q, q), (q, odd, q), (q, q, odd)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention(*args)
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 @pytest.mark.gpu
@@ -280,6 +309,10 @@ PLAN_CASES = {
                                                      False)],
     "flash_attention": [(1, 4, 2, 200, 200, 32, 64, 64, True, 0, "float32"),
                         (1, 2, 2, 512, 512, 128, 128, 128, True, 64,
+                         "bfloat16"),
+                        (2, 4, 2, 200, 77, 64, 128, 64, True, 48,
+                         "bfloat16"),
+                        (1, 2, 1, 40, 300, 16, 64, 64, False, 0,
                          "bfloat16")],
     "fixtures": [(k, 4, 128) for k in MUTANT_KINDS],
 }
