@@ -13,11 +13,17 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 shared memory by instance, and its SASS (`cuobjdump`),
                 which must hold HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                bit for bit (floats as int32 bits), on the property grid
+                bit for bit (floats as bit patterns), on the property grid
                 (with row lengths that take `local_sort` through 1, 2, 3
-                and 6 merge passes) and at the main path's shapes, with
-                their times; `local_sort` at (8, 12.5 M) also by kernel
-                (tile pass, partitions, merge passes) from `torch.profiler`;
+                and 6 merge passes), on every sort dtype (int8, int16,
+                int32, uint8, float16, bfloat16, float32) and at the main
+                path's shapes, with their times; `local_sort` at (8,
+                12.5 M) also by kernel (tile pass, partitions, merge
+                passes) from `torch.profiler`; `merge_split` at (8, 12.5 M)
+                and (16, 12.5 M), and `merge_runs` at the constraint tree's
+                three levels as strided views, each beside its bound, its
+                plain version and (merge_runs, int32) a yardstick, one
+                stable `torch.sort` of both runs;
   4. engine   — the 8 Table-1 cases through
                 ``Locale(...).workload("sort", backend="shard_map")`` on 8
                 homes, checked against torch.sort, and held bit for bit
@@ -26,13 +32,17 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 case 8 on {"data": 8} (the launch counts below are this
                 run's) and the hierarchical hash policy on {"pod": 2,
                 "data": 4}, with launches, merged elements against
-                `exchange_schedule`, times and peak memory;
+                `exchange_schedule`, times, the kernels' device times
+                from `torch.profiler` and peak memory;
   6. constraint — the 8 Table-1 cases through the default
                 ``Locale(...).workload("sort")`` (the constraint backend)
                 at n = 2^24 + 5, int32 and float32, checked against
                 torch.sort and (int32) bit for bit against the shard_map
-                engine; then case 8 and case 3 at n = 100,000,000 int32,
-                with launches, relayouts, times and peak memory;
+                engine, each launching one `local_sort` and one
+                `merge_runs` a tree level (3); then case 8 and case 3 at
+                n = 100,000,000 int32, with launches, relayouts, times,
+                the kernels' device times from `torch.profiler` and peak
+                memory;
   7. fig1     — the paper's Figure 1: the "microbench" workload under the
                 localised, static non-localised and auto policies at
                 n = 1,000,000 and 100,000,000 f32, R in {8, 32, 128}, bit
@@ -41,15 +51,21 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 `localised_copy` launch of R passes on (8, 12.5 M) f32 and
                 bf16 against R launches of one pass;
   8. attention — `ops.flash_attention` at the head layouts of qwen3-0.6b
-                (S = 4096, causal, bf16 and f32) and mixtral-8x7b
+                (S = 4096, causal, bf16, f32 and f16) and mixtral-8x7b
                 (S = 8192, causal, window 4096, bf16) against its plain
                 blocked version (and the dense one at the qwen shape)
                 within `KERNEL_TOL` (bf16: one rounding step), the kernel
-                each dtype ran (`fa_wgmma` bf16, `fa_kernel` f32), the
-                bf16 kernel with P rounded once (no hi + lo split: its
-                time and how far it leaves the tolerance), and two
-                planted faults, a dropped KV tile and a scale 1 % off,
+                each dtype ran (`fa_wgmma` bf16, `fa_kernel` f32 and
+                f16), a non-default `scale` (0.1) at qwen3-0.6b bf16 and
+                f32, the bf16 kernel with P rounded once (no hi + lo
+                split: its time and how far it leaves the tolerance), and
+                two planted faults, a dropped KV tile and a scale 1 % off,
                 that must fall outside it on the long rows;
+  8b. dtypes  — int8, int16, uint8, float16 and bfloat16 through both
+                backends on {"data": 8} at n = 2^24 + 5: equal to
+                torch.sort's values, and bit for bit the CPU port's
+                result, computed after the analysis phase, so that no
+                timed phase shares the host with it;
   9. analysis — the analyser's path: the four mutant kernels of
                 `repro_torch.kernels.fixtures` against their plain versions
                 (bit for bit; the raced rows of `overlapping_index_map`
@@ -195,14 +211,27 @@ LOCAL_SORT_KERNELS = {"block_sort": "tile pass", "merge_partition":
 def kernel_breakdown(fn, kernels: dict) -> dict:
     """Device milliseconds and launches of one call of fn() by kernel,
     from `torch.profiler`'s `key_averages()`; where the profiler shows no
-    device time, the call's time by CUDA events instead, under "whole"."""
-    from torch.profiler import ProfilerActivity, profile
+    device time, the call's time by CUDA events instead, under "whole".
+
+    The call runs twice, a warm-up step and the active one: a session
+    that records from its first launch has lost the first kernels of the
+    call on the card.  The launches seen must number those
+    the wrappers record for the active call (`kernels` names them all)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.analysis import record
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        prof.step()
+        with record() as recorded:
+            fn()
+            torch.cuda.synchronize()
+        prof.step()
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -215,7 +244,25 @@ def kernel_breakdown(fn, kernels: dict) -> dict:
     if not out:
         return {"whole": {"ms": cuda_ms(fn, reps=1), "launches": None,
                           "note": "the profiler showed no device time"}}
+    seen = sum(rec["launches"] for rec in out.values())
+    need(seen == len(recorded), f"the profiler saw {seen} launches of "
+                                f"{list(kernels)}, the wrappers made "
+                                f"{len(recorded)}")
     return out
+
+
+#: the kernels of the sorts' wrappers, by the wrapper that launches them:
+#: the engine's (`local_sort`, `merge_split`) and the constraint tree's
+#: (`local_sort`, `merge_runs`)
+_LOCAL_SORT = dict.fromkeys(LOCAL_SORT_KERNELS, "local_sort")
+_MERGE = ("merge_split_partition", "merge_split_kernel")
+ENGINE_KERNELS = {**_LOCAL_SORT, **dict.fromkeys(_MERGE, "merge_split")}
+CONSTRAINT_KERNELS = {**_LOCAL_SORT, **dict.fromkeys(_MERGE, "merge_runs")}
+
+
+def by_wrapper(breakdown: dict) -> str:
+    return json.dumps({k: [round(v["ms"], 3), v["launches"]]
+                       for k, v in breakdown.items()})
 
 
 def transient_bytes(fn) -> int:
@@ -233,7 +280,9 @@ def transient_bytes(fn) -> int:
 
 
 def bits(t):
-    return t.view(torch.int32)
+    """The bit patterns of a tensor, as signed integers of its width."""
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
 
 
 def mismatches(a, b) -> int:
@@ -334,6 +383,80 @@ def sass_check() -> dict:
     return found
 
 
+#: the dtypes the sort kernels take
+SORT_DTYPES = ("int32", "float32", "int8", "int16", "uint8", "float16",
+               "bfloat16")
+
+
+def dtype_sweep(seed: int, bad: dict) -> dict:
+    """Every sort dtype through `local_sort` (a row length with three
+    merge passes), `merge_split` and `merge_runs` (strided, unequal runs)
+    on `make_sort_data` values (extremes, zeros of both signs, +-inf),
+    held bit for bit to the plain versions on the same card tensors;
+    mismatches go into `bad`.  Returns the shapes run."""
+    from repro_torch.convert import make_sort_data
+    from repro_torch.core.sort import merge_sorted_reference
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.local_sort import TILE, local_sort_reference
+    from repro_torch.kernels.merge_split import merge_split_reference
+    C, (rows, na, nb) = 5 * TILE + 3, (3, 70_001, 9_000)
+    for i, dt in enumerate(SORT_DTYPES):
+        tdt = getattr(torch, dt)
+        x = torch.from_numpy(make_sort_data(3 * C, dt, seed + i)).to(tdt)
+        x = x.cuda().view(3, C)
+        bad["local_sort"] += mismatches(ops.local_sort(x),
+                                        local_sort_reference(x))
+        buf = torch.from_numpy(make_sort_data(rows * 2 * na, dt, seed + 9 + i))
+        buf = buf.to(tdt).cuda().view(rows, 2, na).sort(dim=-1).values
+        a, b = buf[:, 0], buf[:, 1, :nb]
+        bad["merge_runs"] += mismatches(ops.merge_runs(a, b),
+                                        merge_sorted_reference(a, b))
+        keep = torch.tensor([True, False, True], device=x.device)
+        bad["merge_split"] += mismatches(
+            ops.merge_split(a, buf[:, 1], keep),
+            merge_split_reference(a, buf[:, 1], keep))
+    return {"dtypes": list(SORT_DTYPES), "local_sort": [3, C],
+            "merge_runs": [rows, na, nb], "merge_split": [rows, na]}
+
+
+def tree_merges(seed: int, bad: dict) -> dict:
+    """`merge_runs` at the constraint tree's three levels at n = 100 M
+    int32: (4, 2 x 12.5 M), (2, 2 x 25 M), (1, 2 x 50 M), each pair the
+    strided views ``[:, 0]`` and ``[:, 1]`` of sorted rows, as the tree
+    passes them: held bit for bit to the plain version, timed (CUDA
+    events) beside the plain version, the bound (both runs read once,
+    the merge written once) and a
+    yardstick that is not the same function: one stable `torch.sort` of
+    the two runs side by side."""
+    from repro_torch.core.sort import merge_sorted_reference
+    from repro_torch.kernels import ops
+    cuda = torch.device("cuda")
+    out = {}
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    for rows in (4, 2, 1):
+        n = N_FLAGSHIP // (2 * rows)
+        buf = torch.randint(-2**31, 2**31 - 1, (rows, 2, n), device=cuda,
+                            dtype=torch.int32, generator=gen)
+        buf = buf.sort(dim=-1).values
+        a, b = buf[:, 0], buf[:, 1]
+        with untimed():
+            got = ops.merge_runs(a, b)
+        plain = merge_sorted_reference(a, b)
+        bad["merge_runs"] += mismatches(got, plain)
+        rec = dict(max_abs_err=max_abs_err(got, plain))
+        del got, plain
+        rec.update(
+            ms=cuda_ms(lambda: ops.merge_runs(a, b), reps=10),
+            plain_ms=cuda_ms(lambda: merge_sorted_reference(a, b), reps=1),
+            yardstick_ms=cuda_ms(lambda: torch.sort(
+                torch.cat([a, b], -1), dim=-1, stable=True), reps=3),
+            bound_ms=2 * rows * 2 * n * 4 / HBM_BYTES_PER_S * 1e3)
+        out[f"{rows}x2x{n}"] = rec
+        del buf, a, b
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(seed: int) -> dict:
     from repro_torch.convert import GRID_NAMES, grid_rows, make_sort_data
     from repro_torch.kernels import ops
@@ -347,7 +470,8 @@ def phase_kernels(seed: int) -> dict:
     # above TILE: 1, 2, 3 and 6 merge passes, odd run counts, ragged runs
     grid_c = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7,
               5 * TILE + 3, 37 * TILE + 11)
-    bad = {"local_sort": 0, "merge_split": 0, "bitonic_sort": 0}
+    bad = {"local_sort": 0, "merge_split": 0, "merge_runs": 0,
+           "bitonic_sort": 0}
     cases = 0
     with untimed():
         for name in GRID_NAMES:
@@ -369,6 +493,7 @@ def phase_kernels(seed: int) -> dict:
                                            seed=seed)).to(cuda)
             bad["bitonic_sort"] += mismatches(ops.bitonic_sort(x),
                                               bitonic_stages(x))
+        dtype_cases = dtype_sweep(seed, bad)
     torch.cuda.synchronize()
 
     # bitonic_sort at (8, 1024) (the reference's kernel benchmark) and
@@ -444,18 +569,27 @@ def phase_kernels(seed: int) -> dict:
                  cuda_ms(lambda: merge_split_reference(a, b, keep), reps=2))
     del sorted_rows, x
     torch.cuda.empty_cache()
-    # read both runs, write the kept half; one comparison per output
-    ms_bytes_ms, ms16_bytes_ms = (3 * r * C * 4 / HBM_BYTES_PER_S * 1e3
+    # the kept half comes from C elements of the two runs (the windows of
+    # its ranks) and is written once: 2 rows C 4 bytes; one comparison per
+    # output
+    ms_bytes_ms, ms16_bytes_ms = (2 * r * C * 4 / HBM_BYTES_PER_S * 1e3
                                   for r in (8, 16))
     ms_ops_ms = 8 * C / OPS_32BIT_PER_S * 1e3
+    runs = tree_merges(seed, bad)
+    level1 = f"4x2x{C}"                   # the tree's first level
     say(f"phase kernels: grid cases={cases} (C in {list(grid_c)}, tile={TILE})"
         f" mismatches={bad}; local_sort (8, {C}) {ls_ms:.3f} ms "
         f"(plain {ls_plain_ms:.3f} ms, torch.sort {ls_lib_ms:.3f} ms; "
         f"{ls_launches} launches (plan {plan_launches}), scratch "
         f"{ls_scratch} B (plan {plan_scratch} B); by kernel "
         + json.dumps(ls_breakdown) + "); "
-        f"merge_split (8, {C}) {ms[8][0]:.3f} ms (plain {ms[8][1]:.3f} ms), "
-        f"(16, {C}) {ms[16][0]:.3f} ms (plain {ms[16][1]:.3f} ms); "
+        f"merge_split (8, {C}) {ms[8][0]:.3f} ms (plain {ms[8][1]:.3f} ms, "
+        f"bound {ms_bytes_ms:.4f} ms), (16, {C}) {ms[16][0]:.3f} ms (plain "
+        f"{ms[16][1]:.3f} ms, bound {ms16_bytes_ms:.4f} ms); merge_runs at the tree's levels "
+        + json.dumps({k: {f: (round(v, 4) if isinstance(v, float) else v)
+                          for f, v in r.items()} for k, r in runs.items()})
+        + "; dtypes (mismatches counted above) " + json.dumps(dtype_cases)
+        + "; "
         f"bitonic_sort (8, 1024) {bitonic[1024]['ms']:.4f} ms (torch.sort "
         f"{bitonic[1024]['library_ms']:.4f} ms), (8, {TILE}) "
         f"{bitonic[TILE]['ms']:.4f} ms (torch.sort "
@@ -483,8 +617,18 @@ def phase_kernels(seed: int) -> dict:
             bound_by="bytes" if ms_bytes_ms >= ms_ops_ms else "operations",
             library_ms=None, bytes_ms=ms_bytes_ms, ops_ms=ms_ops_ms,
             shape=[8, C], ms_16_rows=ms[16][0], plain_ms_16_rows=ms[16][1],
-            bound_ms_16_rows=ms16_bytes_ms,
-            mismatches=bad["merge_split"]),
+            bound_ms_16_rows=ms16_bytes_ms, mismatches=bad["merge_split"]),
+        "merge_runs": dict(
+            name="merge_runs", route="cuda",
+            source="src/repro_torch/csrc/merge_split.cu",
+            replaces="src/repro/kernels/merge_split.py:63",
+            runs_in_place_of="src/repro/core/sort.py:155",
+            max_abs_err=max(r["max_abs_err"] for r in runs.values()),
+            ms=runs[level1]["ms"], plain_ms=runs[level1]["plain_ms"],
+            bound_ms=runs[level1]["bound_ms"], bound_by="bytes",
+            library_ms=None, yardstick_ms=runs[level1]["yardstick_ms"],
+            yardstick="torch.sort(torch.cat([a, b], -1), stable=True)",
+            shape=[4, 2, C], levels=runs, mismatches=bad["merge_runs"]),
         "bitonic_sort": dict(
             name="bitonic_sort", route="cuda",
             source="src/repro_torch/csrc/local_sort.cu",
@@ -564,31 +708,7 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
     med, times_ms = median_ms(fn, x)
     times = [t / 1e3 for t in times_ms]
 
-    # one more call with CUDA events around every kernel launch
-    events = {"local_sort": [], "merge_split": []}
-    originals = {name: getattr(ops, name) for name in events}
-
-    def timed(name):
-        def call(*a, **kw):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = originals[name](*a, **kw)
-            e.record()
-            events[name].append((s, e))
-            return out
-        return call
-
-    try:
-        for name in events:
-            setattr(ops, name, timed(name))
-        fn(x)
-        torch.cuda.synchronize()
-    finally:
-        for name, f in originals.items():
-            setattr(ops, name, f)
-    kernel_ms = {name: sum(s.elapsed_time(e) for s, e in ev)
-                 for name, ev in events.items()}
+    kernel_ms = kernel_breakdown(lambda: fn(x), ENGINE_KERNELS)
     res = {"median_s": med / 1e3, "times_s": times,
            "launches": counts, "merged_elems": merged,
            "schedule_merge_elems": expect_merged,
@@ -598,8 +718,8 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
         f"policy={policy.name}: median {res['median_s'] * 1e3:.3f} ms of 3 "
         f"({', '.join(f'{t * 1e3:.3f}' for t in times)}); launches {counts}; "
         f"merged {merged} == exchange_schedule {expect_merged}; peak "
-        f"{res['peak_bytes']} B above the input; kernel ms "
-        + json.dumps({k: round(v, 3) for k, v in kernel_ms.items()}))
+        f"{res['peak_bytes']} B above the input; device ms and launches by "
+        f"wrapper (torch.profiler) " + by_wrapper(kernel_ms))
     del x
     torch.cuda.empty_cache()
     return res
@@ -631,8 +751,9 @@ def phase_constraint(seed: int) -> dict:
             secs = time.perf_counter() - t0
             counts, moved = ops.launch_counts(), relayout_counts()
             check_sorted(y, x, f"constraint case {k} {dt}")
-            need(counts["local_sort"] == 1,
-                 f"constraint case {k} {dt}: local_sort launches {counts}")
+            need(counts["local_sort"] == 1 and counts["merge_runs"] == 3,
+                 f"constraint case {k} {dt}: launches {counts}, want one "
+                 f"local_sort and one merge_runs a tree level (3)")
             if dt == "int32":
                 with untimed():
                     eng = locale.workload("sort", backend="shard_map")(x)
@@ -665,19 +786,101 @@ def phase_constraint(seed: int) -> dict:
         out["recorded"] += recorded
         check_sorted(y, x, f"constraint flagship case {k}")
         del y
-        need(counts["local_sort"] == 1,
-             f"constraint flagship case {k}: local_sort launches {counts}")
+        need(counts["local_sort"] == 1 and counts["merge_runs"] == 3,
+             f"constraint flagship case {k}: launches {counts}, want one "
+             f"local_sort and one merge_runs a tree level (3)")
         med, times = median_ms(fn, x)
+        kernel_ms = kernel_breakdown(lambda: fn(x), CONSTRAINT_KERNELS)
         out[f"flagship_case{k}"] = dict(median_ms=med, times_ms=times,
                                         launches=counts, relayouts=moved,
-                                        peak_bytes=peak)
+                                        peak_bytes=peak, kernel_ms=kernel_ms)
         say(f"phase constraint flagship case {k} ({locale.policy.name}): "
             f"n={N_FLAGSHIP} int32 on {{'data': 8}}: median {med:.3f} ms of 3 "
             f"({', '.join(f'{t:.3f}' for t in times)}); launches {counts}; "
-            f"relayouts {moved}; peak {peak} B above the input")
+            f"relayouts {moved}; peak {peak} B above the input; device ms "
+            f"and launches by wrapper (torch.profiler) "
+            + by_wrapper(kernel_ms))
         del x
         torch.cuda.empty_cache()
     return out
+
+
+#: the backends the dtypes phase sorts with
+SORT_BACKENDS = ("constraint", "shard_map")
+
+
+def dtype_inputs(seed: int) -> dict:
+    """The dtypes phase's inputs: n = 2^24 + 5 `make_sort_data` values of
+    each narrow sort dtype, as CPU tensors."""
+    from repro_torch.convert import NARROW_SORT_DTYPES, make_sort_data
+    return {dt: torch.from_numpy(make_sort_data(N_ENGINE, dt, seed + 50 + i))
+            .to(getattr(torch, dt))
+            for i, dt in enumerate(NARROW_SORT_DTYPES)}
+
+
+def cpu_reference(seed: int) -> dict:
+    """The CPU port's sorts of `dtype_inputs`, both backends (the plain
+    bitonic network over 2^21 + 1-key leaves takes ~30 s a sort)."""
+    from repro_torch.core import HomeMesh, Locale, LocalisationPolicy
+    return {f"{dt}_{backend}": Locale(
+        HomeMesh({"data": 8}, device="cpu"), "data", LocalisationPolicy()
+    ).workload("sort", backend=backend)(x)
+        for dt, x in dtype_inputs(seed).items() for backend in SORT_BACKENDS}
+
+
+def phase_dtypes(seed: int) -> dict:
+    """The narrow sort dtypes through both backends on {"data": 8} at
+    n = 2^24 + 5, on the card: values equal to torch.sort's.  Returns the
+    results (on the CPU) for `check_dtypes_on_cpu`."""
+    from repro_torch.core import HomeMesh, Locale, LocalisationPolicy
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    out = {"results": {}, "launches": {}}
+    for dt, x in dtype_inputs(seed).items():
+        xc = x.cuda()
+        want = torch.sort(xc).values
+        for backend in SORT_BACKENDS:
+            tag = f"{dt}_{backend}"
+            fn = Locale(HomeMesh({"data": 8}), "data", LocalisationPolicy()
+                        ).workload("sort", backend=backend)
+            ops.reset_launches()            # the path's counted run
+            with untimed():
+                y = fn(xc)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            need(y.dtype == x.dtype and y.shape == x.shape,
+                 f"dtypes {tag}: {y.dtype} {tuple(y.shape)}")
+            need(bool((y == want).all()),
+                 f"dtypes {tag}: values differ from torch.sort's")
+            merge = "merge_runs" if backend == "constraint" else "merge_split"
+            need(counts["local_sort"] == 1 and counts[merge] > 0,
+                 f"dtypes {tag}: launches {counts}")
+            out["launches"][tag] = {k: v for k, v in counts.items() if v}
+            out["results"][tag] = y.cpu()
+            del y
+        del xc, want
+        torch.cuda.empty_cache()
+    out["card_seconds"] = time.perf_counter() - t0
+    say(f"phase dtypes: {list(out['results'])} sorted at n={N_ENGINE} on "
+        f"HomeMesh({{'data': 8}}), equal to torch.sort, in "
+        f"{out['card_seconds']:.1f} s; launches " + json.dumps(out["launches"]))
+    return out
+
+
+def check_dtypes_on_cpu(dtypes: dict, seed: int) -> None:
+    """Hold each card result of `phase_dtypes` bit for bit to the CPU
+    port's for the same input.  Runs after every timed phase."""
+    t0 = time.perf_counter()
+    cpu = cpu_reference(seed)
+    dtypes["mismatches_vs_cpu"] = {
+        tag: mismatches(y, cpu[tag]) for tag, y in dtypes.pop("results").items()}
+    dtypes["cpu_seconds"] = time.perf_counter() - t0
+    say(f"phase dtypes on the CPU: the CPU port's results in "
+        f"{dtypes['cpu_seconds']:.1f} s, mismatches "
+        + json.dumps(dtypes["mismatches_vs_cpu"]))
+    need(not any(dtypes["mismatches_vs_cpu"].values()),
+         "dtypes: card and CPU differ")
 
 
 FIG1_POLICIES = {"localised": (True, True, "local"),
@@ -825,7 +1028,11 @@ def attention_work(B, H, KV, S, hd, window, itemsize):
 #: src/repro/configs/qwen3_0_6b.py and mixtral_8x7b.py, causal
 ATTN_CELLS = {"qwen3-0.6b_bf16": (1, 16, 8, 4096, 128, 0, "bfloat16"),
               "qwen3-0.6b_f32": (1, 16, 8, 4096, 128, 0, "float32"),
+              "qwen3-0.6b_f16": (1, 16, 8, 4096, 128, 0, "float16"),
               "mixtral-8x7b_bf16": (1, 32, 8, 8192, 128, 4096, "bfloat16")}
+#: a non-default scale, checked against the plain version in these cells
+ATTN_SCALE = 0.1
+ATTN_SCALE_CELLS = ("qwen3-0.6b_bf16", "qwen3-0.6b_f32")
 ATTN_BLOCK = 128
 #: the tolerance this script replaced, the reference test's at its small
 #: shapes; reported beside each planted fault
@@ -873,7 +1080,10 @@ def phase_attention(seed: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions: f32
     torch.backends.cudnn.allow_tf32 = False
-    peak = {"float32": OPS_32BIT_PER_S, "bfloat16": 989e12}
+    # the peak of each input type (float16's tensor-core rate, although
+    # this port's float16 kernel runs on the fp32 pipe)
+    peak = {"float32": OPS_32BIT_PER_S, "bfloat16": 989e12,
+            "float16": 989e12}
     out = {}
     counted = None
     recorded = {}
@@ -914,6 +1124,17 @@ def phase_attention(seed: int) -> dict:
                 max_abs_err=float((one.float() - plain.float()).abs().max()),
                 ms=cuda_ms(single, reps=20))
             del one
+        if tag in ATTN_SCALE_CELLS:
+            with untimed():
+                scaled = ops.flash_attention(q, k, v, scale=ATTN_SCALE, **kw)
+            want = flash_attention_reference(q, k, v, scale=ATTN_SCALE, **kw)
+            rec["scale"] = dict(
+                scale=ATTN_SCALE, beyond=beyond(scaled, want, rtol, atol),
+                max_abs_err=float((scaled.float() - want.float()).abs()
+                                  .max()),
+                moved_from_default=float((scaled.float() - got.float())
+                                         .abs().max()))
+            del scaled, want
         if tag.startswith("qwen"):
             dense = attention_ref(q, k, v, causal=True, window=window)
             rec["dense_max_abs_err"] = float(
@@ -947,6 +1168,10 @@ def phase_attention(seed: int) -> dict:
              f"attention {tag}: kernel outside rtol={rtol} atol={atol}: "
              f"{rec['beyond']} against plain, {rec.get('dense_beyond')} "
              f"against dense, max err {rec['max_abs_err']}")
+        need("scale" not in rec or (rec["scale"]["beyond"] == 0 and
+                                    rec["scale"]["moved_from_default"] > 0),
+             f"attention {tag}: scale={ATTN_SCALE} outside the tolerance or "
+             f"ignored: {rec.get('scale')}")
         need(all(f["late_beyond"] for f in rec["faults"].values()),
              f"attention {tag}: a planted fault passes the tolerance: "
              f"{rec['faults']}")
@@ -1004,7 +1229,9 @@ def phase_attention(seed: int) -> dict:
             f"{rec['tflops']['issued']:.1f}; profiler "
             + json.dumps(rec["profile"]) + "; "
             + (f"one bf16 P (no split): {json.dumps(rec['single_p'])}; "
-               if "single_p" in rec else "") + f"max err "
+               if "single_p" in rec else "")
+            + (f"scale={ATTN_SCALE}: {json.dumps(rec['scale'])}; "
+               if "scale" in rec else "") + f"max err "
             f"{rec['max_abs_err']:.3g} (rtol={rtol:.3g} atol={atol:.3g}); "
             f"late-row rms {rec['late_rms']:.4g}; planted faults "
             + json.dumps(rec["faults"]) + f"; tiles live/skipped "
@@ -1289,20 +1516,28 @@ def main(argv=None) -> int:
     constraint = phase_constraint(args.seed)
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
+    dtypes = phase_dtypes(args.seed)
     full_width = {
         "flagship": flat.pop("recorded") + hier.pop("recorded")
         + constraint.pop("recorded"),
-        "fig1": fig1.pop("recorded"), "attention": attention.pop("recorded")}
+        "fig1": fig1.pop("recorded"),
+        "attention": attention.pop("recorded")}
     analysis = phase_analysis(args.seed, full_width)
+    # last: the CPU sorts would load the host under the timed phases
+    check_dtypes_on_cpu(dtypes, args.seed)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "mismatches")
     rows = [dict(kernels[name], launches=flat["launches"][name])
             for name in ("local_sort", "merge_split")]
+    # merge_runs' path is the default backend: the case 8 flagship's run
+    rows.append(dict(kernels["merge_runs"], launches=constraint[
+        "flagship_case8"]["launches"]["merge_runs"]))
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
-    extra = ("scratch_bytes", "launches_per_call", "by_kernel")
+    extra = ("scratch_bytes", "launches_per_call", "by_kernel",
+             "yardstick_ms", "yardstick")
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1310,7 +1545,7 @@ def main(argv=None) -> int:
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
              "engine": engine, "flat": flat, "hier": hier,
              "constraint": constraint, "fig1": fig1, "attention": attention,
-             "analysis": analysis},
+             "dtypes": dtypes, "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))
     say(smi)

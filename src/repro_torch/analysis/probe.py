@@ -23,8 +23,11 @@ from repro_torch.analysis.launches import (LaunchFacts, grid_blocks,
 
 #: the poison of each element size: a NaN payload no float kernel of the
 #: port produces from finite inputs, above every sort key of the probes
-POISON_BITS = {4: 0x7FBADBAD, 2: 0x7FAD}
-_INT_OF = {4: torch.int32, 2: torch.int16}
+#: (`PROBE_KEY_TOP`; 127 for the 8-bit integer keys)
+POISON_BITS = {4: 0x7FBADBAD, 2: 0x7FAD, 1: 0x7F}
+_INT_OF = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+#: the sort probes draw their keys from [0, PROBE_KEY_TOP[element size])
+PROBE_KEY_TOP = {4: 1 << 20, 2: 30_000, 1: 100}
 
 
 def poisoned(shape, dtype: torch.dtype, device) -> torch.Tensor:

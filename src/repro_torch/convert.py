@@ -54,13 +54,21 @@ def homed_from_reference(array_np: np.ndarray, homing, locale: Locale) -> Homed:
                  locale.axis)
 
 
+#: the narrow dtypes the sort takes beside int32 and float32
+NARROW_SORT_DTYPES = ("int8", "int16", "uint8", "float16", "bfloat16")
+
+
 def make_sort_data(n: int, dtype: str, seed: int) -> np.ndarray:
     """n values to sort, from `seed`.
 
     int32: the whole int32 range, with INT32_MIN and INT32_MAX (the BIG
     sentinel) present as data.  float32: normal values with +-inf, -0.0 and
     +0.0 present as data (the signed-zero order is what the sort kernels
-    must reproduce).  No NaN.
+    must reproduce).  No NaN.  A dtype of `NARROW_SORT_DTYPES` gets the
+    same treatment in its own range (its min and max, or +-inf and both
+    zeros; float values normals times 100, rounded to the dtype), returned
+    as int32 or float32 numpy values that the dtype holds exactly: cast
+    them with ``torch.from_numpy(x).to(dtype)`` or ``.astype``.
     """
     rng = np.random.default_rng(seed)
     k = max(1, n // 100)
@@ -68,11 +76,20 @@ def make_sort_data(n: int, dtype: str, seed: int) -> np.ndarray:
         x = rng.integers(INT32_MIN, INT32_MAX, size=n, dtype=np.int32,
                          endpoint=True)
         specials = np.asarray([INT32_MAX, INT32_MIN, 0], np.int32)
-    elif dtype == "float32":
+    elif dtype in ("int8", "int16", "uint8"):
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, size=n, dtype=np.int32,
+                         endpoint=True)
+        specials = np.asarray([info.max, info.min, 0], np.int32)
+    elif dtype in ("float32", "float16", "bfloat16"):
         x = rng.standard_normal(n, dtype=np.float32)
+        if dtype != "float32":
+            x = torch.from_numpy(x * 100).to(getattr(torch, dtype)).float() \
+                .numpy()
         specials = np.asarray([np.inf, -np.inf, 0.0, -0.0], np.float32)
     else:
-        raise ValueError(f"dtype must be 'int32' or 'float32', got {dtype!r}")
+        raise ValueError(f"dtype must be 'int32', 'float32' or one of "
+                         f"{NARROW_SORT_DTYPES}, got {dtype!r}")
     if n:
         for v in specials:
             x[rng.integers(0, n, size=k)] = v
@@ -113,17 +130,18 @@ def grid_rows(name: str, C: int, rows: int = 3, seed: int = 0) -> np.ndarray:
     raise ValueError(f"unknown grid corner {name!r}; want one of {GRID_NAMES}")
 
 
-FLOAT_DTYPES = ("float32", "bfloat16")
+FLOAT_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def _as_dtype(x: np.ndarray, dtype: str) -> np.ndarray:
-    """float32 values; for "bfloat16", rounded (to nearest even) to values
-    bfloat16 holds exactly, so both packages cast them without loss."""
+    """float32 values; for "bfloat16" and "float16", rounded (to nearest
+    even) to values the dtype holds exactly, so both packages cast them
+    without loss."""
     if dtype not in FLOAT_DTYPES:
         raise ValueError(f"dtype must be one of {FLOAT_DTYPES}, got {dtype!r}")
     if dtype == "float32":
         return x
-    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()
 
 
 def make_fig1_data(shape, dtype: str, seed: int) -> np.ndarray:

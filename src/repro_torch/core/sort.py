@@ -96,15 +96,15 @@ def sort_entry(fn, granule: int, device):
     return call
 
 
-def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Merge sorted runs along the last dim (stable rank merge, ties to a).
-
-    Gather form, as the reference: `ia` (each a-element's output position)
-    is inverted with one more searchsorted, so every output element is
-    read from a or b.  Leading dims are batch dims (one merge per row).
-    Comparisons are IEEE (``-0.0 == +0.0``), through `torch.searchsorted`
-    with ``side="left"``, so elements of `a` win ties.
-    """
+def merge_sorted_reference(a: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """The plain version of `merge_sorted`: the stable rank merge in
+    gather form, as the reference.  `ia` (each a-element's output
+    position) is inverted with one more searchsorted, so every output
+    element is read from a or b.  Leading dims are batch dims (one merge
+    per row).  Comparisons are IEEE (``-0.0 == +0.0``), through
+    `torch.searchsorted` with ``side="left"``, so elements of `a` win
+    ties."""
     na, nb = a.shape[-1], b.shape[-1]
     if na == 0 or nb == 0:
         return torch.cat([a, b], dim=-1)
@@ -119,6 +119,24 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     rb = (k - ra).clamp(0, nb - 1)
     return torch.where(is_a, torch.gather(a, -1, ra_c),
                        torch.gather(b, -1, rb))
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge sorted runs along the last dim (stable rank merge, ties to a,
+    IEEE comparisons).  Leading dims are batch dims (one merge per row).
+
+    The rows go to `kernels.merge_split.merge_runs` as ``(rows, n)``
+    views (a copy only where the leading dims do not flatten into one
+    stride): on a CPU tensor its plain version, `merge_sorted_reference`;
+    on a CUDA tensor the merge kernel.
+    """
+    from repro_torch.kernels.merge_split import merge_runs  # local: cycle
+    na, nb = a.shape[-1], b.shape[-1]
+    if na == 0 or nb == 0:
+        return torch.cat([a, b], dim=-1)
+    lead = a.shape[:-1]
+    out = merge_runs(a.reshape(-1, na), b.reshape(-1, nb))
+    return out.view(*lead, na + nb)
 
 
 def constraint_granule(mesh, policy: LocalisationPolicy,
@@ -219,7 +237,8 @@ def distributed_merge_sort(x: torch.Tensor, mesh=None,
     Arbitrary lengths: the input is padded with BIG sentinels to a
     multiple of `constraint_granule` and the padding stripped after the
     tree.  Float inputs must be NaN-free.  The merge tree is the stable
-    IEEE rank merge `merge_sorted`, as in the reference.
+    IEEE rank merge `merge_sorted`, as in the reference: one `merge_runs`
+    launch a level on the card.
     """
     n = x.shape[0]
     m = num_workers or (axis_size(mesh, axis) if mesh is not None else 8)

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention.
 // q: (B, H, Sq, HD), k and v: (B, KV, Skv, HD), out: (B, H, Sq, HD), all
-// contiguous, f32 or bf16.  Head h reads KV head h / (H / KV).
+// contiguous, f32, bf16 or f16.  Head h reads KV head h / (H / KV).  The
+// scores are scaled by `scale` (the wrapper's default: HD^-0.5).
 //
 // The TPU kernel walks the KV tiles as the last, sequential grid axis and
 // keeps m, l and acc in VMEM scratch between grid steps.  Blocks run in
@@ -25,8 +26,10 @@
 // bytes of q, k, v and out over 3.35 TB/s, whichever is larger.  At the
 // model shapes both are bound by operations.
 //
-// float32: `fa_kernel`, on the fp32 pipe (TF32 would miss the 2e-5
-// tolerance).  bq / 16 warps (bq a multiple of 16, at most 128); warp w owns
+// float32 and float16: `fa_kernel`, on the fp32 pipe (TF32 would miss the
+// 2e-5 tolerance).  A float16 input is widened to f32 as it enters shared
+// memory, the math is the f32 kernel's, and the output is rounded to f16 on
+// store (the tensor cores are left to a later float16 kernel).  bq / 16 warps (bq a multiple of 16, at most 128); warp w owns
 // query rows [16 w, 16 w + 16) of the tile.  Shared memory holds the q tile
 // and one K and one V tile, rows padded by one word against bank conflicts:
 // (bq + 2 bk) (HD + 1) 4 bytes, 198,144 B at bq = bk = HD = 128.  Per KV
@@ -98,6 +101,7 @@
 // `repro_torch.kernels.flash_attention.plan` on the card).
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -107,13 +111,19 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+// dtype codes of the C entry (`DTYPE_CODES` in kernels/flash_attention.py)
+constexpr int DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2;
 constexpr int ROWS_PER_WARP = 16;
 constexpr int ROWS_PER_STEP = 4;
 constexpr int MAX_SLOTS = 4;  // bk <= 128 = MAX_SLOTS * 32
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -822,10 +832,11 @@ int run_bf16(Exec& ex, const void* q, const void* k, const void* v, void* out,
 template <class Exec>
 int run(Exec& ex, const void* q, const void* k, const void* v, void* out,
         int B, int H, int KV, int Sq, int Skv, int hd, int bq, int bk,
-        int causal, int window, int is_bf16, float scale, int p_split,
+        int causal, int window, int dtype, float scale, int p_split,
         cudaStream_t st) {
-  if (H % KV) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
+  if (H % KV || dtype < DT_F32 || dtype > DT_F16)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == DT_BF16) {
     if ((bq != 64 && bq != 128) || (bk != 64 && bk != 128))
       return (int)cudaErrorInvalidValue;
     switch (hd) {
@@ -843,6 +854,23 @@ int run(Exec& ex, const void* q, const void* k, const void* v, void* out,
   if (bq % ROWS_PER_WARP || bq > 128 || bq < 16 || bk % 32 || bk > 128 ||
       bk < 32)
     return (int)cudaErrorInvalidValue;
+  if (dtype == DT_F16) {
+    switch (hd) {
+      case 16: return run_typed<__half, 16>(ex, q, k, v, out, B, H, KV, Sq,
+                                            Skv, bq, bk, causal, window,
+                                            scale, st);
+      case 32: return run_typed<__half, 32>(ex, q, k, v, out, B, H, KV, Sq,
+                                            Skv, bq, bk, causal, window,
+                                            scale, st);
+      case 64: return run_typed<__half, 64>(ex, q, k, v, out, B, H, KV, Sq,
+                                            Skv, bq, bk, causal, window,
+                                            scale, st);
+      case 128: return run_typed<__half, 128>(ex, q, k, v, out, B, H, KV, Sq,
+                                              Skv, bq, bk, causal, window,
+                                              scale, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (hd) {
     case 16: return run_typed<float, 16>(ex, q, k, v, out, B, H, KV, Sq, Skv,
                                          bq, bk, causal, window, scale, st);
@@ -862,8 +890,9 @@ extern "C" const char* repro_flash_attention_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Tile sides: float32 bq a multiple of 16 and bk a multiple of 32, both
-// <= 128; bfloat16 bq and bk 64 or 128.  hd in {16, 32, 64, 128}; bfloat16
+// dtype: DT_F32, DT_BF16 or DT_F16.  Tile sides: float32 and float16 bq a
+// multiple of 16 and bk a multiple of 32, both <= 128; bfloat16 bq and bk
+// 64 or 128.  hd in {16, 32, 64, 128}; bfloat16
 // q, k, v 16-byte aligned.  `p_split` 0 rounds P once to bfloat16 before
 // P V (a measurement of what the hi + lo split buys; the wrapper passes 1).
 // Launches on `stream`, does not synchronise, returns a CUDA error code (0
@@ -872,22 +901,22 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int H,
                                      int KV, int Sq, int Skv, int hd, int bq,
                                      int bk, int causal, int window,
-                                     int is_bf16, float scale, int p_split,
+                                     int dtype, float scale, int p_split,
                                      void* stream) {
   Launcher ex;
   return run(ex, q, k, v, out, B, H, KV, Sq, Skv, hd, bq, bk, causal, window,
-             is_bf16, scale, p_split, (cudaStream_t)stream);
+             dtype, scale, p_split, (cudaStream_t)stream);
 }
 
 // The dry run of repro_flash_attention: fills out[0..max) with the launches
 // it would make, launches nothing; returns their count or minus a CUDA error.
 extern "C" int repro_flash_attention_plan(int B, int H, int KV, int Sq,
                                           int Skv, int hd, int bq, int bk,
-                                          int causal, int window, int is_bf16,
+                                          int causal, int window, int dtype,
                                           ReproLaunch* out, int max) {
   Planner ex{out, max, 0};
   const int err = run(ex, nullptr, nullptr, nullptr, nullptr, B, H, KV, Sq, Skv,
-                      hd, bq, bk, causal, window, is_bf16, 1.f, 1,
+                      hd, bq, bk, causal, window, dtype, 1.f, 1,
                       (cudaStream_t)0);
   return plan_result(err, ex);
 }

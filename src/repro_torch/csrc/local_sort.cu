@@ -1,12 +1,16 @@
-// local_sort: ascending sort of every row of a (rows, C) int32/float32 tensor.
+// local_sort: ascending sort of every row of a (rows, C) tensor of int8,
+// int16, int32, uint8, float16, bfloat16 or float32.
 //
 // Replaces the TPU kernel src/repro/kernels/local_sort.py::local_sort (the
 // fused VMEM-resident local phase of the merge-sort engine: leaf sorts and
 // the whole local merge tree as one bitonic network, rows padded to the
 // next power of two with the BIG sentinel in scratch only).
 //
-// Order.  Elements are compared by a total-order key: int32 as is, float32
-// as its bits k ^ ((k >> 31) & 0x7fffffff) compared as signed int32.  That
+// Order.  Elements are compared by an int32 total-order key: int32 as is,
+// float32 as its bits k ^ ((k >> 31) & 0x7fffffff) compared as signed
+// int32.  A narrow dtype is widened on load (merge_path.cuh: integers
+// extend to int32, float16 and bfloat16 convert exactly to float32) and
+// takes the same key; its value is narrowed back, exactly, on store.  That
 // puts -0.0 before +0.0, as XLA's min/max do in the reference network, and
 // equal keys are equal bits, so any correct sort of the keys is bit-identical
 // to the reference and to the plain version
@@ -52,7 +56,8 @@
 //      (rows start at any offset, so 16-byte loads would need a peeled
 //      head), each thread finds its own co-rank inside them and merges
 //      ITEMS outputs, and the block stores through shared memory,
-//      coalesced.  A run with no partner (an odd run count,
+//      coalesced (these pieces are merge_path.cuh's, shared with
+//      merge_split.cu).  A run with no partner (an odd run count,
 //      a short last run) is copied by the same code (its co-ranks are the
 //      diagonal itself).  Merges compare the int32 keys, never IEEE values,
 //      so -0.0 stays before +0.0 across a run boundary.
@@ -68,6 +73,15 @@
 // no comparison sort that passes the row through device memory ten times
 // can reach.
 //
+// Narrow dtypes: 4-byte keys are loaded by cp.async and stored as they are
+// (float32 through the key map), so int32 and float32 take the code above
+// unchanged; the narrow dtypes are loaded and stored through registers,
+// widened and narrowed (a branch on the dtype code, uniform over the grid).
+// Scratch stays int32: between passes the keys live in the (rows, C)
+// scratch and, where `out` is narrower than a key, in a second (rows, C)
+// int32 scratch that takes `out`'s place in the ping-pong; only the last
+// pass (or the one-block sort) writes `out`.
+//
 // Index width: array offsets are 64-bit; co-ranks inside a pair of runs are
 // stored as int32, so C <= INT_MAX.
 //
@@ -80,17 +94,33 @@
 #include <climits>
 
 #include "launch_plan.cuh"
+#include "merge_path.cuh"
 
 namespace {
+
+using merge_path::co_rank;
+using merge_path::copy_async;
+using merge_path::copy_async_wait;
+using merge_path::DT_BFLOAT16;
+using merge_path::DT_FLOAT16;
+using merge_path::DT_FLOAT32;
+using merge_path::DT_INT16;
+using merge_path::DT_INT32;
+using merge_path::DT_INT8;
+using merge_path::DT_UINT8;
+using merge_path::ITEMS;
+using merge_path::merge_windows;
+using merge_path::pad_slot;
+using merge_path::PART_THREADS;
+using merge_path::SLOTS;
+using merge_path::THREADS;
 
 constexpr int KPT = 16;               // keys per thread of a block sort
 constexpr int TILE = 16384;           // keys of a tile-pass block (1024 threads)
 constexpr int MIN_N = 512;            // the smallest block sort: one warp
 constexpr int WARP_BITS = 9;          // log2 of the keys one warp holds
-constexpr int MT_THREADS = 256;       // threads of a merge block
-constexpr int ITEMS = 32;             // outputs each merge thread writes
-constexpr int MT = MT_THREADS * ITEMS;   // outputs of a merge block
-constexpr int PART_THREADS = 256;     // threads of a partition block
+constexpr int MT = merge_path::TILE;  // outputs of a merge block (8192)
+constexpr int FLOAT_PAD_KEY = 0x7f800000;  // the key of +inf
 
 __host__ __device__ constexpr int ilog2(int n) {
   return n > 1 ? 1 + ilog2(n / 2) : 0;
@@ -100,18 +130,39 @@ __device__ __forceinline__ int flip_key(int v, int is_float) {
   return is_float ? (v ^ ((v >> 31) & 0x7fffffff)) : v;
 }
 
-// A 4-byte copy from device memory into shared memory that holds no
-// register (cp.async): a thread issues all of its copies, then waits.
-__device__ __forceinline__ void copy_async(int* smem, const int* g) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
-               "l"(g)
-               : "memory");
+__device__ __forceinline__ int float_key(float f) {
+  return flip_key(__float_as_int(f), 1);
 }
 
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ float key_float(int k) {
+  return __int_as_float(flip_key(k, 1));
 }
+
+// The key of element i of a narrow `code` array, widened on load.
+__device__ __forceinline__ int load_key(const void* p, long long i,
+                                        int code) {
+  switch (code) {
+    case DT_INT16: return ((const short*)p)[i];
+    case DT_INT8: return ((const signed char*)p)[i];
+    case DT_UINT8: return ((const unsigned char*)p)[i];
+    case DT_FLOAT16: return float_key(__half2float(((const __half*)p)[i]));
+    default: return float_key(__bfloat162float(((const __nv_bfloat16*)p)[i]));
+  }
+}
+
+// Element i of a narrow `code` array from its key, narrowed on store.
+__device__ __forceinline__ void store_key(void* p, long long i, int k,
+                                          int code) {
+  switch (code) {
+    case DT_INT16: ((short*)p)[i] = (short)k; return;
+    case DT_INT8: ((signed char*)p)[i] = (signed char)k; return;
+    case DT_UINT8: ((unsigned char*)p)[i] = (unsigned char)k; return;
+    case DT_FLOAT16: ((__half*)p)[i] = __float2half_rn(key_float(k)); return;
+    default: ((__nv_bfloat16*)p)[i] = __float2bfloat16_rn(key_float(k));
+  }
+}
+
+__device__ __forceinline__ bool is_narrow(int code) { return code > DT_FLOAT32; }
 
 // Shared-memory slot of key i: XOR swizzle inside each 32-word row, so the
 // layouts below read and write without bank conflicts.
@@ -242,54 +293,58 @@ __device__ __forceinline__ Tile tile_of(long long C, long long tiles, int N) {
 
 // Sort N = THREADS * 16 keys per block: tile (blockIdx.x % tiles) of row
 // (blockIdx.x / tiles), keys [tile N, tile N + N) of the row, padded with
-// pad_key past C in shared memory only.  Writes the real keys, as keys
-// (flip_out = 0) or as values (flip_out = 1).
+// pad_key past C in shared memory only.  `in` holds `in_code` elements;
+// writes the real keys into `out` as `out_code` elements (DT_INT32: the
+// keys as they are; DT_FLOAT32: float32 values; a narrow code: values
+// narrowed).
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
-block_sort(const int* __restrict__ in, int* __restrict__ out, long long C,
-           long long tiles, int is_float, int flip_out, int pad_key) {
+block_sort(const void* __restrict__ in, void* __restrict__ out, long long C,
+           long long tiles, int in_code, int out_code, int pad_key) {
   extern __shared__ int s[];
   constexpr int N = THREADS * KPT;
   constexpr int LOGN = ilog2(N);
   const int t = threadIdx.x;
   {
     const Tile tile = tile_of(C, tiles, N);
-    const int* src = in + tile.offset;
-    for (int i = t; i < N; i += THREADS) {   // coalesced, all in flight
-      if (i < tile.n) copy_async(&s[swz(i)], src + i);
-      else s[swz(i)] = pad_key;              // its own key and value
+    if (!is_narrow(in_code)) {
+      const int* src = (const int*)in + tile.offset;
+      for (int i = t; i < N; i += THREADS) {   // coalesced, all in flight
+        if (i < tile.n) copy_async(&s[swz(i)], src + i);
+        else s[swz(i)] = pad_key;              // its own key and value
+      }
+      copy_async_wait();
+    } else {
+      for (int i = t; i < N; i += THREADS)
+        s[swz(i)] = i < tile.n ? load_key(in, tile.offset + i, in_code)
+                               : pad_key;
     }
-    copy_async_wait();
   }
   __syncthreads();
   int v[KPT];
   load_layout(v, s, 0);
+  const int is_float = in_code == DT_FLOAT32;
 #pragma unroll
   for (int r = 0; r < KPT; ++r) v[r] = flip_key(v[r], is_float);
   sort_registers(v, s, LOGN);
   store_layout(v, s, 0);
   __syncthreads();
   const Tile tile = tile_of(C, tiles, N);
-  int* dst = out + tile.offset;
-  const int flip = flip_out ? is_float : 0;
+  if (!is_narrow(out_code)) {
+    int* dst = (int*)out + tile.offset;
+    const int flip = out_code == DT_FLOAT32;
 #pragma unroll
-  for (int r = 0; r < KPT; ++r) {
-    const int i = r * THREADS + t;
-    if (i < tile.n) dst[i] = flip_key(s[swz(i)], flip);
+    for (int r = 0; r < KPT; ++r) {
+      const int i = r * THREADS + t;
+      if (i < tile.n) dst[i] = flip_key(s[swz(i)], flip);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < KPT; ++r) {
+      const int i = r * THREADS + t;
+      if (i < tile.n) store_key(out, tile.offset + i, s[swz(i)], out_code);
+    }
   }
-}
-
-// Of the first d outputs of the stable merge of a[0, na) and b[0, nb)
-// (ties to a), how many come from a.
-template <typename I, typename GetA, typename GetB>
-__device__ __forceinline__ I co_rank(GetA a, I na, GetB b, I nb, I d) {
-  I lo = d > nb ? d - nb : 0;
-  I hi = d < na ? d : na;
-  while (lo < hi) {
-    const I mid = (lo + hi) >> 1;
-    if (a(mid) <= b(d - 1 - mid)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 // The runs of width w that merge block q (outputs [q MT, q MT + MT) of its
@@ -327,16 +382,14 @@ __global__ void merge_partition(const int* __restrict__ src,
                                     o0 - p.ps);
 }
 
-__device__ __forceinline__ int pad_slot(int i) { return i + (i >> 5); }
-
 // Merge pass, step 2: block g writes outputs [q MT, q MT + MT) of its row
 // of dst, merging the windows of its pair's two runs in src that diag says
-// they consume.  flip_out: the last pass, keys back to values.
-__global__ void __launch_bounds__(MT_THREADS)
-merge_pass(const int* __restrict__ src, int* __restrict__ dst,
+// they consume; the keys are written as `out_code` elements (block_sort).
+__global__ void __launch_bounds__(THREADS)
+merge_pass(const int* __restrict__ src, void* __restrict__ dst,
            const int* __restrict__ diag, long long C, long long w,
-           long long blocks_per_row, int is_float, int flip_out) {
-  __shared__ int s[MT + MT / 32];
+           long long blocks_per_row, int out_code) {
+  __shared__ int s[SLOTS];
   const long long g = blockIdx.x;
   const long long row = g / blocks_per_row;
   const long long o0 = (g % blocks_per_row) * MT;
@@ -350,43 +403,26 @@ merge_pass(const int* __restrict__ src, int* __restrict__ dst,
   const int nb = n_out - na;
   const int* a = src + row * C + p.ps + a0;
   const int* b = src + row * C + p.ps + w + (d0 - a0);
-  for (int x = threadIdx.x; x < n_out; x += MT_THREADS)  // coalesced
+  for (int x = threadIdx.x; x < n_out; x += THREADS)  // coalesced
     copy_async(&s[pad_slot(x)], x < na ? a + x : b + (x - na));
   copy_async_wait();
   __syncthreads();
-  const int r0 = threadIdx.x * ITEMS;
-  const int cnt = n_out - r0 < ITEMS ? (n_out - r0 > 0 ? n_out - r0 : 0)
-                                     : ITEMS;
-  int vals[ITEMS];
-  if (cnt > 0) {
-    const int* sp = s;
-    int ia = co_rank<int>([sp](int i) { return sp[pad_slot(i)]; }, na,
-                          [sp, na](int i) { return sp[pad_slot(na + i)]; },
-                          nb, r0);
-    int ib = r0 - ia;
+  merge_windows<int>(s, na, nb);
+  const long long o = row * C + o0;
+  if (!is_narrow(out_code)) {
+    int* op = (int*)dst + o;
+    const int flip = out_code == DT_FLOAT32;
 #pragma unroll
     for (int q = 0; q < ITEMS; ++q) {
-      if (q < cnt) {
-        const int ka = ia < na ? s[pad_slot(ia)] : INT_MAX;
-        const int kb = ib < nb ? s[pad_slot(na + ib)] : INT_MAX;
-        const bool take_a = ib >= nb || (ia < na && ka <= kb);
-        vals[q] = take_a ? ka : kb;
-        ia += take_a;
-        ib += !take_a;
-      }
+      const int x = q * THREADS + threadIdx.x;
+      if (x < n_out) op[x] = flip_key(s[pad_slot(x)], flip);
     }
-  }
-  __syncthreads();
+  } else {
 #pragma unroll
-  for (int q = 0; q < ITEMS; ++q)
-    if (q < cnt) s[pad_slot(r0 + q)] = vals[q];
-  __syncthreads();
-  int* o = dst + row * C + o0;
-  const int flip = flip_out ? is_float : 0;
-#pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const int x = q * MT_THREADS + threadIdx.x;
-    if (x < n_out) o[x] = flip_key(s[pad_slot(x)], flip);
+    for (int q = 0; q < ITEMS; ++q) {
+      const int x = q * THREADS + threadIdx.x;
+      if (x < n_out) store_key(dst, o + x, s[pad_slot(x)], out_code);
+    }
   }
 }
 
@@ -402,8 +438,8 @@ namespace {
 
 template <int THREADS, class Exec>
 int launch_block_sort(Exec& ex, const char* name, long long blocks,
-                      const int* x, int* y, long long C, long long tiles,
-                      int is_float, int flip_out, int pad_key,
+                      const void* x, void* y, long long C, long long tiles,
+                      int in_code, int out_code, int pad_key,
                       cudaStream_t st) {
   const size_t smem = (size_t)THREADS * KPT * sizeof(int);
   return ex(name, (const void*)block_sort<THREADS>, dim3((unsigned)blocks),
@@ -413,43 +449,50 @@ int launch_block_sort(Exec& ex, const char* name, long long blocks,
                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
               if (e != cudaSuccess) return e;
               block_sort<THREADS><<<(unsigned)blocks, THREADS, smem, st>>>(
-                  x, y, C, tiles, is_float, flip_out, pad_key);
+                  x, y, C, tiles, in_code, out_code, pad_key);
               return cudaSuccess;
             });
 }
 
 // One block per row for C <= TILE: N = max(512, next power of two >= C).
 template <class Exec>
-int sort_rows(Exec& ex, const int* x, int* y, long long rows, long long C,
-              int is_float, int pad_key, cudaStream_t st) {
+int sort_rows(Exec& ex, const void* x, void* y, long long rows, long long C,
+              int code, int pad_key, cudaStream_t st) {
   long long n = MIN_N;
   while (n < C) n <<= 1;
   const char* name = "sort_rows_smem";
   switch (n / KPT) {
-    case 32: return launch_block_sort<32>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
-    case 64: return launch_block_sort<64>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
-    case 128: return launch_block_sort<128>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
-    case 256: return launch_block_sort<256>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
-    case 512: return launch_block_sort<512>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
-    default: return launch_block_sort<1024>(ex, name, rows, x, y, C, 1, is_float, 1, pad_key, st);
+    case 32: return launch_block_sort<32>(ex, name, rows, x, y, C, 1, code, code, pad_key, st);
+    case 64: return launch_block_sort<64>(ex, name, rows, x, y, C, 1, code, code, pad_key, st);
+    case 128: return launch_block_sort<128>(ex, name, rows, x, y, C, 1, code, code, pad_key, st);
+    case 256: return launch_block_sort<256>(ex, name, rows, x, y, C, 1, code, code, pad_key, st);
+    case 512: return launch_block_sort<512>(ex, name, rows, x, y, C, 1, code, code, pad_key, st);
+    default: return launch_block_sort<1024>(ex, name, rows, x, y, C, 1, code, code, pad_key, st);
   }
 }
 
 // The host code, once for launching and for planning (launch_plan.cuh).
 template <class Exec>
-int run(Exec& ex, const int* x, int* y, int* sc, int* diag, long long rows,
-        long long C, int is_float, cudaStream_t st) {
-  const int pad_key = is_float ? 0x7f800000 : INT_MAX;  // key of +inf / BIG
+int run(Exec& ex, const void* x, void* y, int* sc, int* sc2, int* diag,
+        long long rows, long long C, int code, cudaStream_t st) {
+  if (code < DT_INT32 || code > DT_BFLOAT16) return (int)cudaErrorInvalidValue;
+  const bool floaty = code == DT_FLOAT32 || code == DT_FLOAT16 ||
+                      code == DT_BFLOAT16;
+  const int pad_key = floaty ? FLOAT_PAD_KEY : INT_MAX;  // key of +inf / BIG
   if (rows == 0) return 0;
   if (C > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (C <= TILE) return sort_rows(ex, x, y, rows, C, is_float, pad_key, st);
+  if (C <= TILE) return sort_rows(ex, x, y, rows, C, code, pad_key, st);
   const long long tiles = (C + TILE - 1) / TILE;
   int passes = 0;
   while ((1LL << passes) < tiles) ++passes;
+  // the keys ping-pong between sc and `ping`: y itself where its elements
+  // are 4-byte, else the second scratch; the last pass writes y
+  const bool narrow = code > DT_FLOAT32;
+  int* ping = narrow ? sc2 : (int*)y;
   // the tile pass writes the buffer that makes the last pass land in y
-  int* src = passes % 2 ? sc : y;
+  int* src = passes % 2 ? sc : ping;
   int err = launch_block_sort<TILE / KPT>(ex, "tile_sort", rows * tiles, x,
-                                          src, C, tiles, is_float, 0,
+                                          src, C, tiles, code, DT_INT32,
                                           pad_key, st);
   if (err) return err;
   const long long bpr = (C + MT - 1) / MT;
@@ -458,8 +501,9 @@ int run(Exec& ex, const int* x, int* y, int* sc, int* diag, long long rows,
       (unsigned)((total + PART_THREADS - 1) / PART_THREADS);
   long long w = TILE;
   for (int pass = 1; pass <= passes; ++pass, w *= 2) {
-    int* dst = (passes - pass) % 2 ? sc : y;
     const int last = pass == passes;
+    void* dst = last ? y : ((passes - pass) % 2 ? sc : ping);
+    const int out_code = last ? code : DT_INT32;
     err = ex("merge_partition", (const void*)merge_partition,
              dim3(part_blocks), PART_THREADS, 0, [&] {
                merge_partition<<<part_blocks, PART_THREADS, 0, st>>>(
@@ -468,37 +512,39 @@ int run(Exec& ex, const int* x, int* y, int* sc, int* diag, long long rows,
              });
     if (err) return err;
     err = ex("merge_pass", (const void*)merge_pass, dim3((unsigned)total),
-             MT_THREADS, 0, [&] {
-               merge_pass<<<(unsigned)total, MT_THREADS, 0, st>>>(
-                   src, dst, diag, C, w, bpr, is_float, last);
+             THREADS, 0, [&] {
+               merge_pass<<<(unsigned)total, THREADS, 0, st>>>(
+                   src, dst, diag, C, w, bpr, out_code);
                return cudaSuccess;
              });
     if (err) return err;
-    src = dst;
+    src = (int*)dst;
   }
   return 0;
 }
 
 }  // namespace
 
-// in, out: (rows, C) contiguous int32 bits.  When C > TILE: scratch is a
-// (rows, C) int32 buffer and diag a rows * ceil(C / MT) int32 buffer (MT =
-// 8192 outputs per merge block); else both are unused.  Launches on
-// `stream`, does not synchronise, returns the first CUDA error (0 if none).
+// in, out: (rows, C) contiguous arrays of dtype `code` (merge_path.cuh).
+// When C > TILE: scratch is a (rows, C) int32 buffer, scratch2 another one
+// where the dtype is narrower than 4 bytes (else unused), and diag a
+// rows * ceil(C / MT) int32 buffer (MT = 8192 outputs per merge block);
+// else all three are unused.  Launches on `stream`, does not synchronise,
+// returns the first CUDA error (0 if none).
 extern "C" int repro_local_sort(const void* in, void* out, void* scratch,
-                                void* diag, long long rows, long long C,
-                                int is_float, void* stream) {
+                                void* scratch2, void* diag, long long rows,
+                                long long C, int code, void* stream) {
   Launcher ex;
-  return run(ex, (const int*)in, (int*)out, (int*)scratch, (int*)diag, rows,
-             C, is_float, (cudaStream_t)stream);
+  return run(ex, in, out, (int*)scratch, (int*)scratch2, (int*)diag, rows, C,
+             code, (cudaStream_t)stream);
 }
 
 // The dry run of repro_local_sort: fills out[0..max) with the launches it
 // would make, launches nothing; returns their count or minus a CUDA error.
-extern "C" int repro_local_sort_plan(long long rows, long long C, int is_float,
+extern "C" int repro_local_sort_plan(long long rows, long long C, int code,
                                      ReproLaunch* out, int max) {
   Planner ex{out, max, 0};
-  const int err = run(ex, nullptr, nullptr, nullptr, nullptr, rows, C,
-                      is_float, (cudaStream_t)0);
+  const int err = run(ex, nullptr, nullptr, nullptr, nullptr, nullptr, rows,
+                      C, code, (cudaStream_t)0);
   return plan_result(err, ex);
 }

@@ -3,10 +3,11 @@
 The counterpart of `repro/kernels/bitonic_sort.py`.  `bitonic_stages` is
 the network itself (stage k sorts every aligned k-block, alternating
 direction by bit k of the index, so stage 2k sees bitonic input; partners
-are index ^ j).  It compares a total-order key, not the values: int32 as
-is, float32 as its bits ``k ^ ((k >> 31) & 0x7fffffff)``.  That orders
-``-0.0`` before ``+0.0``, as XLA's min/max do in the reference network
-(``torch.minimum`` and ``torch.sort`` treat the two zeros as ties).
+are index ^ j).  It compares an int32 total-order key, not the values:
+integers widened to int32, floats widened exactly to float32 and taken as
+their bits ``k ^ ((k >> 31) & 0x7fffffff)``.  That orders ``-0.0`` before
+``+0.0``, as XLA's min/max do in the reference network (``torch.minimum``
+and ``torch.sort`` treat the two zeros as ties).
 
 `bitonic_sort` is the wrapper over the `local_sort` kernel's device code
 for rows whose length is a power of two: a row of up to TILE = 16384 keys
@@ -20,24 +21,47 @@ import torch
 
 from repro_torch.kernels import _device
 
-KEY_DTYPES = (torch.int32, torch.float32)
+#: the dtypes the sort kernels take: those the reference's
+#: ``workload("sort")`` sorts and torch can search on the CPU (its
+#: ``searchsorted`` has no kernel for uint16 and uint32)
+KEY_DTYPES = (torch.int8, torch.int16, torch.int32, torch.uint8,
+              torch.float16, torch.bfloat16, torch.float32)
+KEY_DTYPE_NAMES = "int8, int16, int32, uint8, float16, bfloat16 or float32"
+#: each dtype's code in the sort kernels' C entries (``csrc/merge_path.cuh``)
+DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.int16: 2,
+               torch.int8: 3, torch.uint8: 4, torch.float16: 5,
+               torch.bfloat16: 6}
+
+
+def check_key_dtype(dtype: torch.dtype, what: str) -> None:
+    """Raise TypeError unless `dtype` is one of `KEY_DTYPES`."""
+    if dtype in KEY_DTYPES:
+        return
+    why = (" (torch's CPU searchsorted has no kernel for uint16 and uint32, "
+           "so the plain versions cannot take them)"
+           if dtype in (torch.uint16, torch.uint32) else "")
+    raise TypeError(f"{what} sorts {KEY_DTYPE_NAMES}, got {dtype}{why}")
 
 
 def to_key(x: torch.Tensor) -> torch.Tensor:
-    """int32 total-order key of an int32 or float32 tensor."""
+    """int32 total-order key of a tensor of a `KEY_DTYPES` dtype."""
+    check_key_dtype(x.dtype, "sort keys")
     if x.dtype == torch.int32:
         return x
-    if x.dtype != torch.float32:
-        raise TypeError(f"sort keys are int32 or float32, got {x.dtype}")
-    k = x.view(torch.int32)
+    if not x.dtype.is_floating_point:
+        return x.to(torch.int32)
+    k = x.to(torch.float32).view(torch.int32)
     return k ^ ((k >> 31) & 0x7fffffff)
 
 
 def from_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of `to_key` (the float map is an involution)."""
+    """Inverse of `to_key` (the float map is an involution, and a
+    narrow dtype's values survive the widening exactly)."""
     if dtype == torch.int32:
         return k
-    return (k ^ ((k >> 31) & 0x7fffffff)).view(dtype)
+    if not dtype.is_floating_point:
+        return k.to(dtype)
+    return (k ^ ((k >> 31) & 0x7fffffff)).view(torch.float32).to(dtype)
 
 
 def _network(k: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,8 @@ reference kernel's tile schedule.  `attention_ref` is the dense oracle.
 
 What the reference kernel fixes and both versions keep:
 
-- scores are float32 products of float32-cast inputs, times
-  ``hd ** -0.5`` after the product;
+- scores are float32 products of float32-cast inputs, times `scale`
+  (default ``hd ** -0.5``) after the product;
 - a masked score is the finite ``NEG_INF = -1e30``, not ``-inf``: a row
   whose first live tile is all masked gets ``p = exp(0) = 1`` there, and
   its first real score wipes that with ``corr = exp(-1e30 - m) = 0``
@@ -28,9 +28,10 @@ masked entries of its live tiles, as the reference does; that value
 depends on the tile sides, which the kernel rounds up (`kernel_tiles`).
 Every other row's masked entries are wiped by its first real score.
 
-Two kernels: float32 runs ``fa_kernel`` on the fp32 pipe, bfloat16
-``fa_wgmma``, both products on the tensor cores (wgmma) with the q tile
-and a 3-stage K/V ring brought by TMA, P V taken as two products of a
+Two kernels: float32 and float16 run ``fa_kernel`` on the fp32 pipe (a
+float16 input widened to float32 on load, the output rounded to float16
+on store), bfloat16 ``fa_wgmma``, both products on the tensor cores
+(wgmma) with the q tile and a 3-stage K/V ring brought by TMA, P V taken as two products of a
 bfloat16 hi + lo split of P (one rounding of P to bfloat16 misses
 `KERNEL_TOL`).  Their tile sides and shared memory differ
 (`kernel_tiles`, `smem_bytes`); ``fa_wgmma`` needs 16-byte aligned q, k, v.
@@ -57,14 +58,17 @@ from repro_torch.kernels import SMEM_BYTES_PER_BLOCK, _build, _device
 
 NEG_INF = -1e30
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: each dtype's code in the C entry
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: head dims the kernel is built for, and its largest tile sides
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_BLOCK = 128
 
 #: the kernel each dtype launches
-KERNELS = {"float32": "fa_kernel", "bfloat16": "fa_wgmma"}
+KERNELS = {"float32": "fa_kernel", "bfloat16": "fa_wgmma",
+           "float16": "fa_kernel"}
 #: ``fa_wgmma``: query rows of a consumer warpgroup (wgmma's M), threads of
 #: a warpgroup, K/V stages of its ring, alignment slack of its tiles
 WG_ROWS, WG, STAGES, SMEM_ALIGN = 64, 128, 3, 1024
@@ -74,7 +78,10 @@ WG_ROWS, WG, STAGES, SMEM_ALIGN = 64, 128, 3, 1024
 #: round the other way: one bfloat16 step, at most 2**-7 of its value; the
 #: 1e-5 covers the float32 sums of outputs near zero.  At long rows the
 #: outputs are about 0.02, so an absolute 2e-2 would pass a wrong kernel.
-KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+#: A float16 output is the float32 kernel's rounded once to float16: one
+#: float16 step, at most 2**-10 of its value, and the same 1e-5.
+KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5),
+              torch.float16: (2.0 ** -10, 1e-5)}
 
 
 @functools.cache
@@ -100,8 +107,9 @@ def _check(q, k, v, window: int):
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}:"
                          f" same B and hd, and KV dividing H")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
-                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"flash_attention takes float16, float32 or bfloat16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
 
@@ -247,9 +255,11 @@ def wgmma_block_tiles(nq: int, H: int, B: int, bx, by, bz):
 
 def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
          block_q: int, block_k: int, causal: bool, window: int,
-         dtype: str) -> List[LaunchFacts]:
+         dtype: str, scale: Optional[float] = None) -> List[LaunchFacts]:
     """The launch `repro_flash_attention` makes (no check of the kernel's
     limits on hd and the blocks: R3 reads this plan for any tile sides).
+    The launch does not depend on `scale`; a call that gives one keeps it
+    in its ``call``, so that the probe repeats it.
 
     The block that takes (iq, h, b) -- block (iq, h, b) itself in
     float32, `wgmma_block_tiles` in bfloat16 -- reads q tile iq of head h,
@@ -295,22 +305,25 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
         outputs=(OperandFacts("out", "out", (B, H, Sq, hd), dtype,
                               (1, 1, bq, hd), q_tile),),
         call=(__name__, (B, H, KV, Sq, Skv, hd, block_q, block_k, causal,
-                         window, dtype)))]
+                         window, dtype) + (() if scale is None else (scale,))))]
 
 
-def c_plan(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype):
+def c_plan(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype,
+           scale=None):
     """`plan`'s launch as the C entry's dry-run twin gives it (card)."""
     bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype)
     return _build.c_plan(_lib(), "flash_attention", B, H, KV, Sq, Skv, hd, bq,
                          bk, int(causal), int(window),
-                         int(dtype == "bfloat16"))
+                         DTYPE_CODES[getattr(torch, dtype)])
 
 
 def _launch(q, k, v, out, causal: bool, window: int, block_q: int,
-            block_k: int, p_split: bool = True) -> None:
-    """Run the C entry on CUDA tensors (uncounted, unrecorded).
-    ``p_split=False`` makes ``fa_wgmma`` round P once to bfloat16 (outside
-    `KERNEL_TOL`; only a measurement of what the split costs uses it)."""
+            block_k: int, p_split: bool = True,
+            scale: Optional[float] = None) -> None:
+    """Run the C entry on CUDA tensors (uncounted, unrecorded), scores
+    scaled by `scale` (default ``hd ** -0.5``).  ``p_split=False`` makes
+    ``fa_wgmma`` round P once to bfloat16 (outside `KERNEL_TOL`; only a
+    measurement of what the split costs uses it)."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype_name(q.dtype))
@@ -320,12 +333,13 @@ def _launch(q, k, v, out, causal: bool, window: int, block_q: int,
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KV, Sq, Skv, hd, bq, bk, int(causal), int(window),
-            int(q.dtype == torch.bfloat16), hd ** -0.5, int(p_split), stream)
+            DTYPE_CODES[q.dtype], hd ** -0.5 if scale is None else scale,
+            int(p_split), stream)
     _build.check(rc, lib, "repro_flash_attention_error", "flash_attention")
 
 
 def probe(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype,
-          device="cuda") -> Dict[str, torch.Tensor]:
+          scale=None, device="cuda") -> Dict[str, torch.Tensor]:
     """One launch on normal inputs (finite outputs) into an output filled
     with `analysis.probe.poisoned`; returns the output."""
     from repro_torch.analysis.probe import poisoned
@@ -335,13 +349,15 @@ def probe(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype,
     k, v = (torch.randn(B, KV, Skv, hd, generator=gen).to(dt).to(device)
             for _ in range(2))
     out = poisoned((B, H, Sq, hd), dt, device)
-    _launch(q, k, v, out, causal, window, block_q, block_k)
+    _launch(q, k, v, out, causal, window, block_q, block_k, scale=scale)
     return {"out": out}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """q (B, H, Sq, hd), k/v (B, KV, Skv, hd) -> (B, H, Sq, hd).
+                    block_q: int = 128, block_k: int = 128,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, H, Sq, hd), k/v (B, KV, Skv, hd) -> (B, H, Sq, hd), the
+    scores scaled by `scale` (default ``hd ** -0.5``).
 
     CPU tensors: `flash_attention_reference`.  CUDA tensors: the kernel,
     counted in ``flash_attention.launches``; it takes contiguous inputs,
@@ -351,10 +367,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _check(q, k, v, window)
     note(lambda: plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                       k.shape[2], q.shape[3], block_q, block_k, causal,
-                      window, dtype_name(q.dtype)))
+                      window, dtype_name(q.dtype), scale))
     if _device(q, "flash_attention") == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, window=window,
-                                         block_q=block_q, block_k=block_k)
+                                         block_q=block_q, block_k=block_k,
+                                         scale=scale)
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     if not (k.device == q.device and v.device == q.device):
@@ -376,7 +393,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out.zero_()
     bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype)
     assert smem_bytes(bq, bk, hd, dtype) <= SMEM_BYTES_PER_BLOCK
-    _launch(q, k, v, out, causal, window, block_q, block_k)
+    _launch(q, k, v, out, causal, window, block_q, block_k, scale=scale)
     flash_attention.launches += 1
     return out
 

@@ -36,7 +36,8 @@ from repro_torch.analysis.launches import (LaunchFacts, OperandFacts,
                                           dtype_name, note, stack_tiles)
 from repro_torch.core.sort import pad_value
 from repro_torch.kernels import _build, _device
-from repro_torch.kernels.bitonic_sort import (KEY_DTYPES, _network, from_key,
+from repro_torch.kernels.bitonic_sort import (DTYPE_CODES, _network,
+                                               check_key_dtype, from_key,
                                                to_key)
 
 #: keys per tile of the tile pass (1024 threads x 16 keys in registers,
@@ -60,7 +61,8 @@ def _lib() -> ctypes.CDLL:
     lib.repro_local_sort.restype = ctypes.c_int
     lib.repro_local_sort.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
     lib.repro_local_sort_plan.restype = ctypes.c_int
     lib.repro_local_sort_plan.argtypes = [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
@@ -77,8 +79,7 @@ def _check(x: torch.Tensor, what: str):
     if x.dim() != 2 or x.shape[1] < 1:
         raise ValueError(f"{what} takes (rows, C) with C >= 1, got shape "
                          f"{tuple(x.shape)}")
-    if x.dtype not in KEY_DTYPES:
-        raise TypeError(f"{what} sorts int32 or float32, got {x.dtype}")
+    check_key_dtype(x.dtype, what)
     return x.shape
 
 
@@ -211,7 +212,9 @@ def plan(rows: int, C: int, dtype: str) -> List[LaunchFacts]:
     width-w runs of its pair, the second only where there is one, and
     ``diag[g]``, ``diag[g + 1]`` where the block ends inside its pair).
     Passes alternate between ``out`` and ``scratch``, the last one
-    writing ``out``.  Array offsets are 64-bit.  Raises ValueError past
+    writing ``out``; for a dtype narrower than 4 bytes a second int32
+    ``scratch2`` takes ``out``'s place before the last pass.  Array
+    offsets are 64-bit.  Raises ValueError past
     `MAX_C`, as the kernel would refuse it.
     """
     _check_width(C)
@@ -231,12 +234,18 @@ def plan(rows: int, C: int, dtype: str) -> List[LaunchFacts]:
     passes = merge_passes(C)
     bpr = -(-C // MT)
     total = rows * bpr
+    narrow = torch.empty((), dtype=getattr(torch, dtype)).element_size() < 4
 
     def keys(role, p, tile_shape, tile_map):
         """Pass p's buffer (0 = the tile pass's destination)."""
-        last = (passes - p) % 2 == 0
-        return OperandFacts(role, "out" if last else "scratch", (rows, C),
-                            dtype if last else "int32", tile_shape, tile_map)
+        if (passes - p) % 2:
+            return OperandFacts(role, "scratch", (rows, C), "int32",
+                                tile_shape, tile_map)
+        if narrow and p < passes:
+            return OperandFacts(role, "scratch2", (rows, C), "int32",
+                                tile_shape, tile_map)
+        return OperandFacts(role, "out", (rows, C), dtype, tile_shape,
+                            tile_map)
 
     def segments(bx, by, bz):
         return stack_tiles(bx, bx // tiles, bx % tiles)
@@ -300,15 +309,21 @@ def plan(rows: int, C: int, dtype: str) -> List[LaunchFacts]:
 def c_plan(rows: int, C: int, dtype: str):
     """`plan`'s launches as the C entry's dry-run twin gives them (card)."""
     return _build.c_plan(_lib(), "local_sort", rows, C,
-                         int(dtype == "float32"))
+                         DTYPE_CODES[getattr(torch, dtype)])
 
 
-def scratch_shapes(rows: int, C: int) -> Dict[str, tuple]:
+def scratch_shapes(rows: int, C: int,
+                   dtype: str = "int32") -> Dict[str, tuple]:
     """The int32 buffers the kernel needs beside its output: none for
-    C <= TILE, else the (rows, C) ping-pong scratch and the co-ranks."""
+    C <= TILE, else the (rows, C) ping-pong scratch, a second one where
+    `dtype` is narrower than a 4-byte key (the output cannot hold keys),
+    and the co-ranks."""
     if C <= TILE:
         return {}
-    return {"scratch": (rows, C), "diag": (rows * -(-C // MT),)}
+    out = {"scratch": (rows, C), "diag": (rows * -(-C // MT),)}
+    if torch.empty((), dtype=getattr(torch, dtype)).element_size() < 4:
+        out["scratch2"] = (rows, C)
+    return out
 
 
 def _launch(x: torch.Tensor, out: torch.Tensor,
@@ -318,11 +333,11 @@ def _launch(x: torch.Tensor, out: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptr = {name: t.data_ptr() for name, t in bufs.items()}
         rc = lib.repro_local_sort(
-            x.data_ptr(), out.data_ptr(),
-            bufs["scratch"].data_ptr() if bufs else None,
-            bufs["diag"].data_ptr() if bufs else None, rows, C,
-            int(x.dtype == torch.float32), stream)
+            x.data_ptr(), out.data_ptr(), ptr.get("scratch"),
+            ptr.get("scratch2"), ptr.get("diag"), rows, C,
+            DTYPE_CODES[x.dtype], stream)
     _build.check(rc, lib, "repro_local_sort_error", "local_sort")
 
 
@@ -335,21 +350,24 @@ def launch_local_sort(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     _launch(x, out, {name: torch.empty(shape, dtype=torch.int32,
                                        device=x.device)
-                     for name, shape in scratch_shapes(rows, C).items()})
+                     for name, shape in scratch_shapes(
+                         rows, C, dtype_name(x.dtype)).items()})
     return out
 
 
 def probe(rows: int, C: int, dtype: str,
           device="cuda") -> Dict[str, torch.Tensor]:
-    """One call on keys from [0, 2^20) with the output, the scratch and
-    the co-ranks filled with `analysis.probe.poisoned`, which no such key
-    and no co-rank can write; returns the buffers."""
-    from repro_torch.analysis.probe import poisoned
+    """One call on keys from [0, `PROBE_KEY_TOP`) with the output, the
+    scratch and the co-ranks filled with `analysis.probe.poisoned`, which
+    no such key and no co-rank can write; returns the buffers."""
+    from repro_torch.analysis.probe import PROBE_KEY_TOP, poisoned
     gen = torch.Generator().manual_seed(rows * 7919 + C)
-    x = torch.randint(0, 1 << 20, (rows, C), generator=gen, dtype=torch.int32)
-    x = x.to(getattr(torch, dtype)).to(device)
+    dt = getattr(torch, dtype)
+    top = PROBE_KEY_TOP[torch.empty((), dtype=dt).element_size()]
+    x = torch.randint(0, top, (rows, C), generator=gen, dtype=torch.int32)
+    x = x.to(dt).to(device)
     bufs = {name: poisoned(shape, torch.int32, device)
-            for name, shape in scratch_shapes(rows, C).items()}
+            for name, shape in scratch_shapes(rows, C, dtype).items()}
     out = poisoned((rows, C), x.dtype, device)
     _launch(x, out, bufs)
     return {"out": out, **bufs}

@@ -16,11 +16,11 @@ from repro_torch.kernels.fixtures import (dead_lane_kernel, gapped_index_map,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.local_sort import local_sort
 from repro_torch.kernels.localised_copy import localised_copy
-from repro_torch.kernels.merge_split import merge_split
+from repro_torch.kernels.merge_split import merge_runs, merge_split
 
 #: every counted wrapper, by name (the last four: the analysis mutants)
 WRAPPERS = {"local_sort": local_sort, "merge_split": merge_split,
-            "bitonic_sort": bitonic_sort, "localised_copy": localised_copy,
+            "merge_runs": merge_runs, "bitonic_sort": bitonic_sort, "localised_copy": localised_copy,
             "flash_attention": flash_attention,
             "overlapping_index_map": overlapping_index_map,
             "gapped_index_map": gapped_index_map,
@@ -30,7 +30,7 @@ WRAPPERS = {"local_sort": local_sort, "merge_split": merge_split,
 
 def chunked_sort(x: torch.Tensor) -> torch.Tensor:
     """Full 1-D sort of (chunks, L): bitonic leaf sort per chunk, then the
-    `merge_sorted` tree (plain PyTorch, as in the reference)."""
+    `merge_sorted` tree (one `merge_runs` launch a level on the card)."""
     runs = bitonic_sort(x)
     while runs.shape[0] > 1:
         runs = merge_sorted(runs[0::2], runs[1::2])
@@ -56,5 +56,6 @@ def merged_elems() -> int:
 
 __all__ = ["bitonic_sort", "chunked_sort", "dead_lane_kernel",
            "flash_attention", "gapped_index_map", "launch_counts",
-           "local_sort", "localised_copy", "merge_split", "merged_elems",
+           "local_sort", "localised_copy", "merge_runs", "merge_split",
+           "merged_elems",
            "oob_index_map", "overlapping_index_map", "reset_launches"]

@@ -304,19 +304,30 @@ def test_r7_rank_overflow_via_index_dtype_override():
 
 
 def test_r7_merge_split_ranks_are_64_bit():
-    facts = tmerge_split.plan(2, 1 << 31, "int32")     # 2^32-key merges
-    assert facts[0].index_dtype == "int64"
+    """Array offsets are 64-bit; the co-ranks inside a row are int32, so
+    the plan refuses rows that merge 2^31 or more keys, and the largest
+    row it takes is clean under R7."""
+    facts = tmerge_split.plan(2, 2**30 - 1, "int32")  # 2^31 - 2-key merges
+    assert all(f.index_dtype == "int64" for f in facts)
     rep = Report(target="r7")
     r7_index_arith(rep, facts)
     assert rep.clean, rep.format()
-    r7_index_arith(rep, facts, index_dtype="int32")
+    r7_index_arith(rep, facts, index_dtype="int16")
     assert rep.errors
+    with pytest.raises(ValueError, match="2\\^31 - 1 elements"):
+        tmerge_split.plan(2, 2**30, "int32")
+    with pytest.raises(ValueError, match="2\\^31 - 1 elements"):
+        tmerge_split.plan(1, 2**31 - 5, "int32", 5)
 
 
 def test_merge_split_plan_carries_the_grid_limit():
-    assert tmerge_split.plan(65535, 8, "int32")[0].grid == (1, 65535, 1)
-    with pytest.raises(ValueError, match="at most 65535 rows"):
-        tmerge_split.plan(65536, 8, "int32")
+    """The grid is flat over rows x blocks, so rows are not bounded by a
+    grid dimension (the old 65535-row gridDim.y limit is gone)."""
+    facts = tmerge_split.plan(65536, 8, "int32")
+    assert facts[-1].name == "merge_split_kernel"
+    assert facts[-1].grid == (65536, 1, 1)
+    assert tmerge_split.plan(3, 2 * tmerge_split.TILE + 1, "int32",
+                             4)[-1].grid == (9, 1, 1)
 
 
 def test_r3_budget_on_the_flash_plan():
@@ -379,8 +390,11 @@ def test_record_collects_the_launches_the_card_would_make():
         ops.local_sort(x)
         with record() as inner:
             ops.merge_split(x, x, True)
-    assert [f.name for f in outer] == ["sort_rows_smem", "merge_split_kernel"]
-    assert [f.name for f in inner] == ["merge_split_kernel"]
+    assert [f.name for f in outer] == ["sort_rows_smem",
+                                       "merge_split_partition",
+                                       "merge_split_kernel"]
+    assert [f.name for f in inner] == ["merge_split_partition",
+                                       "merge_split_kernel"]
     assert outer[0].call == ("repro_torch.kernels.local_sort",
                              (2, 32, "int32"))
     q, k = torch.zeros(1, 4, 40, 16), torch.zeros(1, 2, 72, 16)
@@ -409,8 +423,73 @@ def test_image_of_the_sort_plans_covers_their_outputs(C):
         [True, True, False, False]
 
 
+MERGE_TILE = tmerge_split.TILE
+# (rows, na, dtype, nb): the engine's merge-splits (nb None) and the
+# constraint tree's three full merges at n = 100 M, and ragged small ones
+MERGE_PLANS = [(8, 12_500_000, "int32", None), (16, 12_500_000, "int32", None),
+               (4, 12_500_000, "int32", 12_500_000),
+               (2, 25_000_000, "float32", 25_000_000),
+               (1, 50_000_000, "bfloat16", 50_000_000),
+               (3, 2 * MERGE_TILE + 5, "int8", 7), (2, 0, "uint8", 9)]
+
+
+@pytest.mark.parametrize("args", MERGE_PLANS, ids=str)
+def test_merge_plans_are_clean_at_full_width(args):
+    """A partition launch then the merge over a flat grid of rows x
+    blocks; R3/R5/R7/R8 silent."""
+    rows, na, dtype, nb = args
+    facts = tmerge_split.plan(rows, na, dtype, nb)
+    assert [f.name for f in facts] == ["merge_split_partition",
+                                       "merge_split_kernel"]
+    n_row = na if nb is None else na + nb
+    assert facts[-1].grid == (rows * -(-n_row // MERGE_TILE), 1, 1)
+    assert facts[-1].smem_static == 4 * tmerge_split.SLOTS
+    rep = check_artifacts("merge_split", facts,
+                          rules=("R3", "R5", "R7", "R8"))
+    assert rep.clean and not rep.notes, rep.format()
+
+
+@pytest.mark.parametrize("args", [(3, 2 * MERGE_TILE + 5, "int32", None),
+                                  (2, 100, "float16", 3 * MERGE_TILE),
+                                  (4, 8, "uint8", 0), (1, 1, "int16", None)],
+                         ids=str)
+def test_image_of_the_merge_plans_covers_their_outputs(args):
+    rows, na, dtype, nb = args
+    facts = tmerge_split.plan(rows, na, dtype, nb)
+    n_row = na if nb is None else na + nb
+    assert bool(image(facts, "out", rows * n_row).all())
+    assert bool(image(facts, "diag",
+                      tmerge_split.diag_size(rows, n_row)).all())
+    call = facts[0].call
+    assert call == ("repro_torch.kernels.merge_split",
+                    (rows, na, dtype) if nb is None else (rows, na, dtype, nb))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_local_sort_plan_of_a_narrow_dtype_keeps_keys_in_int32_scratch(dtype):
+    """A narrow output cannot hold 32-bit keys: a second int32 scratch
+    takes its place in the ping-pong, and only the last pass writes it."""
+    C = 5 * 16384 + 3                              # 3 merge passes
+    facts = tlocal_sort.plan(3, C, dtype)
+    shapes = tlocal_sort.scratch_shapes(3, C, dtype)
+    assert set(shapes) == {"scratch", "scratch2", "diag"}
+    assert tlocal_sort.scratch_shapes(3, C, "int32").keys() == \
+        {"scratch", "diag"}
+    writes = [(f.name, op.buffer) for f in facts for op in f.outputs]
+    assert [b for _, b in writes if b != "diag"] == [
+        "scratch", "scratch2", "scratch", "out"]
+    assert all(op.dtype == "int32" for f in facts for op in f.outputs
+               if op.buffer != "out")
+    assert bool(image(facts, "out", 3 * C).all())
+    for name, shape in shapes.items():
+        assert bool(image(facts, name, int(np.prod(shape))).all())
+    rep = check_artifacts("local_sort", facts, rules=("R3", "R5", "R7", "R8"))
+    assert rep.clean and not rep.notes, rep.format()
+
+
 def test_poison_marks_what_is_not_written():
-    for dt in (torch.float32, torch.int32, torch.bfloat16):
+    for dt in (torch.float32, torch.int32, torch.bfloat16, torch.int8,
+               torch.uint8, torch.float16, torch.int16):
         t = poisoned((3, 5), dt, "cpu")
         assert not bool(written(t).any())
         t[1, 2] = 0

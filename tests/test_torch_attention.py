@@ -4,10 +4,12 @@ The plain blocked version (`flash_attention_reference`, what
 `ops.flash_attention` runs on a CPU tensor) against the reference's
 `ops.flash_attention` in interpret mode, over the six `ATTN_CASES` of
 `tests/test_kernels.py` (causal, GQA, ragged + MQA, sliding window,
-cross with Sq != Skv), float32 and bfloat16, on the same seeded inputs.
-Tolerance: rtol = atol = 2e-5 for float32 and 2e-2 for bfloat16, the
-reference test's own: both sides compute in float32, but their sums run
-in another order (and bfloat16 outputs round at another place).  The dense
+cross with Sq != Skv), float32 and bfloat16, on the same seeded inputs;
+float16 and a non-default `scale` likewise.  Tolerance: rtol = atol =
+2e-5 for float32 and 2e-2 for bfloat16, the reference test's own: both
+sides compute in float32, but their sums run in another order (and
+bfloat16 outputs round at another place); float16 one float16 step
+(rtol = 2^-10, atol = 1e-5), as its output is rounded once.  The dense
 `attention_ref` is held to the reference's dense oracle the same way, and
 tile skipping to the dense window mask.
 """
@@ -19,6 +21,7 @@ import torch
 import repro.core  # noqa: F401  (import order of the reference package)
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.convert import make_attention_inputs
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
@@ -68,6 +71,58 @@ def test_plain_flash_attention_matches_jax_kernel(case, dtype):
     np.testing.assert_allclose(as_f32(attention_ref(q, k, v, causal=causal,
                                                     window=window)),
                                as_f32(dense), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+#: float16 against the reference kernel: both compute in float32 and round
+#: the output once to float16, their sums in another order, so the two
+#: may round to neighbouring float16 values: one float16 step (2^-10 of
+#: the value), and 1e-5 for the outputs near zero (`KERNEL_TOL`)
+F16_TOL = tflash.KERNEL_TOL[torch.float16]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_plain_flash_attention_in_float16_matches_jax_kernel(case):
+    causal, window, bq, bk = case[6:]
+    (jq, jk, jv), (q, k, v) = inputs(case, "float16")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                block_q=bq, block_k=bk)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=bq, block_k=bk)
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=F16_TOL[0],
+                               atol=F16_TOL[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", ATTN_CASES[:4], ids=str)
+def test_plain_flash_attention_takes_a_scale_like_jax_kernel(case, dtype):
+    """A non-default scale, 0.1, through the wrapper and the reference
+    kernel (tolerances as above); it must move the result off the
+    default's."""
+    causal, window, bq, bk = case[6:]
+    (jq, jk, jv), (q, k, v) = inputs(case, dtype, seed=4)
+    want = jflash(jq, jk, jv, causal=causal, window=window, block_q=bq,
+                  block_k=bk, scale=0.1, interpret=True)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=bq, block_k=bk, scale=0.1)
+    rtol, atol = F16_TOL if dtype == "float16" else (TOL[dtype], TOL[dtype])
+    np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=rtol,
+                               atol=atol)
+    default = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_q=bq, block_k=bk)
+    assert not np.allclose(as_f32(got), as_f32(default), rtol=rtol,
+                           atol=atol)
+
+
+def test_scale_is_kept_in_the_recorded_call():
+    from repro_torch.analysis.launches import record
+    q = torch.zeros(1, 2, 40, 16)
+    with record() as launches:
+        ops.flash_attention(q, q, q, block_q=32, block_k=32)
+        ops.flash_attention(q, q, q, block_q=32, block_k=32, scale=0.1)
+    assert [f.call[1][-1] for f in launches] == ["float32", 0.1]
+    assert launches[0].launch_tuple() == launches[1].launch_tuple()
+    assert tflash.KERNELS["float16"] == "fa_kernel"
 
 
 @pytest.mark.parametrize("window,causal", [(64, True), (100, True),

@@ -34,7 +34,7 @@ from repro.core import Locale as JLocale
 from repro.core import LocalisationPolicy as JPolicy
 from repro.core import sort as jsort
 from repro_torch.configs import CASES
-from repro_torch.convert import make_sort_data
+from repro_torch.convert import NARROW_SORT_DTYPES, make_sort_data
 from repro_torch.core import (HomeMesh, Homed, Homing, Locale,
                               LocalisationPolicy, sort)
 from repro_torch.core.homing import (Layout, constrain, moved_elems,
@@ -47,6 +47,24 @@ N = 3001
 
 def bits(x) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x)).view(np.int32)
+
+
+def nbits(x) -> np.ndarray:
+    """Bit patterns of a sort result of any dtype (numpy, JAX or torch)."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous()
+        return x.view({1: torch.int8, 2: torch.int16,
+                       4: torch.int32}[x.element_size()]).numpy()
+    a = np.ascontiguousarray(np.asarray(x))
+    return a.view({1: np.int8, 2: np.int16, 4: np.int32}[a.itemsize])
+
+
+def narrow_input(dtype: str, seed: int):
+    """`make_sort_data` values of a narrow dtype (its extremes, both zero
+    signs, +-inf) as a JAX array and a torch tensor of that dtype."""
+    x = make_sort_data(N, dtype, seed)
+    return (jnp.asarray(x).astype(getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
 
 
 def case_policy(k: int) -> LocalisationPolicy:
@@ -102,6 +120,42 @@ def test_one_home_sort_matches_jax_on_one_device(case):
 
 
 # ---------------------------------------------------------------------------
+# the narrow dtypes: int8, int16, uint8, float16, bfloat16
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+@pytest.mark.parametrize("case", [1, 4, 8])
+def test_meshless_sort_of_narrow_dtypes_matches_jax(case, dtype):
+    jx, tx = narrow_input(dtype, case)
+    ref = JLocale(policy=jax_policy(case)).workload("sort")(jx)
+    got = Locale(policy=case_policy(case)).workload("sort", device="cpu")(tx)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(nbits(got), nbits(ref))
+
+
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+def test_one_device_sort_of_narrow_dtypes_matches_jax(dtype):
+    """Both backends on a mesh of one device."""
+    mesh = jax.make_mesh((1,), ("data",), axis_types=(AxisType.Auto,))
+    for case, backend in ((3, "constraint"), (8, "constraint"),
+                          (8, "shard_map")):
+        jx, tx = narrow_input(dtype, case + 40)
+        ref = JLocale(mesh, "data", jax_policy(case)).workload(
+            "sort", backend=backend)(jx)
+        got = Locale(HomeMesh({"data": 1}, device="cpu"), "data",
+                     case_policy(case)).workload("sort", backend=backend)(tx)
+        np.testing.assert_array_equal(nbits(got), nbits(ref),
+                                      err_msg=f"case {case} {backend}")
+
+
+def test_sort_of_uint16_raises_a_clear_type_error():
+    x = torch.arange(100, dtype=torch.int32).to(torch.uint16)
+    for backend in ("constraint", "shard_map"):
+        with pytest.raises(TypeError, match="uint16 and uint32"):
+            Locale(HomeMesh({"data": 8}, device="cpu"), "data").workload(
+                "sort", backend=backend)(x)
+
+
+# ---------------------------------------------------------------------------
 # 8 homes: the JAX constraint sort in one subprocess
 # ---------------------------------------------------------------------------
 JAX_8DEV = """
@@ -126,6 +180,9 @@ for tag, (mesh, axis) in meshes.items():
         fn = Locale(mesh, axis, pol).workload("sort")
         for dt in ("int32", "float32"):
             out[f"{tag}_{k}_{dt}"] = np.asarray(fn(jnp.asarray(inp[dt])))
+        # bfloat16 goes in and out as its int16 bit patterns
+        bf = jnp.asarray(inp["bfloat16_bits"]).view(jnp.bfloat16)
+        out[f"{tag}_{k}_bfloat16"] = np.asarray(fn(bf)).view(np.int16)
 np.savez(dst, **out)
 print("JAX_8DEV_OK")
 """
@@ -139,6 +196,8 @@ def jax_8dev(tmp_path_factory):
     d = tmp_path_factory.mktemp("jax8c")
     src, dst = d / "in.npz", d / "out.npz"
     inputs = {dt: sort_input(dt, 21) for dt in ("int32", "float32")}
+    inputs["bfloat16_bits"] = torch.from_numpy(make_sort_data(
+        N, "bfloat16", 22)).to(torch.bfloat16).view(torch.int16).numpy()
     np.savez(src, **inputs)
     r = subprocess.run([sys.executable, "-c", JAX_8DEV, str(src), str(dst)],
                        capture_output=True, text=True, cwd=ROOT, timeout=900,
@@ -171,6 +230,32 @@ def test_sort_on_8_homes_matches_jax_constraint_backend(jax_8dev, tag, case):
         np.testing.assert_array_equal(bits(got), bits(want),
                                       err_msg=f"{tag} case {case} {dt}")
         np.testing.assert_array_equal(bits(got), bits(meshless[case, dt]))
+
+
+@pytest.mark.parametrize("tag", sorted(MESHES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bfloat16_sort_on_8_homes_matches_jax_constraint_backend(jax_8dev,
+                                                                 tag, case):
+    """bfloat16 through the same subprocess, compared as int16 bits; the
+    reference's localised static policies return every zero as +0.0 on
+    these meshes (as in float32), so there only the zeros' signs may
+    differ, and the values equal the mesh-less reference's."""
+    inputs, ref, _ = jax_8dev
+    shape, axis = MESHES[tag]
+    x = torch.from_numpy(inputs["bfloat16_bits"]).view(torch.bfloat16)
+    got = Locale(HomeMesh(shape, device="cpu"), axis,
+                 case_policy(case)).workload("sort")(x)
+    want = ref[f"{tag}_{case}_bfloat16"]
+    meshless = JLocale(policy=jax_policy(case)).workload("sort")(
+        jnp.asarray(inputs["bfloat16_bits"]).view(jnp.bfloat16))
+    np.testing.assert_array_equal(nbits(got), nbits(meshless))
+    got_bits = nbits(got)
+    if CASES[case].localised and CASES[case].static_mapping:
+        off = got_bits != want
+        assert (got.float().numpy()[off] == 0).all()
+        assert not (want[got.float().numpy() == 0] < 0).any()
+    else:
+        np.testing.assert_array_equal(got_bits, want)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ from repro.core import Homing as JHoming
 from repro.core import Locale as JLocale
 from repro.core import LocalisationPolicy as JPolicy
 from repro_torch.configs import CASES
-from repro_torch.convert import homed_from_reference, make_sort_data
+from repro_torch.convert import (NARROW_SORT_DTYPES, homed_from_reference,
+                                 make_sort_data)
 from repro_torch.core import (HomeMesh, Homing, Locale, LocalisationPolicy,
                               exchange_schedule)
 from repro_torch.kernels import ops
@@ -42,6 +43,16 @@ def port_sort(x, shape, axis, policy, **kw):
     mesh = HomeMesh(shape, device="cpu")
     fn = Locale(mesh, axis, policy).workload("sort", backend="shard_map", **kw)
     return fn(x).numpy()
+
+
+def nbits(x) -> np.ndarray:
+    """Bit patterns of a sort result of any dtype (numpy, JAX or torch)."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous()
+        return x.view({1: torch.int8, 2: torch.int16,
+                       4: torch.int32}[x.element_size()]).numpy()
+    a = np.ascontiguousarray(np.asarray(x))
+    return a.view({1: np.int8, 2: np.int16, 4: np.int32}[a.itemsize])
 
 
 def check_sorted(y, x):
@@ -94,6 +105,9 @@ for tag, (mesh, axis, pol) in runs.items():
         fn = Locale(mesh, axis, pol).workload("sort", backend="shard_map",
                                                local_phase="pallas")
         out[f"{tag}_{dt}"] = np.asarray(fn(jnp.asarray(inp[dt])))
+    # bfloat16 goes in and out as its int16 bit patterns
+    bf = jnp.asarray(inp["bfloat16_bits"]).view(jnp.bfloat16)
+    out[f"{tag}_bfloat16"] = np.asarray(fn(bf)).view(np.int16)
 # placements, for homed_from_reference: the full placed data and each
 # device's shard in mesh (pod-major) order
 for tag, (mesh, axis, h) in {
@@ -120,7 +134,10 @@ def jax_8dev(tmp_path_factory):
     src, dst = d / "in.npz", d / "out.npz"
     inputs = {"int32": make_sort_data(3001, "int32", 11),
               "float32": make_sort_data(3001, "float32", 12),
-              "homed": np.arange(64, dtype=np.int32)}
+              "homed": np.arange(64, dtype=np.int32),
+              "bfloat16_bits": torch.from_numpy(make_sort_data(
+                  3001, "bfloat16", 13)).to(torch.bfloat16)
+              .view(torch.int16).numpy()}
     np.savez(src, **inputs)
     r = subprocess.run([sys.executable, "-c", JAX_8DEV, str(src), str(dst)],
                        capture_output=True, text=True, cwd=ROOT, timeout=600,
@@ -145,6 +162,18 @@ def test_engine_matches_jax_8dev_engine(jax_8dev, tag, dtype):
     got = port_sort(inputs[dtype], shape, axis, policy)
     np.testing.assert_array_equal(bits(got), bits(ref[f"{tag}_{dtype}"]))
     check_sorted(got, inputs[dtype])
+
+
+@pytest.mark.parametrize("tag", sorted(PORT_8DEV))
+def test_bfloat16_engine_matches_jax_8dev_engine(jax_8dev, tag):
+    inputs, ref = jax_8dev
+    shape, axis, policy = PORT_8DEV[tag]
+    x = torch.from_numpy(inputs["bfloat16_bits"]).view(torch.bfloat16)
+    mesh = HomeMesh(shape, device="cpu")
+    got = Locale(mesh, axis, policy).workload("sort", backend="shard_map")(x)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(nbits(got), ref[f"{tag}_bfloat16"])
+    assert (got.float().numpy() == np.sort(x.float().numpy())).all()
 
 
 @pytest.mark.slow
@@ -188,6 +217,30 @@ def test_engine_matches_jax_one_device_engine(loc, homing, local_phase):
                         local_phase=ours)
         np.testing.assert_array_equal(bits(got), bits(ref),
                                       err_msg=f"{policy.name} {dt}")
+
+
+@pytest.mark.parametrize("local_phase", [("kernel", "pallas"),
+                                         ("reference", "reference")],
+                         ids=lambda p: p[0])
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+def test_engine_of_narrow_dtypes_matches_jax_one_device_engine(dtype,
+                                                               local_phase):
+    """int8, int16, uint8, float16 and bfloat16 through both local phases
+    (the merge-split network and the merge tree of the reference phase)."""
+    ours, theirs = local_phase
+    ndev = len(jax.devices())
+    for loc, homing in ((True, "local"), (False, "hash")):
+        jfn = JLocale(jax.make_mesh((ndev,), ("data",)),
+                      policy=JPolicy(loc, True, JHoming(homing))).workload(
+            "engine", num_workers=8, local_phase=theirs)
+        x = make_sort_data(1000, dtype, 5)
+        ref = jfn(jnp.asarray(x).astype(getattr(jnp, dtype)))
+        got = Locale(HomeMesh({"data": ndev}, device="cpu"), "data",
+                     LocalisationPolicy(loc, True, Homing(homing))).workload(
+            "sort", backend="shard_map", num_workers=8,
+            local_phase=ours)(torch.from_numpy(x).to(getattr(torch, dtype)))
+        np.testing.assert_array_equal(nbits(got), nbits(ref),
+                                      err_msg=f"{loc} {homing}")
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +359,7 @@ def test_cpu_engine_launches_no_kernel():
     ops.reset_launches()
     port_sort(make_sort_data(777, "int32", 0), {"data": 8}, "data",
               case_policy(8))
-    assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0,
+    assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0, "merge_runs": 0,
                                    "bitonic_sort": 0, "localised_copy": 0,
                                    "flash_attention": 0,
                                    "overlapping_index_map": 0,

@@ -6,10 +6,12 @@ is present, and skips without one.  Run on the card with::
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports torch, numpy and the port only (no JAX), so it runs on a
-machine that has no JAX.  Tolerance: bit-exact, floats compared as int32
-bit patterns, except `flash_attention`, held to its plain version within
-`KERNEL_TOL`: rtol = atol = 2e-5 (float32), and one bfloat16 rounding step
-(rtol = 2**-7, atol = 1e-5) for bfloat16: its sums run in another order;
+machine that has no JAX.  Tolerance: bit-exact, floats compared as bit
+patterns of their width, except `flash_attention`, held to its plain
+version within `KERNEL_TOL`: rtol = atol = 2e-5 (float32), one bfloat16
+rounding step (rtol = 2**-7, atol = 1e-5) for bfloat16 and one float16
+step (rtol = 2**-10, atol = 1e-5) for float16: its sums run in another
+order;
 and the raced rows of the `overlapping` mutant, a real race on the card,
 each element one of its two writers'.  Each kernel's Python launch plan
 must equal its C entry's dry run, and its coverage probe be exact.
@@ -18,19 +20,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import record
 from repro_torch.configs import CASES
-from repro_torch.convert import (GRID_NAMES, grid_rows, make_attention_inputs,
-                                 make_fig1_data, make_sort_data)
+from repro_torch.convert import (GRID_NAMES, NARROW_SORT_DTYPES, grid_rows,
+                                 make_attention_inputs, make_fig1_data,
+                                 make_sort_data)
 from repro_torch.core import (HomeMesh, Homing, Locale, LocalisationPolicy,
                               exchange_schedule)
+from repro_torch.core.sort import merge_sorted_reference
 from repro_torch.kernels import ops
-from repro_torch.analysis import record
 from repro_torch.kernels.flash_attention import (KERNEL_TOL, KERNELS,
                                                  flash_attention_reference)
 from repro_torch.kernels.local_sort import (TILE, local_sort_reference,
                                             local_sort_schedule)
 from repro_torch.kernels.localised_copy import localised_copy_reference
-from repro_torch.kernels.merge_split import merge_split_reference
+from repro_torch.kernels.merge_split import (merge_schedule,
+                                             merge_split_reference)
 
 # C > TILE: 2, 4, 6 and 38 sorted runs (1, 2, 3 and 6 merge passes, odd
 # run counts and ragged last runs on the last three)
@@ -40,6 +45,25 @@ CARD_C = (1, 5, 96, 256, 257, TILE - 1, TILE, TILE + 1, 3 * TILE + 7,
 
 def bits(t: torch.Tensor) -> np.ndarray:
     return t.cpu().contiguous().view(torch.int32).numpy()
+
+
+def nbits(t: torch.Tensor) -> np.ndarray:
+    """Bit patterns of a tensor of any sort dtype."""
+    t = t.cpu().contiguous()
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()]).numpy()
+
+
+SORT_DTYPES = ("int32", "float32") + NARROW_SORT_DTYPES
+
+
+def pair_buffer(dtype: str, rows: int, width: int, seed: int):
+    """(rows, 2, width) sorted runs of `make_sort_data` values of `dtype`
+    with heavy duplicates; ``[:, 0]`` and ``[:, 1]`` are strided views."""
+    x = make_sort_data(rows * 2 * width, dtype, seed).reshape(rows, 2, width)
+    x[..., ::3] = x[..., :1]                       # duplicates across runs
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    return t.sort(dim=-1).values
 
 
 def _need_card():
@@ -87,6 +111,80 @@ def test_merge_split_kernel_matches_plain_on_card(C):
                 err_msg=f"{name} {C} {k}")
 
 
+# (rows, na, nb): equal and unequal runs, ragged blocks, an empty run
+RUNS_CASES = [(1, 5, 3), (3, 100, 100), (2, 8192, 8192), (4, 20000, 3),
+              (2, 30001, 30001), (3, 70000, 9000), (1, 0, 7),
+              (2, 5 * 8192 + 17, 3 * 8192 + 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+def test_merge_kernels_match_plain_on_card(dtype):
+    """`merge_runs` (full) and `merge_split` (keep modes) on strided views
+    of every sort dtype, against `merge_sorted_reference` and
+    `merge_split_reference`."""
+    _need_card()
+    for rows, na, nb in RUNS_CASES:
+        buf = pair_buffer(dtype, rows, max(na, nb) + 3, rows + na + nb)
+        a, b = buf[:, 0, :na], buf[:, 1, :nb]
+        ac, bc = buf.cuda()[:, 0, :na], buf.cuda()[:, 1, :nb]
+        want = merge_sorted_reference(a, b)
+        np.testing.assert_array_equal(nbits(ops.merge_runs(ac, bc)),
+                                      nbits(want), err_msg=f"{rows} {na} {nb}")
+        if na == nb:
+            keep = torch.tensor([True, False, False, True] * 2)[:rows]
+            np.testing.assert_array_equal(
+                nbits(ops.merge_split(ac, bc, keep)),
+                nbits(merge_split_reference(a, b, keep)),
+                err_msg=f"keep {rows} {na}")
+
+
+@pytest.mark.gpu
+def test_merge_kernel_matches_schedule_emulation_on_card():
+    _need_card()
+    buf = pair_buffer("float32", 3, 5 * 8192 + 20, 3)
+    a, b = buf[:, 0, :5 * 8192 + 17], buf[:, 1, :4 * 8192 + 1]
+    got = ops.merge_runs(a.cuda(), b.cuda())
+    np.testing.assert_array_equal(nbits(got), nbits(merge_schedule(a, b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+def test_local_sort_kernel_takes_the_narrow_dtypes_on_card(dtype):
+    _need_card()
+    for C in (1, 5, 300, TILE, TILE + 1, 5 * TILE + 3):
+        x = make_sort_data(3 * C, dtype, C).reshape(3, C)
+        x = torch.from_numpy(x).to(getattr(torch, dtype))
+        got = ops.local_sort(x.cuda())
+        assert got.dtype == x.dtype
+        np.testing.assert_array_equal(nbits(got), nbits(local_sort_reference(x)),
+                                      err_msg=f"{C}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+def test_constraint_sort_of_narrow_dtypes_on_card_matches_cpu(dtype):
+    _need_card()
+    x = torch.from_numpy(make_sort_data(2**16 + 5, dtype, 9)).to(
+        getattr(torch, dtype))
+    for case in (3, 8):
+        c = CASES[case]
+        policy = LocalisationPolicy(c.localised, c.static_mapping,
+                                    Homing(c.homing))
+        for backend in ("constraint", "shard_map"):
+            ops.reset_launches()
+            got = Locale(HomeMesh({"data": 8}), "data", policy).workload(
+                "sort", backend=backend)(x)
+            counts = ops.launch_counts()
+            want = Locale(HomeMesh({"data": 8}, device="cpu"), "data",
+                          policy).workload("sort", backend=backend)(x)
+            np.testing.assert_array_equal(nbits(got), nbits(want),
+                                          err_msg=f"{case} {backend}")
+            assert counts["local_sort"] == 1
+            if backend == "constraint":
+                assert counts["merge_runs"] == 3
+
+
 @pytest.mark.gpu
 def test_bitonic_sort_kernel_matches_plain_on_card():
     _need_card()
@@ -103,7 +201,7 @@ def test_wrappers_count_kernel_launches_and_raise_on_bad_input():
     x = torch.from_numpy(grid_rows("rand_int", 300)).cuda()
     ops.local_sort(x)
     ops.merge_split(x, x, True)
-    assert ops.launch_counts() == {"local_sort": 1, "merge_split": 1,
+    assert ops.launch_counts() == {"local_sort": 1, "merge_split": 1, "merge_runs": 0,
                                    "bitonic_sort": 0, "localised_copy": 0,
                                    "flash_attention": 0,
                                    "overlapping_index_map": 0,
@@ -221,6 +319,29 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scale", [None, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", FA_CASES[:8], ids=str)
+def test_flash_attention_kernel_takes_scale_and_float16_on_card(case, dtype,
+                                                                scale):
+    _need_card()
+    B, H, KV, Sq, Skv, hd, causal, window, bq, bk = case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt).cuda() for a in
+               make_attention_inputs(B, H, KV, Sq, Skv, hd, dtype, 5))
+    with record() as launches:
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_q=bq, block_k=bk, scale=scale)
+    assert [f.name for f in launches] == [KERNELS[dtype]]
+    want = flash_attention_reference(q, k, v, causal=causal, window=window,
+                                     block_q=bq, block_k=bk, scale=scale)
+    assert got.dtype == dt
+    rtol, atol = KERNEL_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
 def test_flash_attention_bf16_rejects_misaligned_inputs():
     """TMA needs 16-byte aligned tensors: an offset view raises (no
     fallback to another kernel)."""
@@ -303,8 +424,12 @@ def test_mutant_kernel_matches_plain_on_card(kind):
 
 PLAN_CASES = {
     "local_sort": [(8, 1000, "int32"), (3, 3 * TILE + 7, "float32"),
-                   (3, 37 * TILE + 11, "int32")],
-    "merge_split": [(8, 5000, "int32"), (16, 2049, "float32")],
+                   (3, 37 * TILE + 11, "int32"), (3, 5 * TILE + 3, "int8"),
+                   (2, 300, "bfloat16")],
+    # merge_split (keep modes), then merge_runs (full mode, strided probe)
+    "merge_split": [(8, 5000, "int32"), (16, 2049, "float32"),
+                    (2, 9000, "uint8"), (4, 3000, "bfloat16", 7000),
+                    (3, 100, "int8", 0), (2, 5 * 8192 + 17, "float16", 9)],
     "localised_copy": [(1003, 3, "bfloat16", True), (4097, 1, "float32",
                                                      False)],
     "flash_attention": [(1, 4, 2, 200, 200, 32, 64, 64, True, 0, "float32"),
@@ -313,7 +438,9 @@ PLAN_CASES = {
                         (2, 4, 2, 200, 77, 64, 128, 64, True, 48,
                          "bfloat16"),
                         (1, 2, 1, 40, 300, 16, 64, 64, False, 0,
-                         "bfloat16")],
+                         "bfloat16"),
+                        (1, 4, 2, 200, 200, 64, 64, 64, True, 0, "float16",
+                         0.1)],
     "fixtures": [(k, 4, 128) for k in MUTANT_KINDS],
 }
 

@@ -19,11 +19,13 @@ import torch
 
 from repro.core.sort import merge_sorted as jax_merge_sorted
 from repro.kernels import ops as jops
-from repro_torch.convert import GRID_NAMES, grid_rows
-from repro_torch.core.sort import merge_sorted
+from repro_torch.convert import (GRID_NAMES, NARROW_SORT_DTYPES, grid_rows,
+                                 make_sort_data)
+from repro_torch.core.sort import merge_sorted, merge_sorted_reference
 from repro_torch.kernels import _build, local_sort, ops
 from repro_torch.kernels.local_sort import local_sort_reference
-from repro_torch.kernels.merge_split import merge_split_reference
+from repro_torch.kernels.merge_split import (merge_schedule,
+                                             merge_split_reference)
 
 GRID_C = (1, 5, 96, 256, 257)
 
@@ -32,6 +34,29 @@ def bits(x) -> np.ndarray:
     """int32 bit patterns of an int32/float32 array or tensor."""
     a = np.ascontiguousarray(np.asarray(x))
     return a.view(np.int32)
+
+
+def nbits(x) -> np.ndarray:
+    """Bit patterns of an array or tensor of any sort dtype, as signed
+    integers of its width (bfloat16 and float16 as int16)."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous()
+        return x.view({1: torch.int8, 2: torch.int16,
+                       4: torch.int32}[x.element_size()]).numpy()
+    a = np.ascontiguousarray(np.asarray(x))
+    return a.view({1: np.int8, 2: np.int16, 4: np.int32}[a.itemsize])
+
+
+def narrow(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of `dtype`."""
+    return (jnp.asarray(x).astype(getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def narrow_rows(dtype: str, C: int, rows: int = 4, seed: int = 0):
+    """(rows, C) values of `dtype` (`make_sort_data`: its extremes, zeros
+    of both signs), as numpy int32 / float32 the dtype holds exactly."""
+    return make_sort_data(rows * C, dtype, seed * 7919 + C).reshape(rows, C)
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +223,143 @@ def test_merge_sorted_batched_rows_match_per_row():
 
 
 # ---------------------------------------------------------------------------
+# the narrow sort dtypes, bit for bit against the reference kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+@pytest.mark.parametrize("C", GRID_C)
+def test_local_sort_takes_the_narrow_dtypes_like_reference_kernel(dtype, C):
+    jx, tx = narrow(narrow_rows(dtype, C), dtype)
+    ref = jops.local_sort(jx)
+    got = ops.local_sort(tx)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(nbits(got), nbits(ref))
+    if C > 1:
+        np.testing.assert_array_equal(
+            nbits(local_sort.local_sort_schedule(tx, tile=64, block=16)),
+            nbits(ref))
+
+
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+def test_bitonic_sort_takes_the_narrow_dtypes_like_reference_kernel(dtype):
+    for C in (1, 8, 256):
+        jx, tx = narrow(narrow_rows(dtype, C, seed=1), dtype)
+        np.testing.assert_array_equal(nbits(ops.bitonic_sort(tx)),
+                                      nbits(jops.bitonic_sort(jx)))
+
+
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+@pytest.mark.parametrize("C", GRID_C)
+def test_merge_split_takes_the_narrow_dtypes_like_reference_kernel(dtype, C):
+    a = np.sort(narrow_rows(dtype, C), axis=-1)
+    b = np.sort(narrow_rows(dtype, C, seed=7), axis=-1)
+    (ja, ta), (jb, tb) = narrow(a, dtype), narrow(b, dtype)
+    keep = (np.arange(4) % 2) == 0
+    ref = jops.merge_split(ja, jb, jnp.asarray(keep))
+    got = ops.merge_split(ta, tb, torch.from_numpy(keep))
+    np.testing.assert_array_equal(nbits(got), nbits(ref))
+
+
+@pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
+def test_merge_sorted_takes_the_narrow_dtypes_like_reference(dtype):
+    for C, D in ((1, 1), (5, 9), (96, 33), (257, 256)):
+        a = np.sort(narrow_rows(dtype, C, rows=1)[0])
+        b = np.sort(narrow_rows(dtype, D, rows=1, seed=2)[0])
+        (ja, ta), (jb, tb) = narrow(a, dtype), narrow(b, dtype)
+        np.testing.assert_array_equal(nbits(merge_sorted(ta, tb)),
+                                      nbits(jax_merge_sorted(ja, jb)),
+                                      err_msg=f"{C} {D}")
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32"])
+def test_sort_dtypes_torch_cannot_search_raise_type_error(dtype):
+    x = torch.zeros((2, 8), dtype=getattr(torch, dtype))
+    for call in (lambda: ops.local_sort(x), lambda: ops.bitonic_sort(x),
+                 lambda: ops.merge_split(x, x, True),
+                 lambda: ops.merge_runs(x, x), lambda: merge_sorted(x, x)):
+        with pytest.raises(TypeError, match="searchsorted has no kernel"):
+            call()
+
+
+# ---------------------------------------------------------------------------
+# the merge kernel's tile schedule, emulated (partition, windows, threads)
+# ---------------------------------------------------------------------------
+def _pair_buffer(dtype: str, rows: int, width: int, seed: int):
+    """A (rows, 2, width) tensor of sorted runs with heavy duplicates and
+    (floats) zeros of both signs; the strided views ``[:, 0]`` and
+    ``[:, 1]`` are the runs the tree passes."""
+    rng = np.random.default_rng(seed)
+    lo = 0 if dtype == "uint8" else -6
+    x = rng.integers(lo, 6, size=(rows, 2, width)).astype(np.float32)
+    if dtype in ("float16", "bfloat16", "float32"):
+        x[x == 0] = np.where(rng.random(int((x == 0).sum())) < 0.5, -0.0, 0.0)
+        x[x == 5] = np.inf
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    return t.sort(dim=-1).values
+
+
+# (block, items): several blocks a row with ragged last blocks, one output
+# a thread, and the kernel's own thread shape at a small block
+SCHEDULES = [(16, 4), (32, 8), (64, 1), (256, 32)]
+
+
+@pytest.mark.parametrize("block,items", SCHEDULES, ids=str)
+@pytest.mark.parametrize("dtype", ["int32", "float32"] +
+                         list(NARROW_SORT_DTYPES))
+def test_merge_schedule_matches_plain_versions(dtype, block, items):
+    for rows, na, nb in ((3, 100, 100), (2, 257, 31), (1, 5, 0), (4, 64, 64),
+                         (2, 0, 9), (3, 1000, 1000)):
+        buf = _pair_buffer(dtype, rows, max(na, nb) + 3, rows + na + nb)
+        a, b = buf[:, 0, :na], buf[:, 1, :nb]
+        assert a.stride(0) == 2 * buf.shape[-1]       # strided rows
+        got = merge_schedule(a, b, None, block=block, items=items)
+        np.testing.assert_array_equal(nbits(got),
+                                      nbits(merge_sorted_reference(a, b)),
+                                      err_msg=f"full {rows} {na} {nb}")
+        if na == nb:
+            keep = torch.tensor([True, False, False, True][:rows])
+            got = merge_schedule(a, b, keep, block=block, items=items)
+            np.testing.assert_array_equal(
+                nbits(got), nbits(merge_split_reference(a, b, keep)),
+                err_msg=f"keep {rows} {na}")
+
+
+def test_merge_schedule_ties_go_to_a_across_signed_zeros():
+    """a holds -0.0 only and b +0.0 only (and the other way round): ties
+    go to a in every block, so a's zeros come first and the keep halves
+    take their own run's signs at the cut, as the reference does."""
+    z = np.zeros(40, np.float32)
+    for a_np, b_np in ((-z, z), (z, -z)):
+        a = torch.from_numpy(np.concatenate([[-1.0], a_np, [2.0]])[None]
+                             .astype(np.float32))
+        b = torch.from_numpy(np.concatenate([[-2.0], b_np, [1.0]])[None]
+                             .astype(np.float32))
+        full = merge_schedule(a, b, None, block=16, items=4)
+        assert np.signbit(full[0, 2:42].numpy()).tolist() == \
+            [bool(np.signbit(a_np[0]))] * 40
+        np.testing.assert_array_equal(nbits(full),
+                                      nbits(merge_sorted_reference(a, b)))
+        for keep in (True, False):
+            got = merge_schedule(a, b, keep, block=16, items=4)
+            ref = jops.merge_split(jnp.asarray(a.numpy()),
+                                   jnp.asarray(b.numpy()), jnp.asarray(keep))
+            np.testing.assert_array_equal(nbits(got), nbits(ref))
+
+
+def test_merge_runs_on_the_cpu_is_the_plain_merge_uncounted():
+    ops.reset_launches()
+    buf = _pair_buffer("int32", 3, 50, 1)
+    a, b = buf[:, 0, :40], buf[:, 1, :50]
+    np.testing.assert_array_equal(ops.merge_runs(a, b).numpy(),
+                                  merge_sorted_reference(a, b).numpy())
+    # merge_sorted flattens the leading dims into rows of merge_runs
+    runs = _pair_buffer("float32", 4, 33, 2).view(2, 4, 33)
+    np.testing.assert_array_equal(
+        nbits(merge_sorted(runs[:, 0::2], runs[:, 1::2])),
+        nbits(merge_sorted_reference(runs[:, 0::2], runs[:, 1::2])))
+    assert sum(ops.launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
 # wrapper dispatch, counters, build
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_version_uncounted():
@@ -208,7 +370,7 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     a, b = (torch.from_numpy(v) for v in _runs("rand_int", 33))
     np.testing.assert_array_equal(ops.merge_split(a, b, True).numpy(),
                                   merge_split_reference(a, b, True).numpy())
-    assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0,
+    assert ops.launch_counts() == {"local_sort": 0, "merge_split": 0, "merge_runs": 0,
                                    "bitonic_sort": 0, "localised_copy": 0,
                                    "flash_attention": 0,
                                    "overlapping_index_map": 0,
@@ -232,6 +394,8 @@ def test_build_names_every_source_by_content_hash(monkeypatch, tmp_path):
     assert set(_build.sources()) == {"fixtures", "flash_attention",
                                      "local_sort", "localised_copy",
                                      "merge_split"}
+    # the merge-path header is shared: a change to it rebuilds both users
+    assert (_build.CSRC / "merge_path.cuh").exists()
     t = _build._target("local_sort")
     assert t.parent == _build.BUILD_DIR and t.suffix == ".so"
     assert t != _build._target("merge_split")
