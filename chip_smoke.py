@@ -16,7 +16,8 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 bit for bit (floats as bit patterns), on the property grid
                 (with row lengths that take `local_sort` through 1, 2, 3
                 and 6 merge passes), on every sort dtype (int8, int16,
-                int32, uint8, float16, bfloat16, float32) and at the main
+                int32, uint8, uint16, uint32, float16, bfloat16, float32)
+                and at the main
                 path's shapes, with their times; `local_sort` at (8,
                 12.5 M) also by kernel (tile pass, partitions, merge
                 passes) from `torch.profiler`; `merge_split` at (8, 12.5 M)
@@ -61,11 +62,29 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 split: its time and how far it leaves the tolerance), and
                 two planted faults, a dropped KV tile and a scale 1 % off,
                 that must fall outside it on the long rows;
-  8b. dtypes  — int8, int16, uint8, float16 and bfloat16 through both
-                backends on {"data": 8} at n = 2^24 + 5: equal to
-                torch.sort's values, and bit for bit the CPU port's
-                result, computed after the analysis phase, so that no
-                timed phase shares the host with it;
+  8b. serve   — the serving stack at qwen3-0.6b's full width in bf16
+                (28 layers, seeded parameters) through `DecodeServer` with
+                16 slots homed over {"data": 8} and a 1024-token cache: 32
+                requests of an open-loop stream (8 sessions, 8 or 32 new
+                tokens) in aligned waves (prompts of 128-768 tokens, the
+                prefill's attention the `flash_attention` kernel) and paged
+                (prompts of 16-128 tokens with a 32-token session prefix,
+                16-token pages), each under fifo and homed: tokens/s,
+                launches (28 `flash_attention` a prefill wave, none paged),
+                paged tokens equal across the policies, the schedule equal
+                to its model-free replay, the kernel launches
+                `torch.profiler` sees; the kernel at the prefill's shape
+                against its plain version within `KERNEL_TOL`, the
+                prefill's logits through the kernel against the plain
+                chunked form (bf16 and float32, within `LOGIT_TOL`) and
+                with the attention phase's two planted faults in the
+                kernel's place (outside it), and the costs of a wave:
+                prefill, a decode step, the `pin_tree` copy of the cache;
+  8c. dtypes  — int8, int16, uint8, uint16, uint32, float16 and bfloat16
+                through both backends on {"data": 8} at n = 2^24 + 5:
+                equal to torch.sort's values, and bit for bit the CPU
+                port's result, computed after the analysis phase, so that
+                no timed phase shares the host with it;
   9. analysis — the analyser's path: the four mutant kernels of
                 `repro_torch.kernels.fixtures` against their plain versions
                 (bit for bit; the raced rows of `overlapping_index_map`
@@ -100,6 +119,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -208,30 +228,46 @@ LOCAL_SORT_KERNELS = {"block_sort": "tile pass", "merge_partition":
                       "partition", "merge_pass": "merge pass"}
 
 
+def profile_call(fn, warm=None, cpu: bool = False):
+    """`torch.profiler` (device activity, and the host's with `cpu`) over
+    one call of fn(), after a warm-up step that launches 64 small kernels
+    and then calls warm(): a session loses the first kernels it records
+    on the card."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    x = torch.zeros(1, device="cuda")
+    with profile(activities=acts, schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(64):
+            x.add_(1)
+        if warm is not None:
+            warm()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
 def kernel_breakdown(fn, kernels: dict) -> dict:
     """Device milliseconds and launches of one call of fn() by kernel,
     from `torch.profiler`'s `key_averages()`; where the profiler shows no
     device time, the call's time by CUDA events instead, under "whole".
 
-    The call runs twice, a warm-up step and the active one: a session
-    that records from its first launch has lost the first kernels of the
-    call on the card.  The launches seen must number those
-    the wrappers record for the active call (`kernels` names them all)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    The call runs twice under the profiler, a warm-up step and the active
+    one (`profile_call`).  The launches seen must number those the
+    wrappers record for the active call (`kernels` names them all)."""
     from repro_torch.analysis import record
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        with record() as recorded:
+    recorded = []
+
+    def active():
+        with record() as launches:
             fn()
-            torch.cuda.synchronize()
-        prof.step()
+        recorded.extend(launches)
+    prof = profile_call(active, warm=fn, cpu=True)
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -384,8 +420,8 @@ def sass_check() -> dict:
 
 
 #: the dtypes the sort kernels take
-SORT_DTYPES = ("int32", "float32", "int8", "int16", "uint8", "float16",
-               "bfloat16")
+SORT_DTYPES = ("int32", "float32", "int8", "int16", "uint8", "uint16",
+               "uint32", "float16", "bfloat16")
 
 
 def dtype_sweep(seed: int, bad: dict) -> dict:
@@ -397,6 +433,7 @@ def dtype_sweep(seed: int, bad: dict) -> dict:
     from repro_torch.convert import make_sort_data
     from repro_torch.core.sort import merge_sorted_reference
     from repro_torch.kernels import ops
+    from repro_torch.kernels.bitonic_sort import widen
     from repro_torch.kernels.local_sort import TILE, local_sort_reference
     from repro_torch.kernels.merge_split import merge_split_reference
     C, (rows, na, nb) = 5 * TILE + 3, (3, 70_001, 9_000)
@@ -407,7 +444,8 @@ def dtype_sweep(seed: int, bad: dict) -> dict:
         bad["local_sort"] += mismatches(ops.local_sort(x),
                                         local_sort_reference(x))
         buf = torch.from_numpy(make_sort_data(rows * 2 * na, dt, seed + 9 + i))
-        buf = buf.to(tdt).cuda().view(rows, 2, na).sort(dim=-1).values
+        buf = widen(buf.to(tdt).cuda().view(rows, 2, na)).sort(
+            dim=-1).values.to(tdt)
         a, b = buf[:, 0], buf[:, 1, :nb]
         bad["merge_runs"] += mismatches(ops.merge_runs(a, b),
                                         merge_sorted_reference(a, b))
@@ -830,16 +868,18 @@ def cpu_reference(seed: int) -> dict:
 
 def phase_dtypes(seed: int) -> dict:
     """The narrow sort dtypes through both backends on {"data": 8} at
-    n = 2^24 + 5, on the card: values equal to torch.sort's.  Returns the
-    results (on the CPU) for `check_dtypes_on_cpu`."""
+    n = 2^24 + 5, on the card: values equal to torch.sort's (uint16 and
+    uint32 sorted widened, `widen`: torch.sort takes neither on the card).
+    Returns the results (on the CPU) for `check_dtypes_on_cpu`."""
     from repro_torch.core import HomeMesh, Locale, LocalisationPolicy
     from repro_torch.kernels import ops
+    from repro_torch.kernels.bitonic_sort import widen
 
     t0 = time.perf_counter()
     out = {"results": {}, "launches": {}}
     for dt, x in dtype_inputs(seed).items():
         xc = x.cuda()
-        want = torch.sort(xc).values
+        want = torch.sort(widen(xc)).values
         for backend in SORT_BACKENDS:
             tag = f"{dt}_{backend}"
             fn = Locale(HomeMesh({"data": 8}), "data", LocalisationPolicy()
@@ -851,7 +891,7 @@ def phase_dtypes(seed: int) -> dict:
             counts = ops.launch_counts()
             need(y.dtype == x.dtype and y.shape == x.shape,
                  f"dtypes {tag}: {y.dtype} {tuple(y.shape)}")
-            need(bool((y == want).all()),
+            need(bool((widen(y) == want).all()),
                  f"dtypes {tag}: values differ from torch.sort's")
             merge = "merge_runs" if backend == "constraint" else "merge_split"
             need(counts["local_sort"] == 1 and counts[merge] > 0,
@@ -1254,6 +1294,377 @@ def phase_attention(seed: int) -> dict:
     return out
 
 
+#: the serving cell: qwen3-0.6b at full width in bf16 (28 layers, d 1024,
+#: H 16, KV 8, hd 128, vocab 152064 padded), 16 slots homed over
+#: HomeMesh({"data": 8}), a 1024-token cache; 32 requests of
+#: ``make_serve_stream`` (8 sessions, 8 or 32 new tokens) in each mode
+SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN = "qwen3-0.6b", 16, 1024
+SERVE_REQUESTS, SERVE_SESSIONS, SERVE_NEW = 32, 8, (8, 32)
+#: per mode: the server's prompt_pad and page_size, the prompt lengths and
+#: the shared session prefix of the stream
+SERVE_MODES = {"waves": dict(prompt_pad=None, page_size=None,
+                             prompt_len=(128, 768), prefix=0),
+               "paged": dict(prompt_pad=128, page_size=16,
+                             prompt_len=(16, 128), prefix=32)}
+#: the prefill's last-position logits through the kernel against the plain
+#: chunked form on the card, as the largest difference over the largest
+#: |logit| of the plain run.  The kernel keeps P as a bf16 hi + lo pair
+#: where the chunked form rounds it once, about one bf16 step (2^-8 of a
+#: value) of every attention output, carried through 28 layers; float32
+#: differs only in the order of the sums.  Each bound lies between the
+#: sound run's reading and the planted faults' (H100, seed 0: bf16 0.0138
+#: against a scale 1 % off 0.0170 and a dropped KV tile 1.32; float32
+#: 1.06e-6 against 0.00342 and 1.32): in bf16 a 1 % scale sits barely
+#: above the rounding the two correct forms differ by
+LOGIT_TOL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -12}
+#: the serve phase's kernel numbers that the kernels line carries beside
+#: the attention phase's, under ``serve_<key>``
+SERVE_LINE_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
+#: rows of the float32 logits check (its parameters take 3 GB)
+LOGIT_ROWS_F32 = 4
+
+
+def profiled_kernels(fn, names) -> dict:
+    """{name: launches} of the kernels whose profiler key holds a name of
+    `names`, seen by `torch.profiler` over one call of fn()."""
+    seen = dict.fromkeys(names, 0)
+    for ev in profile_call(fn).key_averages():
+        for name in names:
+            if name in ev.key:
+                seen[name] += ev.count
+    return seen
+
+
+def device_busy_ms(fn) -> float:
+    """Milliseconds of kernel time on the card over one call of fn(), from
+    `torch.profiler`."""
+    return sum(getattr(ev, "device_time_total", 0) or 0
+               for ev in profile_call(fn).key_averages()) / 1e3
+
+
+def phase_serve(seed: int) -> dict:
+    """The serving stack at qwen3-0.6b full width (see the module
+    docstring, 8c)."""
+    import torch.nn.functional as F
+    from repro_torch.analysis import record
+    from repro_torch.configs import get_config
+    from repro_torch.convert import make_attention_inputs, make_serve_stream
+    from repro_torch.core import HomeMesh, Locale
+    from repro_torch.core.homing import relayout_counts, reset_relayouts
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        KERNEL_TOL, KERNELS, flash_attention_reference)
+    from repro_torch.models import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.server import (DecodeServer, Request,
+                                            schedule_replay)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    L, H, KV, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    out = {"arch": SERVE_ARCH, "params": n_params,
+           "init_s": time.perf_counter() - t0, "runs": {}}
+    locale = Locale(HomeMesh({"data": 8}), "data")
+    streams = {mode: make_serve_stream(
+        SERVE_REQUESTS, cfg.vocab_size, m["prompt_len"],
+        sessions=SERVE_SESSIONS, new_tokens=SERVE_NEW, slots=SERVE_SLOTS,
+        seed=seed, prefix=m["prefix"]) for mode, m in SERVE_MODES.items()}
+
+    def server(mode, policy, tracer=None):
+        m = SERVE_MODES[mode]
+        srv = DecodeServer(cfg, params, batch_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN, locale=locale,
+                           scheduler=policy, prompt_pad=m["prompt_pad"],
+                           page_size=m["page_size"], tracer=tracer)
+        for d in streams[mode]:
+            srv.submit(Request(**d))
+        return srv
+
+    # the counted runs: both modes, both policies
+    recorded = []
+    for mode in SERVE_MODES:
+        for policy in ("fifo", "homed"):
+            tag = f"{mode}-{policy}"
+            tracer = Tracer()
+            srv = server(mode, policy, tracer)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_relayouts()
+            ops.reset_launches()                 # the path's counted run
+            t0 = time.perf_counter()
+            with record() as launches:
+                served = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            moved = relayout_counts()
+            recorded += launches
+            summary = srv.scheduler.summary()
+            rtr = Tracer()
+            replay = schedule_replay(
+                cfg, [Request(**d) for d in streams[mode]],
+                batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                locale=locale, scheduler=policy,
+                prompt_pad=SERVE_MODES[mode]["prompt_pad"],
+                page_size=SERVE_MODES[mode]["page_size"], tracer=rtr)
+            events = [sched_events(t) for t in (tracer, rtr)]
+            toks = {r.rid: list(r.out) for r in served}
+            n_tok = sum(len(v) for v in toks.values())
+            prefills = summary["waves"] if mode == "waves" else 0
+            rec = dict(
+                wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                served=len(served), waves=summary["waves"],
+                steps=summary["steps"], launches=counts,
+                flash_expected=L * prefills,
+                kernels=sorted({f.name for f in launches}),
+                relayout_bytes=summary["relayout_bytes"],
+                inter_pod_bytes=summary["inter_pod_bytes"],
+                pages_attached=summary["pages_attached"],
+                pin_tree=moved, peak_bytes=torch.cuda.max_memory_allocated()
+                - base, replay_equal=replay.summary() == summary
+                and events[0] == events[1], tokens_out=toks)
+            out["runs"][tag] = rec
+            need(len(served) == SERVE_REQUESTS and all(
+                len(toks[d["rid"]]) == d["max_new"] for d in streams[mode])
+                and all(0 <= t < cfg.vocab_padded for v in toks.values()
+                        for t in v), f"serve {tag}: requests or tokens wrong")
+            need(counts.get("flash_attention", 0) == L * prefills
+                 and set(counts) <= {"flash_attention"},
+                 f"serve {tag}: launches {counts}, want {L} flash_attention "
+                 f"a prefill wave x {prefills}")
+            need(rec["replay_equal"], f"serve {tag}: the schedule differs "
+                 f"from its model-free replay: {summary} vs "
+                 f"{replay.summary()}")
+            say(f"phase serve {tag}: {len(served)} requests, {n_tok} tokens "
+                f"in {wall:.3f} s ({n_tok / wall:.1f} tokens/s), "
+                f"{summary['waves']} waves, {summary['steps']} steps, "
+                f"launches {json.dumps(counts)} ({rec['kernels']}), "
+                f"schedule == model-free replay, relayout "
+                f"{summary['relayout_bytes']} B (inter-pod "
+                f"{summary['inter_pod_bytes']}), pages attached "
+                f"{summary['pages_attached']}, pin_tree "
+                f"{json.dumps(moved)}, peak {rec['peak_bytes']} B")
+            del srv, served
+    need(out["runs"]["paged-fifo"]["tokens_out"]
+         == out["runs"]["paged-homed"]["tokens_out"],
+         "serve: paged tokens differ between fifo and homed")
+    need(out["runs"]["waves-fifo"]["kernels"] == [KERNELS["bfloat16"]],
+         f"serve: kernels {out['runs']['waves-fifo']['kernels']}")
+    for rec in out["runs"].values():
+        rec.pop("tokens_out")
+
+    # torch.profiler over one more aligned-wave run: the kernel launches
+    # it sees must be those the wrapper counts
+    srv = server("waves", "fifo")
+    ops.reset_launches()
+    seen = profiled_kernels(srv.run, [KERNELS["bfloat16"]])
+    counted = ops.launch_counts()["flash_attention"]
+    out["profiler"] = dict(seen=seen, counted=counted)
+    need(seen[KERNELS["bfloat16"]] == counted > 0,
+         f"serve: the profiler saw {seen}, the wrapper counted {counted}")
+
+    # the first aligned wave's prefill batch: the kernel's shapes there
+    first = sorted(streams["waves"], key=lambda d: d["t_arrive"])
+    wave = [d["prompt"] for d in first[:SERVE_SLOTS]]
+    S = max(len(w) for w in wave)
+    toks = torch.zeros(SERVE_SLOTS, S, dtype=torch.long)
+    for i, w in enumerate(wave):
+        toks[i, S - len(w):] = torch.from_numpy(w)
+    toks = toks.cuda()
+    shapes = sorted({f.call[1][:6] for f in recorded})
+    out["kernel_shapes"] = [list(s) for s in shapes]
+
+    # the kernel at every prefill shape of the serve runs against its plain
+    # version; timed at the first wave's (the largest)
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    out["kernel_checks"] = {}
+    for (b, h, kv, sq, skv, d) in shapes:
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16).cuda() for a in
+                   make_attention_inputs(b, h, kv, sq, skv, d, "bfloat16",
+                                         seed))
+        with untimed():
+            got = ops.flash_attention(q, k, v, causal=True)
+        plain = flash_attention_reference(q, k, v, causal=True)
+        out["kernel_checks"][f"{b}x{h}x{kv}x{sq}x{d}"] = dict(
+            beyond=beyond(got, plain, rtol, atol),
+            max_abs_err=float((got.float() - plain.float()).abs().max()))
+        del q, k, v, got, plain
+    need(all(c["beyond"] == 0 for c in out["kernel_checks"].values()),
+         f"serve: flash_attention outside rtol={rtol} atol={atol}: "
+         f"{out['kernel_checks']}")
+    B = SERVE_SLOTS
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).cuda() for a in
+               make_attention_inputs(B, H, KV, S, S, hd, "bfloat16", seed))
+    with untimed():
+        got = ops.flash_attention(q, k, v, causal=True)
+    plain = flash_attention_reference(q, k, v, causal=True)
+    flops, nbytes = attention_work(B, H, KV, S, hd, 0, 2)
+    kern = dict(
+        shape=[B, H, KV, S, hd], beyond=beyond(got, plain, rtol, atol),
+        max_abs_err=float((got.float() - plain.float()).abs().max()),
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                   reps=20),
+        plain_ms=cuda_ms(lambda: flash_attention_reference(
+            q, k, v, causal=True), reps=1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=10),
+        ops_ms=flops / 989e12 * 1e3, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    kern["bound_ms"] = max(kern["ops_ms"], kern["bytes_ms"])
+    kern["bound_by"] = ("operations" if kern["ops_ms"] >= kern["bytes_ms"]
+                        else "bytes")
+
+    def layout():
+        # the model's four copies: q, k, v into the kernel's (B, H, S, hd),
+        # the output back (the same bytes, the other way round here)
+        return (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), got.transpose(1, 2).contiguous())
+    kern["layout_ms"] = cuda_ms(layout, reps=10)
+    out["kernel"] = kern
+    need(kern["beyond"] == 0, f"serve: flash_attention outside rtol={rtol} "
+                              f"atol={atol} at {kern['shape']}: {kern}")
+    del q, k, v, got, plain
+    say(f"phase serve kernel: flash_attention at the prefill's (B, H, KV, S,"
+        f" hd) = {kern['shape']} bf16 (shapes the serve runs gave it: "
+        f"{out['kernel_shapes']}): {kern['ms']:.4f} ms, plain "
+        f"{kern['plain_ms']:.3f} ms, SDPA {kern['library_ms']:.4f} ms, bound "
+        f"{kern['bound_ms']:.4f} ms ({kern['bound_by']}), the model's layout "
+        f"transposes {kern['layout_ms']:.4f} ms; max err "
+        f"{kern['max_abs_err']:.3g} (rtol={rtol:.3g} atol={atol:.3g}); "
+        f"against the plain version at every shape "
+        + json.dumps(out["kernel_checks"]))
+
+    # the prefill's logits through the kernel against the plain chunked
+    # form on the card, bf16 (the served model) and float32; then the
+    # attention phase's two planted faults in the kernel's place, which
+    # must fall outside the same tolerance
+    plain_model = LM(cfg, flash=False)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    runs = {"bfloat16": (model, plain_model, params, {"tokens": toks}),
+            "float32": (LM(cfg32), LM(cfg32, flash=False), p32,
+                        {"tokens": toks[:LOGIT_ROWS_F32]})}
+    faults = {"dropped_tile": lambda q, k, v, causal: dropped_tile_attention(
+                  q, k, v, 0, ATTN_BLOCK),
+              "scale_1pct": lambda q, k, v, causal: flash_attention_reference(
+                  q, k, v, causal=causal, scale=1.01 * q.shape[-1] ** -0.5)}
+    out["logits"] = {}
+    for dt, (flash_lm, plain_lm, prm, batch) in runs.items():
+        with untimed():
+            a, _ = flash_lm.prefill(prm, batch, max_len=SERVE_MAX_LEN)
+        b, _ = plain_lm.prefill(prm, batch, max_len=SERVE_MAX_LEN)
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        rec = out["logits"][dt] = dict(
+            max_abs_err=float((a - b).abs().max()), max_abs_logit=scale,
+            tol=LOGIT_TOL[dt], argmax_agree=float(
+                (a.argmax(-1) == b.argmax(-1)).float().mean()),
+            finite=bool(torch.isfinite(a).all()), faults={})
+        rec["rel"] = rec["max_abs_err"] / scale
+        for fault, wrong in faults.items():
+            with mock.patch.object(ops, "flash_attention", wrong):
+                w, _ = flash_lm.prefill(prm, batch, max_len=SERVE_MAX_LEN)
+            rec["faults"][fault] = float((w.float() - b).abs().max()) / scale
+            del w
+        del a, b
+    del p32, runs
+    say("phase serve logits: prefill through the kernel vs the plain chunked "
+        "form on the card, and the planted faults, each as its largest "
+        "difference over the largest |logit| " + json.dumps(out["logits"]))
+    for dt, rec in out["logits"].items():
+        need(rec["finite"] and rec["rel"] <= LOGIT_TOL[dt],
+             f"serve: {dt} prefill logits through the kernel differ from the "
+             f"plain chunked form by {rec['rel']} of the largest |logit| "
+             f"(tolerance {LOGIT_TOL[dt]})")
+        need(all(f > LOGIT_TOL[dt] for f in rec["faults"].values()),
+             f"serve: a planted fault's {dt} prefill logits pass the "
+             f"tolerance {LOGIT_TOL[dt]}: {rec['faults']}")
+
+    # the costs of one wave: prefill, a decode step, the pin_tree copy
+    srv = server("waves", "fifo")
+    prefill = lambda: model.prefill(params, {"tokens": toks},  # noqa: E731
+                                    max_len=SERVE_MAX_LEN)
+    _, caches = prefill()
+    batch = {"tokens": toks[:, -1:].contiguous()}
+    reset_relayouts()
+    pinned = locale.pin_tree(caches, dim=1, size=SERVE_SLOTS)
+    moved = relayout_counts()
+    del pinned
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    srv._decode(params, caches, batch, S)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        srv._decode(params, caches, batch, S)
+    torch.cuda.synchronize()
+    host_step = (time.perf_counter() - t0) / 3 * 1e3
+    step = lambda: srv._decode(params, caches, batch, S)  # noqa: E731
+    costs = dict(
+        prefill_ms=cuda_ms(prefill, reps=3),
+        prefill_busy_ms=device_busy_ms(prefill),
+        decode_step_busy_ms=device_busy_ms(step),
+        prefill_plain_ms=cuda_ms(lambda: plain_model.prefill(
+            params, {"tokens": toks}, max_len=SERVE_MAX_LEN), reps=1),
+        decode_step_ms=cuda_ms(step, reps=5),
+        decode_step_host_ms=host_step,
+        decode_model_ms=cuda_ms(lambda: model.decode_step(
+            params, caches, batch, S), reps=5),
+        pin_tree_ms=cuda_ms(lambda: locale.pin_tree(caches, dim=1,
+                                                    size=SERVE_SLOTS), reps=5),
+        pin_tree_moved=moved, cache_bytes=cache_bytes,
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params)),
+        prefill_shape=[SERVE_SLOTS, S])
+    out["costs"] = costs
+    del caches, srv
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase serve costs: {SERVE_ARCH} ({n_params} parameters, "
+        f"{costs['param_bytes']} B) prefill of ({SERVE_SLOTS}, {S}) "
+        f"{costs['prefill_ms']:.2f} ms (plain attention "
+        f"{costs['prefill_plain_ms']:.2f} ms; kernels busy "
+        f"{costs['prefill_busy_ms']:.2f} ms of it); decode step "
+        f"{costs['decode_step_ms']:.2f} ms by CUDA events, "
+        f"{costs['decode_step_host_ms']:.2f} ms by the host clock (the model "
+        f"alone {costs['decode_model_ms']:.2f} ms; kernels busy "
+        f"{costs['decode_step_busy_ms']:.2f} ms of the step); pin_tree of the "
+        f"{cache_bytes} B cache {costs['pin_tree_ms']:.2f} ms, moved "
+        f"{json.dumps(moved)}; profiler saw {json.dumps(seen)} launches, the "
+        f"wrapper counted {counted}; phase {out['seconds']:.1f} s")
+    out["recorded"] = recorded
+    out["line_launches"] = out["runs"]["waves-fifo"]["launches"].get(
+        "flash_attention", 0)
+    return out
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def sched_events(tracer) -> list:
+    """The scheduler's and page pool's trace records, without clocks."""
+    return json.loads(json.dumps(
+        [{k: v for k, v in r.items() if k not in ("ts", "dur", "tid")}
+         for r in tracer.records() if r["cat"] in ("sched", "pool")]))
+
+
 #: the reference's findings on its four fixtures (pinned against the
 #: reference's own rules in tests/test_torch_analysis.py), by rule,
 #: severity and kind, and the pallas_call line of each fixture
@@ -1516,12 +1927,14 @@ def main(argv=None) -> int:
     constraint = phase_constraint(args.seed)
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
+    serve = phase_serve(args.seed)
     dtypes = phase_dtypes(args.seed)
     full_width = {
         "flagship": flat.pop("recorded") + hier.pop("recorded")
         + constraint.pop("recorded"),
         "fig1": fig1.pop("recorded"),
-        "attention": attention.pop("recorded")}
+        "attention": {**attention.pop("recorded"),
+                      "serve": serve.pop("recorded")}}
     analysis = phase_analysis(args.seed, full_width)
     # last: the CPU sorts would load the host under the timed phases
     check_dtypes_on_cpu(dtypes, args.seed)
@@ -1534,10 +1947,21 @@ def main(argv=None) -> int:
     # merge_runs' path is the default backend: the case 8 flagship's run
     rows.append(dict(kernels["merge_runs"], launches=constraint[
         "flagship_case8"]["launches"]["merge_runs"]))
+    # flash_attention's path is the serve phase's prefill: its launches
+    # there; its times stay at the attention phase's shape, as in earlier
+    # lines, with the prefill's shape and times beside them
+    attention["line"].update(
+        launches=serve["line_launches"],
+        attention_launches=attention["line"]["launches"],
+        max_abs_err=max(attention["line"]["max_abs_err"],
+                        serve["kernel"]["max_abs_err"]),
+        **{f"serve_{k}": serve["kernel"][k]
+           for k in SERVE_LINE_KEYS})
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
-             "yardstick_ms", "yardstick")
+             "yardstick_ms", "yardstick", "shape", "attention_launches",
+             *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1545,7 +1969,7 @@ def main(argv=None) -> int:
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
              "engine": engine, "flat": flat, "hier": hier,
              "constraint": constraint, "fig1": fig1, "attention": attention,
-             "dtypes": dtypes, "analysis": analysis},
+             "serve": serve, "dtypes": dtypes, "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))
     say(smi)

@@ -3,8 +3,10 @@
 A sort has no weights: what crosses over is the data and the policy.
 Everything here takes plain values or numpy arrays, so neither package
 has to import the other; the tests hand the reference's numpy outputs in.
-`make_sort_data`, `grid_rows`, `make_fig1_data` and `make_attention_inputs`
-make the inputs that the tests and ``chip_smoke.py`` feed to both sides.
+`make_sort_data`, `grid_rows`, `make_fig1_data`, `make_attention_inputs`
+and `make_serve_stream` make the inputs that the tests and
+``chip_smoke.py`` feed to both sides; `lm_params_from_reference` carries a
+reference `LM`'s parameters over.
 """
 from __future__ import annotations
 
@@ -54,8 +56,9 @@ def homed_from_reference(array_np: np.ndarray, homing, locale: Locale) -> Homed:
                  locale.axis)
 
 
-#: the narrow dtypes the sort takes beside int32 and float32
-NARROW_SORT_DTYPES = ("int8", "int16", "uint8", "float16", "bfloat16")
+#: the dtypes the sort takes beside int32 and float32
+NARROW_SORT_DTYPES = ("int8", "int16", "uint8", "uint16", "uint32", "float16",
+                      "bfloat16")
 
 
 def make_sort_data(n: int, dtype: str, seed: int) -> np.ndarray:
@@ -67,8 +70,9 @@ def make_sort_data(n: int, dtype: str, seed: int) -> np.ndarray:
     must reproduce).  No NaN.  A dtype of `NARROW_SORT_DTYPES` gets the
     same treatment in its own range (its min and max, or +-inf and both
     zeros; float values normals times 100, rounded to the dtype), returned
-    as int32 or float32 numpy values that the dtype holds exactly: cast
-    them with ``torch.from_numpy(x).to(dtype)`` or ``.astype``.
+    as numpy values that the dtype holds exactly -- int32 (int8, int16,
+    uint8), the dtype itself (uint16, uint32) or float32: cast them with
+    ``torch.from_numpy(x).to(dtype)`` or ``.astype``.
     """
     rng = np.random.default_rng(seed)
     k = max(1, n // 100)
@@ -76,11 +80,13 @@ def make_sort_data(n: int, dtype: str, seed: int) -> np.ndarray:
         x = rng.integers(INT32_MIN, INT32_MAX, size=n, dtype=np.int32,
                          endpoint=True)
         specials = np.asarray([INT32_MAX, INT32_MIN, 0], np.int32)
-    elif dtype in ("int8", "int16", "uint8"):
+    elif dtype in ("int8", "int16", "uint8", "uint16", "uint32"):
         info = np.iinfo(dtype)
-        x = rng.integers(info.min, info.max, size=n, dtype=np.int32,
-                         endpoint=True)
-        specials = np.asarray([info.max, info.min, 0], np.int32)
+        held = np.dtype(dtype) if dtype in ("uint16", "uint32") else np.int32
+        draw = np.int64 if dtype == "uint32" else np.int32
+        x = rng.integers(info.min, info.max, size=n, dtype=draw,
+                         endpoint=True).astype(held)
+        specials = np.asarray([info.max, info.min, 0], held)
     elif dtype in ("float32", "float16", "bfloat16"):
         x = rng.standard_normal(n, dtype=np.float32)
         if dtype != "float32":
@@ -158,3 +164,52 @@ def make_attention_inputs(B: int, H: int, KV: int, Sq: int, Skv: int,
     rng = np.random.default_rng(seed)
     return tuple(_as_dtype(rng.standard_normal(s, dtype=np.float32), dtype)
                  for s in ((B, H, Sq, hd), (B, KV, Skv, hd), (B, KV, Skv, hd)))
+
+
+def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A tensor with `a`'s values and dtype; a bfloat16 numpy array (the
+    ``ml_dtypes`` type JAX hands out) goes through its bits."""
+    a = np.array(a)                       # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_reference(tree, device="cuda"):
+    """The port's `LM` parameters from the reference `LM`'s pytree, its
+    leaves as numpy arrays (``jax.tree.map(np.asarray, params)``): the same
+    nested dicts, each leaf a tensor of its dtype on `device`."""
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_reference(v, device) for k, v in tree.items()}
+    return _tensor_from_numpy(np.asarray(tree)).to(device)
+
+
+def make_serve_stream(n: int, vocab: int, prompt_len, *, sessions: int,
+                      new_tokens=(8, 32), slots: int, seed: int,
+                      prefix: int = 0):
+    """An open-loop request stream of the shape of
+    ``benchmarks/bench_serve.py``'s: bursts of ``2 * slots`` arrivals,
+    zipf-skewed sessions, bimodal decode lengths (30 % long).  Returns
+    dicts of `runtime.server.Request`'s fields.
+
+    ``prompt_len`` = (lo, hi): each prompt's length, uniform.  A prompt
+    opens with its session's first `prefix` tokens (a shared prefix that
+    the paged mode can attach from the pool), then random tokens."""
+    lo, hi = prompt_len
+    short, long_ = new_tokens
+    rng = np.random.RandomState(seed)
+    weights = 1.0 / (1.0 + np.arange(sessions))
+    weights /= weights.sum()
+    heads = rng.randint(0, vocab, (sessions, prefix)).astype(np.int32)
+    out = []
+    for rid in range(n):
+        plen = int(rng.randint(lo, hi + 1))
+        sess = int(rng.choice(sessions, p=weights))
+        keep = min(plen, prefix)
+        prompt = np.concatenate([heads[sess, :keep], rng.randint(
+            0, vocab, plen - keep).astype(np.int32)])
+        out.append(dict(rid=rid, prompt=prompt,
+                        max_new=int(long_ if rng.rand() < 0.3 else short),
+                        session=f"s{sess}",
+                        t_arrive=float(rid // (2 * slots)) * (hi + short)))
+    return out

@@ -51,7 +51,8 @@ from repro_torch.core.homing import (Axis, Homing, axis_tuple, logical_view,
                                      to_layout)
 from repro_torch.core.localisation import LocalisationPolicy, chunk_bounds
 from repro_torch.core.mesh import HomeMesh
-from repro_torch.core.sort import merge_sorted, pad_to_multiple, sort_entry
+from repro_torch.core.sort import (bits_view, merge_sorted, pad_to_multiple,
+                                   sort_entry, take)
 from repro_torch.kernels import ops
 
 AXIS = "data"
@@ -138,8 +139,9 @@ def _merge_split(run: torch.Tensor, other: torch.Tensor,
                  keep_low: torch.Tensor) -> torch.Tensor:
     """The reference form of a compare-exchange: merge all 2C, keep half."""
     chunk = run.shape[-1]
-    both = merge_sorted(run, other)                  # (rows, 2*chunk)
-    return torch.where(keep_low[:, None], both[:, :chunk], both[:, chunk:])
+    both = bits_view(merge_sorted(run, other))       # (rows, 2*chunk)
+    return torch.where(keep_low[:, None], both[:, :chunk],
+                       both[:, chunk:]).view(run.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -500,14 +502,14 @@ def _localised_shard(rows: torch.Tensor, *, m: int, chunk: int,
             # merge-splits on its copy (one launch over all m * n_pods
             # rows), then keeps its own pod's chunk
             gather, replays, own = route
-            pods = run[gather]
+            pods = take(run, gather)
             for partner, keep in replays:
-                pods = merge_split(pods, pods[partner], keep)
-            run = pods[own]
+                pods = merge_split(pods, take(pods, partner), keep)
+            run = take(pods, own)
         else:
             # the ppermute: home d receives its partner d ^ 2^j's chunk
             partner, keep = route
-            run = merge_split(run, run[partner], keep)
+            run = merge_split(run, take(run, partner), keep)
     return run
 
 
@@ -531,8 +533,8 @@ def _unlocalised_shard(rows: torch.Tensor, *, w: int, homing: Homing,
 
     def scatter(full):                  # home d keeps its shard of copy d
         if homing == Homing.LOCAL_CHUNKED:
-            return full.view(m, m, chunk)[d, d]
-        return full.view(m, chunk, m)[d, :, d]
+            return take(full.view(m, m, chunk), (d, d))
+        return take(full.view(m, chunk, m), (d, slice(None), d))
 
     runs = _leaf_sort(gather(rows).reshape(m * w, n_p // w), local_sort)
     rows = scatter(runs.view(m, n_p))

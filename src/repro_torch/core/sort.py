@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.homing import Axis, Homing, Layout, axis_size, relayout
 from repro_torch.core.localisation import LocalisationPolicy
 from repro_torch.core.mesh import entry_device
+from repro_torch.kernels.bitonic_sort import widen
 
 BIG = {torch.int32: torch.iinfo(torch.int32).max,
        torch.float32: float("inf")}
@@ -76,6 +77,25 @@ def pad_to_multiple(x: torch.Tensor, m: int,
     return torch.cat([x, fill])
 
 
+#: uint16 and uint32, and the signed dtype of their width: torch indexes
+#: neither on the card, so the sort's index operations move their bits as
+#: that dtype (`take`); the kernels take them as they are
+BITS_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def bits_view(x: torch.Tensor) -> torch.Tensor:
+    """`x` itself, or the bits of a uint16 or uint32 `x` viewed as the
+    signed dtype of their width (undo with ``.view(x.dtype)``)."""
+    bits = BITS_VIEW.get(x.dtype)
+    return x if bits is None else x.view(bits)
+
+
+def take(x: torch.Tensor, index) -> torch.Tensor:
+    """``x[index]``, moving the bits of a uint16 or uint32 `x` as the
+    signed dtype of their width (`bits_view`)."""
+    return bits_view(x)[index].view(x.dtype)
+
+
 def sort_entry(fn, granule: int, device):
     """NaN guard + sentinel pad + tail strip around a sort on `device`.
 
@@ -104,21 +124,22 @@ def merge_sorted_reference(a: torch.Tensor,
     element is read from a or b.  Leading dims are batch dims (one merge
     per row).  Comparisons are IEEE (``-0.0 == +0.0``), through
     `torch.searchsorted` with ``side="left"``, so elements of `a` win
-    ties."""
+    ties; uint16 and uint32 are searched widened (`widen`) and narrowed
+    back."""
     na, nb = a.shape[-1], b.shape[-1]
     if na == 0 or nb == 0:
         return torch.cat([a, b], dim=-1)
     lead = a.shape[:-1]
-    dev = a.device
-    ia = (torch.arange(na, device=dev)
-          + torch.searchsorted(b.contiguous(), a.contiguous(), side="left"))
+    dev, dtype = a.device, a.dtype
+    a, b = widen(a.contiguous()), widen(b.contiguous())
+    ia = torch.arange(na, device=dev) + torch.searchsorted(b, a, side="left")
     k = torch.arange(na + nb, device=dev).expand(*lead, na + nb).contiguous()
     ra = torch.searchsorted(ia, k, side="left")
     ra_c = ra.clamp(max=na - 1)
     is_a = (ra < na) & (torch.gather(ia, -1, ra_c) == k)
     rb = (k - ra).clamp(0, nb - 1)
     return torch.where(is_a, torch.gather(a, -1, ra_c),
-                       torch.gather(b, -1, rb))
+                       torch.gather(b, -1, rb)).to(dtype)
 
 
 def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

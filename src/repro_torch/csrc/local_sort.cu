@@ -1,5 +1,5 @@
 // local_sort: ascending sort of every row of a (rows, C) tensor of int8,
-// int16, int32, uint8, float16, bfloat16 or float32.
+// int16, int32, uint8, uint16, uint32, float16, bfloat16 or float32.
 //
 // Replaces the TPU kernel src/repro/kernels/local_sort.py::local_sort (the
 // fused VMEM-resident local phase of the merge-sort engine: leaf sorts and
@@ -10,7 +10,7 @@
 // float32 as its bits k ^ ((k >> 31) & 0x7fffffff) compared as signed
 // int32.  A narrow dtype is widened on load (merge_path.cuh: integers
 // extend to int32, float16 and bfloat16 convert exactly to float32) and
-// takes the same key; its value is narrowed back, exactly, on store.  That
+// takes the same key, uint32 takes its bits with the top bit flipped; its value is narrowed back, exactly, on store.  That
 // puts -0.0 before +0.0, as XLA's min/max do in the reference network, and
 // equal keys are equal bits, so any correct sort of the keys is bit-identical
 // to the reference and to the plain version
@@ -75,8 +75,9 @@
 //
 // Narrow dtypes: 4-byte keys are loaded by cp.async and stored as they are
 // (float32 through the key map), so int32 and float32 take the code above
-// unchanged; the narrow dtypes are loaded and stored through registers,
-// widened and narrowed (a branch on the dtype code, uniform over the grid).
+// unchanged; the narrow dtypes and uint32 are loaded and stored through
+// registers, widened and narrowed (a branch on the dtype code, uniform over
+// the grid).
 // Scratch stays int32: between passes the keys live in the (rows, C)
 // scratch and, where `out` is narrower than a key, in a second (rows, C)
 // int32 scratch that takes `out`'s place in the ping-pong; only the last
@@ -107,6 +108,8 @@ using merge_path::DT_FLOAT32;
 using merge_path::DT_INT16;
 using merge_path::DT_INT32;
 using merge_path::DT_INT8;
+using merge_path::DT_UINT16;
+using merge_path::DT_UINT32;
 using merge_path::DT_UINT8;
 using merge_path::ITEMS;
 using merge_path::merge_windows;
@@ -138,13 +141,16 @@ __device__ __forceinline__ float key_float(int k) {
   return __int_as_float(flip_key(k, 1));
 }
 
-// The key of element i of a narrow `code` array, widened on load.
+// The key of element i of a narrow `code` array, widened on load (uint32,
+// 4 bytes but not its own key, takes this path too: its top bit flipped).
 __device__ __forceinline__ int load_key(const void* p, long long i,
                                         int code) {
   switch (code) {
     case DT_INT16: return ((const short*)p)[i];
     case DT_INT8: return ((const signed char*)p)[i];
     case DT_UINT8: return ((const unsigned char*)p)[i];
+    case DT_UINT16: return ((const unsigned short*)p)[i];
+    case DT_UINT32: return (int)(((const unsigned*)p)[i] ^ 0x80000000u);
     case DT_FLOAT16: return float_key(__half2float(((const __half*)p)[i]));
     default: return float_key(__bfloat162float(((const __nv_bfloat16*)p)[i]));
   }
@@ -157,6 +163,8 @@ __device__ __forceinline__ void store_key(void* p, long long i, int k,
     case DT_INT16: ((short*)p)[i] = (short)k; return;
     case DT_INT8: ((signed char*)p)[i] = (signed char)k; return;
     case DT_UINT8: ((unsigned char*)p)[i] = (unsigned char)k; return;
+    case DT_UINT16: ((unsigned short*)p)[i] = (unsigned short)k; return;
+    case DT_UINT32: ((unsigned*)p)[i] = (unsigned)k ^ 0x80000000u; return;
     case DT_FLOAT16: ((__half*)p)[i] = __float2half_rn(key_float(k)); return;
     default: ((__nv_bfloat16*)p)[i] = __float2bfloat16_rn(key_float(k));
   }
@@ -475,7 +483,7 @@ int sort_rows(Exec& ex, const void* x, void* y, long long rows, long long C,
 template <class Exec>
 int run(Exec& ex, const void* x, void* y, int* sc, int* sc2, int* diag,
         long long rows, long long C, int code, cudaStream_t st) {
-  if (code < DT_INT32 || code > DT_BFLOAT16) return (int)cudaErrorInvalidValue;
+  if (code < DT_INT32 || code > DT_UINT32) return (int)cudaErrorInvalidValue;
   const bool floaty = code == DT_FLOAT32 || code == DT_FLOAT16 ||
                       code == DT_BFLOAT16;
   const int pad_key = floaty ? FLOAT_PAD_KEY : INT_MAX;  // key of +inf / BIG
@@ -487,7 +495,7 @@ int run(Exec& ex, const void* x, void* y, int* sc, int* sc2, int* diag,
   while ((1LL << passes) < tiles) ++passes;
   // the keys ping-pong between sc and `ping`: y itself where its elements
   // are 4-byte, else the second scratch; the last pass writes y
-  const bool narrow = code > DT_FLOAT32;
+  const bool narrow = code > DT_FLOAT32 && code != DT_UINT32;
   int* ping = narrow ? sc2 : (int*)y;
   // the tile pass writes the buffer that makes the last pass land in y
   int* src = passes % 2 ? sc : ping;

@@ -37,26 +37,44 @@ enum DType {
   DT_UINT8 = 4,
   DT_FLOAT16 = 5,
   DT_BFLOAT16 = 6,
+  DT_UINT16 = 7,
+  DT_UINT32 = 8,
 };
 
 // An element of type T widened to its 32-bit key type K, exactly, and back:
-// signed integers sign-extend, uint8 zero-extends, float16 and bfloat16
-// convert to float32 (every value of theirs is a float32 value).
+// signed integers sign-extend, uint8 and uint16 zero-extend, uint32 flips
+// its top bit (an order-preserving map onto int), float16 and bfloat16
+// convert to float32 (every value of theirs is a float32 value).  `raw`:
+// the element is its own key, so a copy needs no register (cp.async).
 template <typename T>
 struct Wide {
   using K = int;
+  static constexpr bool raw = sizeof(T) == 4;
   __device__ __forceinline__ static K widen(T v) { return (K)v; }
   __device__ __forceinline__ static T narrow(K k) { return (T)k; }
 };
 template <>
+struct Wide<unsigned int> {
+  using K = int;
+  static constexpr bool raw = false;
+  __device__ __forceinline__ static K widen(unsigned int v) {
+    return (K)(v ^ 0x80000000u);
+  }
+  __device__ __forceinline__ static unsigned int narrow(K k) {
+    return (unsigned int)k ^ 0x80000000u;
+  }
+};
+template <>
 struct Wide<float> {
   using K = float;
+  static constexpr bool raw = true;
   __device__ __forceinline__ static K widen(float v) { return v; }
   __device__ __forceinline__ static float narrow(K k) { return k; }
 };
 template <>
 struct Wide<__half> {
   using K = float;
+  static constexpr bool raw = false;
   __device__ __forceinline__ static K widen(__half v) {
     return __half2float(v);
   }
@@ -67,6 +85,7 @@ struct Wide<__half> {
 template <>
 struct Wide<__nv_bfloat16> {
   using K = float;
+  static constexpr bool raw = false;
   __device__ __forceinline__ static K widen(__nv_bfloat16 v) {
     return __bfloat162float(v);
   }
@@ -91,6 +110,8 @@ int with_dtype(int code, F&& f) {
     case DT_UINT8: return f(Tag<unsigned char>{});
     case DT_FLOAT16: return f(Tag<__half>{});
     case DT_BFLOAT16: return f(Tag<__nv_bfloat16>{});
+    case DT_UINT16: return f(Tag<unsigned short>{});
+    case DT_UINT32: return f(Tag<unsigned int>{});
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -108,13 +129,13 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Element x of a window into its shared-memory slot: 4-byte elements by
-// cp.async (cp.async has no 1- or 2-byte form), the narrow ones through a
-// register, widened.
+// Element x of a window into its shared-memory slot: elements that are
+// their own keys by cp.async (cp.async has no 1- or 2-byte form), the
+// others through a register, widened.
 template <typename T>
 __device__ __forceinline__ void load_slot(typename Wide<T>::K* slot,
                                           const T* g) {
-  if constexpr (sizeof(T) == 4) copy_async(slot, g);
+  if constexpr (Wide<T>::raw) copy_async(slot, g);
   else *slot = Wide<T>::widen(*g);
 }
 

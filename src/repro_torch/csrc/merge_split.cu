@@ -16,8 +16,9 @@
 // `runs[..., 1::2, :]` come in as views, without a copy; out is contiguous.
 //
 // Ties go to a, and comparisons are IEEE in the widened type (merge_path.cuh:
-// int8, int16 and uint8 widen to int32, float16 and bfloat16 to float32,
-// exactly; the output is narrowed back, exactly), so -0.0 == +0.0 and the
+// int8, int16, uint8 and uint16 widen to int32, uint32 maps onto int32 with
+// its top bit flipped, float16 and bfloat16 widen to float32, exactly; the
+// output is narrowed back, exactly), so -0.0 == +0.0 and the
 // result is bit-identical to the plain versions, `merge_split_reference`
 // and `merge_sorted_reference` (searchsorted with side="left").  The
 // keep-low and keep-high halves are computed separately, so a pair may keep
@@ -150,7 +151,7 @@ merge_split_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const T* pb = br + (d0 - a0);
   for (int x = threadIdx.x; x < n_out; x += THREADS)  // coalesced
     load_slot<T>(&s[pad_slot(x)], x < wa ? pa + x : pb + (x - wa));
-  if constexpr (sizeof(T) == 4) copy_async_wait();
+  if constexpr (W::raw) copy_async_wait();
   __syncthreads();
   merge_windows<K>(s, wa, wb);
   T* o = out + row * r.n_row + o0;

@@ -22,32 +22,48 @@ import torch
 from repro_torch.kernels import _device
 
 #: the dtypes the sort kernels take: those the reference's
-#: ``workload("sort")`` sorts and torch can search on the CPU (its
-#: ``searchsorted`` has no kernel for uint16 and uint32)
+#: ``workload("sort")`` sorts
 KEY_DTYPES = (torch.int8, torch.int16, torch.int32, torch.uint8,
-              torch.float16, torch.bfloat16, torch.float32)
-KEY_DTYPE_NAMES = "int8, int16, int32, uint8, float16, bfloat16 or float32"
+              torch.uint16, torch.uint32, torch.float16, torch.bfloat16,
+              torch.float32)
+KEY_DTYPE_NAMES = ("int8, int16, int32, uint8, uint16, uint32, float16, "
+                   "bfloat16 or float32")
 #: each dtype's code in the sort kernels' C entries (``csrc/merge_path.cuh``)
 DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.int16: 2,
                torch.int8: 3, torch.uint8: 4, torch.float16: 5,
-               torch.bfloat16: 6}
+               torch.bfloat16: 6, torch.uint16: 7, torch.uint32: 8}
+
+INT32_MIN = torch.iinfo(torch.int32).min
 
 
 def check_key_dtype(dtype: torch.dtype, what: str) -> None:
     """Raise TypeError unless `dtype` is one of `KEY_DTYPES`."""
-    if dtype in KEY_DTYPES:
-        return
-    why = (" (torch's CPU searchsorted has no kernel for uint16 and uint32, "
-           "so the plain versions cannot take them)"
-           if dtype in (torch.uint16, torch.uint32) else "")
-    raise TypeError(f"{what} sorts {KEY_DTYPE_NAMES}, got {dtype}{why}")
+    if dtype not in KEY_DTYPES:
+        raise TypeError(f"{what} sorts {KEY_DTYPE_NAMES}, got {dtype}")
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """`x` in a dtype that torch compares, searches and gathers on the CPU,
+    exactly: uint16 as int32, uint32 as int64 (torch implements neither
+    comparisons nor ``searchsorted`` for the two); any other dtype as is.
+    Narrow back with ``.to(x.dtype)``."""
+    if x.dtype == torch.uint16:
+        return x.to(torch.int32)
+    if x.dtype == torch.uint32:
+        return x.to(torch.int64)
+    return x
 
 
 def to_key(x: torch.Tensor) -> torch.Tensor:
-    """int32 total-order key of a tensor of a `KEY_DTYPES` dtype."""
+    """int32 total-order key of a tensor of a `KEY_DTYPES` dtype: integers
+    widened, uint32 its bits with the top bit flipped (an order-preserving
+    bijection onto int32), floats their float32 bits with the sign-magnitude
+    map."""
     check_key_dtype(x.dtype, "sort keys")
     if x.dtype == torch.int32:
         return x
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32) ^ INT32_MIN
     if not x.dtype.is_floating_point:
         return x.to(torch.int32)
     k = x.to(torch.float32).view(torch.int32)
@@ -55,10 +71,12 @@ def to_key(x: torch.Tensor) -> torch.Tensor:
 
 
 def from_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of `to_key` (the float map is an involution, and a
-    narrow dtype's values survive the widening exactly)."""
+    """Inverse of `to_key` (the float and uint32 maps are involutions, and
+    a narrow dtype's values survive the widening exactly)."""
     if dtype == torch.int32:
         return k
+    if dtype == torch.uint32:
+        return (k ^ INT32_MIN).view(torch.uint32)
     if not dtype.is_floating_point:
         return k.to(dtype)
     return (k ^ ((k >> 31) & 0x7fffffff)).view(torch.float32).to(dtype)

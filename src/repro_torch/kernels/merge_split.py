@@ -42,7 +42,8 @@ from repro_torch.analysis.launches import (LaunchFacts, OperandFacts,
                                           dtype_name, note, stack_tiles)
 from repro_torch.core.sort import merge_sorted_reference
 from repro_torch.kernels import _build, _device
-from repro_torch.kernels.bitonic_sort import DTYPE_CODES, check_key_dtype
+from repro_torch.kernels.bitonic_sort import (DTYPE_CODES, check_key_dtype,
+                                               widen)
 
 #: threads of a merge block, the outputs each merges, the outputs of a
 #: block; threads of a partition block (one co-rank each); must match
@@ -126,7 +127,8 @@ def merge_split_reference(a: torch.Tensor, b: torch.Tensor,
     keep = keep_vector(keep_low, rows, C, a.device)
     if rows == 0 or C == 0:
         return a.clone()
-    a, b = a.contiguous(), b.contiguous()
+    dtype = a.dtype
+    a, b = widen(a.contiguous()), widen(b.contiguous())
     ar = torch.arange(C, device=a.device)
     k = ar + torch.where(keep, 0, C)[:, None]
     ia = ar + torch.searchsorted(b, a, side="left")
@@ -134,7 +136,8 @@ def merge_split_reference(a: torch.Tensor, b: torch.Tensor,
     ra_c = ra.clamp(max=C - 1)
     is_a = (ra < C) & (torch.gather(ia, 1, ra_c) == k)
     rb = (k - ra).clamp(0, C - 1)
-    return torch.where(is_a, torch.gather(a, 1, ra_c), torch.gather(b, 1, rb))
+    return torch.where(is_a, torch.gather(a, 1, ra_c),
+                       torch.gather(b, 1, rb)).to(dtype)
 
 
 def diag_size(rows: int, n_row: int) -> int:
@@ -329,7 +332,8 @@ def merge_schedule(a: torch.Tensor, b: torch.Tensor, keep_low=None,
     each block gathers its two windows, each of its
     ``block // items`` threads finds its co-rank inside them by a binary
     search and merges ``items`` outputs in turn.  Comparisons are on the
-    widened values (int32, or float32 for the float dtypes).  Equals the
+    widened values (int32, int64 for uint32, float32 for the float
+    dtypes: the kernel's order).  Equals the
     plain versions bit for bit."""
     if keep_low is not None:
         rows, na = _check(a, b)
@@ -347,7 +351,8 @@ def merge_schedule(a: torch.Tensor, b: torch.Tensor, keep_low=None,
     out = torch.empty((rows, n_row), dtype=a.dtype, device=a.device)
     if rows == 0 or n_row == 0:
         return out
-    wide = torch.float32 if a.dtype.is_floating_point else torch.int32
+    wide = (torch.float32 if a.dtype.is_floating_point else
+            torch.int64 if a.dtype == torch.uint32 else torch.int32)
     fa, fb = _storage_view(a).to(wide), _storage_view(b).to(wide)
     dev = a.device
     I = lambda v: torch.as_tensor(v, dtype=torch.int64, device=dev)  # noqa
@@ -398,8 +403,9 @@ def merge_schedule(a: torch.Tensor, b: torch.Tensor, keep_low=None,
     # the staged, coalesced store of the real outputs, narrowed
     keep = real.reshape(-1)
     dest = (g_row * n_row + o0)[:, None] + x
-    out.view(-1)[dest.reshape(-1)[keep]] = staged.reshape(-1)[keep].to(a.dtype)
-    return out
+    wout = torch.empty((rows, n_row), dtype=wide, device=dev)
+    wout.view(-1)[dest.reshape(-1)[keep]] = staged.reshape(-1)[keep]
+    return wout.to(a.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,85 @@
+"""Shared model building blocks: init helpers, RMSNorm, RoPE, SwiGLU MLP.
+
+The counterpart of `repro/models/common.py`.  Parameters are plain dicts
+of tensors, the reference's pytree: initialised from an explicit
+`torch.Generator` (its numbers differ from ``jax.random``'s; parity runs
+on parameters converted from the reference, `convert.lm_params_from_reference`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+
+def dt(cfg: ArchConfig) -> torch.dtype:
+    """The activation dtype."""
+    return getattr(torch, cfg.dtype)
+
+
+def pdt(cfg: ArchConfig) -> torch.dtype:
+    """The parameter dtype."""
+    return getattr(torch, cfg.param_dtype)
+
+
+def ninit(gen: torch.Generator, shape, dtype, scale: float = 0.02):
+    """Scaled standard normals of `shape`, drawn in float32 on the
+    generator's device, cast to `dtype`."""
+    return (scale * torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=gen.device)).to(dtype)
+
+
+def out_scale(cfg: ArchConfig) -> float:
+    """The init scale of an output projection: mild depth scaling."""
+    return 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5) * 50
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x, scale, eps: float):
+    """RMSNorm in fp32, cast back to the input dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+def rope(x, positions, theta: float):
+    """Apply rotary embedding. x: (..., S, H, hd); positions: (S,) or (B, S).
+
+    The frequencies are computed in float32, as the reference computes
+    them (``log(theta) / half`` a float32 constant on the host)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    step = float(np.log(np.float32(theta)) / np.float32(half))
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) * step)
+    angles = positions.float()[..., None] * freqs        # (..., S, half)
+    angles = angles[..., None, :]                        # over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff=None):
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_gate": ninit(gen, (D, Fd), pdt(cfg)),
+            "w_up": ninit(gen, (D, Fd), pdt(cfg)),
+            "w_down": ninit(gen, (Fd, D), pdt(cfg), out_scale(cfg))}
+
+
+def apply_mlp(p, x, cfg: ArchConfig):
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"].to(x.dtype)

@@ -1,0 +1,123 @@
+"""LM: embedding + superblock stack + head; prefill and decode.
+
+The counterpart of `repro/models/model.py`, for token LMs whose members are
+ported (dense attention + MLP stacks, `blocks.check_ported`).  Parameters
+are the reference's pytree as a dict of tensors (`init`, or
+`convert.lm_params_from_reference`); every method takes them explicitly,
+as the reference's do, and runs where they lie.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks
+from repro_torch.models.common import dt, ninit, pdt, rmsnorm
+
+
+class LM(nn.Module):
+    """A decoder-only LM over tokens or precomputed frontend embeddings.
+
+    ``flash``: prefill attention through the `flash_attention` kernel on
+    the card (the default); False runs the plain chunked form there too,
+    the yardstick the card check holds the kernel's logits to.  On the
+    CPU the plain form runs either way.
+    """
+
+    def __init__(self, cfg: ArchConfig, flash: bool = True):
+        super().__init__()
+        blocks.check_ported(cfg)
+        self.cfg = cfg
+        self.flash = flash
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator):
+        """Parameters drawn from `gen`, on the generator's device."""
+        cfg = self.cfg
+        params = {"stack": blocks.init_stack(gen, cfg),
+                  "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                           device=gen.device),
+                  "head": {"head_w": ninit(gen, (cfg.d_model,
+                                                 cfg.vocab_padded), pdt(cfg))}}
+        if cfg.embed_input:
+            params["embed"] = {"tok_embed": ninit(
+                gen, (cfg.vocab_padded, cfg.d_model), pdt(cfg))}
+        return params
+
+    # ----------------------------------------------------------------- embed
+    def _embed(self, params, batch):
+        if self.cfg.embed_input:
+            return params["embed"]["tok_embed"][batch["tokens"]].to(
+                dt(self.cfg))
+        return batch["embeds"].to(dt(self.cfg))
+
+    def _head(self, params, x):
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return x @ params["head"]["head_w"].to(x.dtype)
+
+    def _stack(self, params, batch, build_cache: bool, cache_len):
+        x = self._embed(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        return blocks.apply_stack(params["stack"], x, cfg=self.cfg,
+                                  positions=positions,
+                                  build_cache=build_cache,
+                                  cache_len=cache_len, flash=self.flash)
+
+    # --------------------------------------------------------------- forward
+    def forward(self, params, batch, build_cache: bool = False,
+                cache_len=None):
+        """Returns (logits (B, S, Vp), caches_or_None, aux); aux is the
+        MoE load-balancing loss, 0 for the ported members."""
+        x, caches = self._stack(params, batch, build_cache, cache_len)
+        return (self._head(params, x), caches,
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def prefill(self, params, batch, max_len=None):
+        """(last-position logits (B, Vp), caches sized for `max_len`).  The
+        head runs on the last position only: the reference computes every
+        position's logits and keeps the last, the same per-row product."""
+        x, caches = self._stack(params, batch, True, max_len)
+        return self._head(params, x[:, -1:])[:, 0], caches
+
+    def decode_step(self, params, caches, batch, pos):
+        """One token per row; ``pos`` is a scalar (one shared clock) or a
+        (B,) vector of per-slot position clocks (continuous batching: each
+        row decodes at its own position).  Returns (logits (B, Vp),
+        caches'): `caches` written in place (`blocks.decode_stack`)."""
+        x = self._embed(params, batch)
+        x, new_caches = blocks.decode_stack(params["stack"], caches, x, pos,
+                                            cfg=self.cfg)
+        return self._head(params, x)[:, 0], new_caches
+
+    def decode_pages(self, params, caches, batch, positions, write_mask):
+        """Page-stepped prefill: S new tokens per row written into the
+        decode cache at ``positions`` (B, S), cache commits gated by
+        ``write_mask`` (B, S) -- pad positions and non-refilling rows
+        compute but never write.  Page p of a row attends only to cache
+        entries at positions < its own, so a page's K/V content is a pure
+        function of the row's earlier pages.  Returns (logits (B, S, Vp),
+        caches'): `caches` written in place."""
+        x = self._embed(params, batch)
+        x, new_caches = blocks.decode_stack(params["stack"], caches, x,
+                                            positions, cfg=self.cfg,
+                                            write_mask=write_mask)
+        return self._head(params, x), new_caches
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch_size: int, max_len: int, device="cuda"):
+        """Empty decode cache (the structure prefill builds): zero K/V and
+        every slot's position -1, on `device`."""
+        cfg = self.cfg
+        nsb = blocks.num_superblocks(cfg)
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+
+        def member_cache():
+            kv = (nsb, batch_size, max_len, KV, hd)
+            return {"k": torch.zeros(kv, dtype=dt(cfg), device=device),
+                    "v": torch.zeros(kv, dtype=dt(cfg), device=device),
+                    "kpos": torch.full((nsb, batch_size, max_len), -1,
+                                       dtype=torch.int32, device=device)}
+
+        return {f"m{i}": member_cache()
+                for i in range(len(blocks.superblock_spec(cfg)))}

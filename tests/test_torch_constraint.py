@@ -120,7 +120,7 @@ def test_one_home_sort_matches_jax_on_one_device(case):
 
 
 # ---------------------------------------------------------------------------
-# the narrow dtypes: int8, int16, uint8, float16, bfloat16
+# the narrow dtypes: int8, int16, uint8, uint16, uint32, float16, bfloat16
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
 @pytest.mark.parametrize("case", [1, 4, 8])
@@ -147,12 +147,19 @@ def test_one_device_sort_of_narrow_dtypes_matches_jax(dtype):
                                       err_msg=f"case {case} {backend}")
 
 
-def test_sort_of_uint16_raises_a_clear_type_error():
-    x = torch.arange(100, dtype=torch.int32).to(torch.uint16)
+@pytest.mark.parametrize("dtype", ["uint16", "uint32"])
+def test_unsigned_sort_on_8_homes_matches_jax(dtype):
+    """uint16 and uint32 (values at and above 2^15 / 2^31 included) through
+    both backends on 8 CPU homes, bit for bit the reference's sort."""
+    jx, tx = narrow_input(dtype, 60)
+    assert int(np.asarray(jx).max()) > np.iinfo(dtype).max // 2
+    ref = JLocale(policy=jax_policy(8)).workload("sort")(jx)
     for backend in ("constraint", "shard_map"):
-        with pytest.raises(TypeError, match="uint16 and uint32"):
-            Locale(HomeMesh({"data": 8}, device="cpu"), "data").workload(
-                "sort", backend=backend)(x)
+        got = Locale(HomeMesh({"data": 8}, device="cpu"), "data").workload(
+            "sort", backend=backend)(tx)
+        assert got.dtype == tx.dtype
+        np.testing.assert_array_equal(nbits(got), nbits(ref),
+                                      err_msg=backend)
 
 
 # ---------------------------------------------------------------------------

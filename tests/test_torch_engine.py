@@ -225,7 +225,8 @@ def test_engine_matches_jax_one_device_engine(loc, homing, local_phase):
 @pytest.mark.parametrize("dtype", NARROW_SORT_DTYPES)
 def test_engine_of_narrow_dtypes_matches_jax_one_device_engine(dtype,
                                                                local_phase):
-    """int8, int16, uint8, float16 and bfloat16 through both local phases
+    """int8, int16, uint8, uint16, uint32, float16 and bfloat16 through
+    both local phases
     (the merge-split network and the merge tree of the reference phase)."""
     ours, theirs = local_phase
     ndev = len(jax.devices())

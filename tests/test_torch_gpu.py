@@ -425,11 +425,13 @@ def test_mutant_kernel_matches_plain_on_card(kind):
 PLAN_CASES = {
     "local_sort": [(8, 1000, "int32"), (3, 3 * TILE + 7, "float32"),
                    (3, 37 * TILE + 11, "int32"), (3, 5 * TILE + 3, "int8"),
-                   (2, 300, "bfloat16")],
+                   (2, 300, "bfloat16"), (3, 3 * TILE + 7, "uint32"),
+                   (2, 3 * TILE + 1, "uint16")],
     # merge_split (keep modes), then merge_runs (full mode, strided probe)
     "merge_split": [(8, 5000, "int32"), (16, 2049, "float32"),
                     (2, 9000, "uint8"), (4, 3000, "bfloat16", 7000),
-                    (3, 100, "int8", 0), (2, 5 * 8192 + 17, "float16", 9)],
+                    (3, 100, "int8", 0), (2, 5 * 8192 + 17, "float16", 9),
+                    (2, 9000, "uint32"), (2, 300, "uint16", 77)],
     "localised_copy": [(1003, 3, "bfloat16", True), (4097, 1, "float32",
                                                      False)],
     "flash_attention": [(1, 4, 2, 200, 200, 32, 64, 64, True, 0, "float32"),
@@ -459,3 +461,84 @@ def test_python_plan_equals_c_plan_and_probe(kernel):
         probe = coverage_probe((mod.__name__, args))
         assert all(p["mismatches"] == 0 for p in probe.values()), (args,
                                                                    probe)
+
+
+# ---------------------------------------------------------------------------
+# the serving slice: the model's prefill through the kernel, the server
+# ---------------------------------------------------------------------------
+#: the prefill's logits through the kernel against the plain chunked form,
+#: as the largest difference over the largest |logit|, at two layers (the
+#: kernel's P is a bf16 hi + lo pair where the chunked form rounds it
+#: once; float32 differs only in the order of the sums).  chip_smoke.py's
+#: LOGIT_TOL holds the full-width model, with planted faults beside it
+LOGIT_TOL = {"bfloat16": 2.0 ** -4, "float32": 2.0 ** -12}
+
+
+def _serving_model(dtype: str, layers: int = 2):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import LM
+    cfg = reduce_config(get_config("qwen3-0.6b"), layers=layers).replace(
+        dtype=dtype, param_dtype=dtype)
+    return cfg, LM(cfg).init(torch.Generator().manual_seed(3))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_prefill_through_kernel_matches_plain_chunked_on_card(dtype):
+    """`LM.prefill` on the card runs `flash_attention` once a layer, and
+    its logits stay within `LOGIT_TOL` of the plain chunked form's."""
+    _need_card()
+    from repro_torch.models import LM
+    cfg, params = _serving_model(dtype)
+    params = _to(params, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 77))).cuda()
+    ops.reset_launches()
+    got, caches = LM(cfg).prefill(params, {"tokens": toks}, max_len=96)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    want, plain_caches = LM(cfg, flash=False).prefill(
+        params, {"tokens": toks}, max_len=96)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= LOGIT_TOL[dtype] * float(want.float().abs().max()), err
+    assert torch.equal(caches["m0"]["kpos"], plain_caches["m0"]["kpos"])
+
+
+@pytest.mark.gpu
+def test_decode_server_on_card_matches_cpu():
+    """A reduced float32 server on the card: the CPU's tokens in both modes,
+    paged tokens equal across the policies, one `flash_attention` launch a
+    layer for each aligned prefill wave and none in the paged mode."""
+    _need_card()
+    from repro_torch.convert import make_serve_stream
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg, params = _serving_model("float32")
+    reqs = make_serve_stream(12, cfg.vocab_size, (3, 30), sessions=3,
+                             new_tokens=(2, 6), slots=4, seed=1, prefix=8)
+    homed = Locale(HomeMesh({"data": 2}), "data")
+    cpu_homed = Locale(HomeMesh({"data": 2}, device="cpu"), "data")
+    for pad in (None, 32):
+        outs = {}
+        for device, loc in (("cuda", homed), ("cpu", cpu_homed)):
+            for policy in ("fifo", "homed"):
+                srv = DecodeServer(cfg, _to(params, device), batch_slots=4,
+                                   max_len=48, locale=loc, scheduler=policy,
+                                   prompt_pad=pad, page_size=8 if pad else None)
+                for d in reqs:
+                    srv.submit(Request(**d))
+                ops.reset_launches()
+                outs[device, policy] = {r.rid: r.out for r in srv.run()}
+                flash = ops.launch_counts()["flash_attention"]
+                waves = srv.scheduler.stats.waves
+                if device == "cuda":
+                    assert flash == (0 if pad else cfg.num_layers * waves)
+        assert outs["cuda", "fifo"] == outs["cpu", "fifo"]
+        assert outs["cuda", "homed"] == outs["cpu", "homed"]
+        if pad:
+            assert outs["cuda", "fifo"] == outs["cuda", "homed"]

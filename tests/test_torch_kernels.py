@@ -271,13 +271,29 @@ def test_merge_sorted_takes_the_narrow_dtypes_like_reference(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["uint16", "uint32"])
-def test_sort_dtypes_torch_cannot_search_raise_type_error(dtype):
-    x = torch.zeros((2, 8), dtype=getattr(torch, dtype))
-    for call in (lambda: ops.local_sort(x), lambda: ops.bitonic_sort(x),
-                 lambda: ops.merge_split(x, x, True),
-                 lambda: ops.merge_runs(x, x), lambda: merge_sorted(x, x)):
-        with pytest.raises(TypeError, match="searchsorted has no kernel"):
-            call()
+def test_unsigned_sort_dtypes_match_numpy_above_the_signed_range(dtype):
+    """uint16 and uint32 keys at and above 2^15 / 2^31 (where a signed view
+    would order them first): every wrapper and `merge_sorted` agree with
+    numpy's sort and merge, bit for bit."""
+    top = np.iinfo(dtype).max
+    x = np.asarray([top, 0, top // 2 + 1, top // 2, 1, top - 1, top // 2 + 2,
+                    7], dtype=dtype).reshape(1, 8).repeat(2, axis=0)
+    x[1] = x[1, ::-1]
+    t = torch.from_numpy(x)
+    want = np.sort(x, axis=-1)
+    for got in (ops.local_sort(t), ops.bitonic_sort(t),
+                local_sort.local_sort_schedule(t, tile=4, block=2)):
+        assert got.dtype == t.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    a, b = torch.from_numpy(want[:1]), torch.from_numpy(want[1:])
+    both = np.sort(np.concatenate([want[0], want[1]]))
+    for got in (ops.merge_runs(a, b), merge_sorted(a, b),
+                merge_schedule(a, b, None, block=4, items=2)):
+        np.testing.assert_array_equal(got.numpy()[0], both)
+    np.testing.assert_array_equal(ops.merge_split(a, b, True).numpy()[0],
+                                  both[:8])
+    np.testing.assert_array_equal(ops.merge_split(a, b, False).numpy()[0],
+                                  both[8:])
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +304,7 @@ def _pair_buffer(dtype: str, rows: int, width: int, seed: int):
     (floats) zeros of both signs; the strided views ``[:, 0]`` and
     ``[:, 1]`` are the runs the tree passes."""
     rng = np.random.default_rng(seed)
-    lo = 0 if dtype == "uint8" else -6
+    lo = 0 if dtype.startswith("uint") else -6
     x = rng.integers(lo, 6, size=(rows, 2, width)).astype(np.float32)
     if dtype in ("float16", "bfloat16", "float32"):
         x[x == 0] = np.where(rng.random(int((x == 0).sum())) < 0.5, -0.0, 0.0)
