@@ -80,7 +80,19 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 with the attention phase's two planted faults in the
                 kernel's place (outside it), and the costs of a wave:
                 prefill, a decode step, the `pin_tree` copy of the cache;
-  8c. dtypes  — int8, int16, uint8, uint16, uint32, float16 and bfloat16
+  8c. train   — training at qwen3-0.6b's full width in bf16 through
+                `Trainer` on the card (remat, the plain chunked attention,
+                AdamW), batch 2 x 4096 tokens, in a child process under
+                `torch.use_deterministic_algorithms(True)`: 12 steps with a
+                checkpoint at step 6, then a second trainer resumed from it
+                whose losses must equal the straight run's within rtol
+                1e-5; the loss must fall; no kernel of the port launches
+                (the kernel has no backward pass, and `LM(cfg)` with it
+                must raise under autograd); step time (CUDA events and the
+                host clock), tokens/s, the model-FLOPs share of the bf16
+                peak, peak memory, one step's busy time by part
+                (`torch.profiler`), the checkpoint's bytes and seconds;
+  8d. dtypes  — int8, int16, uint8, uint16, uint32, float16 and bfloat16
                 through both backends on {"data": 8} at n = 2^24 + 5:
                 equal to torch.sort's values, and bit for bit the CPU
                 port's result, computed after the analysis phase, so that
@@ -91,7 +103,8 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 element by element one of their two writers, with the
                 winners counted over 100 launches), the rules on each
                 mutant's recorded launch (the reference's findings by rule,
-                severity and kind), `check_workload` clean on the card for
+                severity and kind), their times beside the card's least
+                launch time (a one-element add_ in a CUDA graph), `check_workload` clean on the card for
                 both sort backends and the engine on {"data": 8} and
                 {"pod": 2, "data": 4}, the microbench and the attention
                 cells; the rules again over every launch recorded in the
@@ -114,9 +127,11 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -1345,7 +1360,7 @@ def device_busy_ms(fn) -> float:
 
 def phase_serve(seed: int) -> dict:
     """The serving stack at qwen3-0.6b full width (see the module
-    docstring, 8c)."""
+    docstring, 8b)."""
     import torch.nn.functional as F
     from repro_torch.analysis import record
     from repro_torch.configs import get_config
@@ -1369,6 +1384,10 @@ def phase_serve(seed: int) -> dict:
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
+    # serving needs no gradient: LM.init's tensors do not require grad, so
+    # the kernel's autograd guard never fires on this path
+    need(not any(t.requires_grad for t in tree_leaves(params)),
+         "serve: LM.init's parameters require grad")
     out = {"arch": SERVE_ARCH, "params": n_params,
            "init_s": time.perf_counter() - t0, "runs": {}}
     locale = Locale(HomeMesh({"data": 8}), "data")
@@ -1645,6 +1664,286 @@ def phase_serve(seed: int) -> dict:
     return out
 
 
+#: the train phase: qwen3-0.6b at full width in bf16 (remat on, the plain
+#: chunked attention: the kernel has no backward pass) through `Trainer` on
+#: the card, at the sequence length of the reference's ``train_4k`` shape
+#: with its global batch cut from 256 to 2 (8192 tokens a step: one card,
+#: and the phase's time); 12 steps with a checkpoint at step 6, then a
+#: second trainer resumes from it.  Both run in a child process with
+#: ``torch.use_deterministic_algorithms(True)`` (the embedding's backward
+#: accumulates with atomics otherwise), which needs CUBLAS_WORKSPACE_CONFIG
+#: before CUDA starts, and keeps the setting out of the other phases
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "qwen3-0.6b", 4096, 2
+#: a peak LR above `TrainerConfig`'s 3e-4: at 3e-4 twelve steps of two
+#: rows each left the loss within its batch-to-batch spread (H100, seed 0:
+#: 12.138 -> 12.174)
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_WARMUP, TRAIN_LR = 12, 6, 2, 1e-3
+#: the resumed run's losses against the straight run's: the reference's own
+#: resume bound (tests/test_runtime.py)
+TRAIN_RESUME_RTOL = 1e-5
+TRAIN_TIMEOUT_S = 600
+BF16_OPS_PER_S = 989e12           # H100 SXM bf16 dense, tensor cores
+
+
+def train_flops(cfg, B: int, S: int) -> dict:
+    """Model FLOPs of one train step: 6 x the matmul parameters (the
+    projections, the MLP and the head; not the embedding's gather) x the
+    tokens, plus causal attention's two products, 2 x 2 x B H S^2 hd a
+    layer forward halved by the causal mask, x 3 for forward and
+    backward."""
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, Fd, Vp = cfg.num_layers, cfg.d_ff, cfg.vocab_padded
+    n_matmul = L * (D * H * hd + 2 * D * KV * hd + H * hd * D + 3 * D * Fd) \
+        + D * Vp
+    matmul = 6 * n_matmul * B * S
+    attention = 3 * L * 2 * B * H * S * S * hd
+    return {"n_matmul": n_matmul, "tokens": B * S, "matmul": matmul,
+            "attention": attention, "total": matmul + attention,
+            "formula": "6 * n_matmul * tokens + 6 * L * B * H * S^2 * hd"}
+
+
+def train_child(seed: int) -> dict:
+    """The train phase's runs on the card (see `phase_train`): a straight
+    run of `TRAIN_STEPS` steps, a resumed run from its step-6 checkpoint,
+    the busy time of one step by part, the flash guard."""
+    import shutil
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM, steps
+    from repro_torch.runtime import trainer as trainer_mod
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves as ordered_leaves
+    from repro_torch.tree import tree_unflatten
+
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(TRAIN_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    writes, reads = [], []
+    real_save, real_restore = ckpt_mod.save, trainer_mod.restore
+
+    def timed(fn, into):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            into.append(time.perf_counter() - t0)
+            return r
+        return call
+
+    def trainer(tag):
+        tr = Trainer(cfg, TrainerConfig(
+            steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            ckpt_dir=tmp, ckpt_every=TRAIN_CKPT_AT, log_every=1, seed=seed,
+            warmup=TRAIN_WARMUP, lr=TRAIN_LR, device="cuda",
+            metrics_path=os.path.join(tmp, f"{tag}.json")))
+        inner, times, copies = tr.step_fn, [], []
+
+        def step_fn(params, opt_state, batch, accept=None):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            r = inner(params, opt_state, batch, accept)
+            b.record()
+            torch.cuda.synchronize()
+            times.append((a, b, time.perf_counter() - t0))
+            return r
+        tr.step_fn = step_fn
+        maybe_save = tr.ckpt.maybe_save
+
+        def timed_save(*a, **kw):       # the blocking part: the host copy
+            t0 = time.perf_counter()
+            saved = maybe_save(*a, **kw)
+            if saved:
+                copies.append(time.perf_counter() - t0)
+            return saved
+        tr.ckpt.maybe_save = timed_save
+        return tr, times, copies
+
+    def log_of(tag):
+        with open(os.path.join(tmp, f"{tag}.json")) as f:
+            return json.load(f)
+
+    out = {"arch": TRAIN_ARCH, "global_batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "deterministic": torch.are_deterministic_algorithms_enabled(),
+           "flops": train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)}
+    try:
+        with mock.patch.object(ckpt_mod, "save", timed(real_save, writes)), \
+                mock.patch.object(trainer_mod, "restore",
+                                  timed(real_restore, reads)):
+            tr, times, copies = trainer("straight")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = tr.run()
+            out["straight_s"] = time.perf_counter() - t0
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["launches"] = {k: v for k, v in ops.launch_counts().items()
+                               if v}
+            leaves = tree_leaves(res["params"])
+            out["params"] = sum(t.numel() for t in leaves)
+            out["param_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in leaves)
+            last = os.path.join(tmp, f"step_{TRAIN_STEPS:08d}")
+            out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(last, f))
+                                    for f in os.listdir(last))
+            out["ckpt_files"] = len(os.listdir(last))
+            out["straight"] = log_of("straight")
+            # the loss of step 1's batch before and after the run, the
+            # same batch both times (the logged losses are of 12 batches)
+            first = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed,
+                                device="cuda").batch(0)
+            loss_of = steps.make_loss_fn(tr.model, cfg)
+            with torch.no_grad():
+                init = tr.model.init(torch.Generator(
+                    device=tr.device).manual_seed(seed))
+                out["batch0_loss"] = [float(loss_of(p, first)[1])
+                                      for p in (init, res["params"])]
+            del init, first
+            out["step_ms"] = [a.elapsed_time(b) for a, b, _ in times]
+            out["step_host_ms"] = [h * 1e3 for _, _, h in times]
+            out["save_host_copy_s"] = list(copies)
+            del res, tr, leaves
+            torch.cuda.empty_cache()
+            shutil.rmtree(last)          # the second trainer resumes at 6
+            tr, times, _ = trainer("resumed")
+            t0 = time.perf_counter()
+            res = tr.run()
+            out["resumed_s"] = time.perf_counter() - t0
+            out["resumed"] = log_of("resumed")
+            out["resumed_step_ms"] = [a.elapsed_time(b) for a, b, _ in times]
+            out["save_write_s"], out["restore_s"] = list(writes), list(reads)
+
+        # one more step, by part, each part under its own profiler session
+        params = res["params"]
+        opt_state = steps.init_opt_state(cfg, tr.opt, params)
+        batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed,
+                            device="cuda").batch(TRAIN_STEPS)
+        leaves = ordered_leaves(params)        # tree_unflatten's order
+        ctx = {}
+
+        def forward():
+            with torch.enable_grad():
+                ctx["logits"] = tr.model.forward(params, batch)[0]
+
+        def loss():
+            with torch.enable_grad():
+                ctx["loss"] = steps.token_nll(ctx.pop("logits"),
+                                              batch["targets"],
+                                              cfg.vocab_size)
+
+        def backward():
+            ctx["grads"] = tree_unflatten(params, torch.autograd.grad(
+                ctx.pop("loss"), leaves))
+
+        def optimizer():
+            tr.opt.update(ctx.pop("grads"), opt_state["adam"], params)
+
+        out["busy_ms"] = {name: device_busy_ms(fn) for name, fn in (
+            ("forward", forward), ("loss", loss),
+            ("backward_with_recompute", backward), ("optimizer", optimizer))}
+        out["busy_ms"]["whole_step"] = device_busy_ms(
+            lambda: tr.step_fn(params, opt_state, batch))
+
+        # the guard: LM(cfg) (flash=True) under autograd must raise
+        small = {k: v[:1, :128] for k, v in batch.items()}
+        ops.reset_launches()
+        try:
+            steps.make_loss_fn(LM(cfg), cfg)(params, small)
+            out["guard"] = "did not raise"
+        except RuntimeError as e:
+            out["guard"] = str(e)
+        out["guard_launches"] = ops.launch_counts()["flash_attention"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_train(seed: int, smi: str) -> dict:
+    """Training at qwen3-0.6b full width (see the module docstring, 8c):
+    the runs in a child process (`train_child`), checked here."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()          # the child needs ~33 GB of the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        path = os.path.join(d, "train.json")
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--train-child", path, "--seed", str(seed)],
+                           env=env, timeout=TRAIN_TIMEOUT_S)
+        need(r.returncode == 0, f"train: the child process exited "
+                                f"{r.returncode}")
+        with open(path) as f:
+            out = json.load(f)
+    out["seconds"] = time.perf_counter() - t_phase
+    cfg_flops = out["flops"]
+    straight = {rec["step"]: rec["loss"] for rec in out["straight"]}
+    resumed = {rec["step"]: rec["loss"] for rec in out["resumed"]}
+    need(sorted(straight) == list(range(1, TRAIN_STEPS + 1)),
+         f"train: the straight run logged steps {sorted(straight)}")
+    need(sorted(resumed) == list(range(TRAIN_CKPT_AT + 1, TRAIN_STEPS + 1)),
+         f"train: the resumed run logged steps {sorted(resumed)} (it must "
+         f"resume at step {TRAIN_CKPT_AT})")
+    rel = max(abs(resumed[s] - straight[s]) / abs(straight[s])
+              for s in resumed)
+    out["resume_max_rel"] = rel
+    finite = all(math.isfinite(v) for v in list(straight.values())
+                 + list(resumed.values()))
+    timed = out["step_ms"][2:]
+    host = out["step_host_ms"][2:]
+    med, med_host = statistics.median(timed), statistics.median(host)
+    out.update(
+        step_ms_median=med, step_host_ms_median=med_host,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (med_host / 1e3),
+        mfu=cfg_flops["total"] / (med / 1e3) / BF16_OPS_PER_S,
+        peak_above_params=out["peak_bytes"] - out["param_bytes"])
+    say(f"phase train: {TRAIN_ARCH} bf16 ({out['params']} parameters, "
+        f"{out['param_bytes']} B), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"remat, plain chunked attention, deterministic algorithms "
+        f"{out['deterministic']}; {smi}: step {med:.1f} ms median of steps "
+        f"3-{TRAIN_STEPS} by CUDA events, {med_host:.1f} ms by the host "
+        f"clock, {out['tokens_per_s']:.0f} tokens/s, model FLOPs "
+        f"{cfg_flops['total']:.4g} a step ({cfg_flops['formula']}: "
+        f"n_matmul {cfg_flops['n_matmul']}, matmuls "
+        f"{cfg_flops['matmul']:.4g}, attention {cfg_flops['attention']:.4g})"
+        f" = {100 * out['mfu']:.2f} % of {BF16_OPS_PER_S:.3g} FLOP/s bf16; "
+        f"peak {out['peak_bytes']} B, {out['peak_above_params']} B above the "
+        f"parameters; launches of the port's kernels {out['launches']}")
+    say(f"phase train busy ({smi}): one step's kernel time by part from "
+        f"torch.profiler, ms " + json.dumps(
+            {k: round(v, 3) for k, v in out["busy_ms"].items()}))
+    say(f"phase train checkpoint ({smi}): {out['ckpt_bytes']} B in "
+        f"{out['ckpt_files']} files; host copy s "
+        f"{[round(v, 3) for v in out['save_host_copy_s']]}, writes s "
+        f"{[round(v, 3) for v in out['save_write_s']]}, restore s "
+        f"{[round(v, 3) for v in out['restore_s']]}")
+    say(f"phase train losses ({smi}): straight "
+        + json.dumps([round(straight[s], 5) for s in sorted(straight)])
+        + f"; resumed from step {TRAIN_CKPT_AT} "
+        + json.dumps([round(resumed[s], 5) for s in sorted(resumed)])
+        + f", largest relative difference {rel:.3g} (rtol "
+        f"{TRAIN_RESUME_RTOL}); step 1's batch before and after the run "
+        f"{out['batch0_loss'][0]:.5f} -> {out['batch0_loss'][1]:.5f}; "
+        f"guard: {out['guard']!r} with {out['guard_launches']} launches; "
+        f"phase {out['seconds']:.1f} s")
+    need(finite, "train: a loss is not finite")
+    need(straight[TRAIN_STEPS] < straight[1],
+         f"train: the loss went {straight[1]} -> {straight[TRAIN_STEPS]}")
+    before, after = out["batch0_loss"]
+    need(after < before, f"train: step 1's batch's loss went {before} -> "
+                         f"{after} over the run")
+    need(rel <= TRAIN_RESUME_RTOL, f"train: the resumed run's losses differ "
+                                   f"from the straight run's by {rel}")
+    need(not out["launches"], f"train: the training path launched the "
+                              f"port's kernels {out['launches']}")
+    need("no backward pass" in out["guard"] and out["guard_launches"] == 0,
+         f"train: LM(cfg) with flash under autograd: {out['guard']}")
+    return out
+
+
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -1729,6 +2028,8 @@ def phase_analysis(seed: int, full_width: dict) -> dict:
         reports[kind] = run_rules(launches)[0]
     torch.cuda.synchronize()
     counted = ops.launch_counts()
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(lambda: one.add_(1.0))
     for kind, fn in fixtures.MUTANTS.items():
         need(counted[fn.__name__] == 1,
              f"analysis: {fn.__name__} launches {counted}")
@@ -1775,8 +2076,13 @@ def phase_analysis(seed: int, full_width: dict) -> dict:
             plain_ms=cuda_ms(lambda: fixtures.mutant_reference(kind, x),
                              reps=20),
             bound_ms=(grid + rows) * cols * 4 / HBM_BYTES_PER_S * 1e3,
+            floor_ms=floor_ms,
             findings=[f.format() for f in reports[kind].findings])
         out["mutants"][kind] = rec
+    say(f"phase analysis kernel floor: a one-element torch add_ in a CUDA "
+        f"graph {floor_ms:.5f} ms a launch ({smi_line()}): the least time "
+        f"any launch takes on this card, the floor under the mutants' byte "
+        f"bounds")
     say("phase analysis mutants: (4, 128) f32 on the card, findings "
         + json.dumps({k: signature(r) for k, r in reports.items()})
         + "; ms per launch in a CUDA graph / per launch from the host / "
@@ -1879,7 +2185,8 @@ def phase_analysis(seed: int, full_width: dict) -> dict:
         ms=out["mutants"][kind]["ms"],
         plain_ms=out["mutants"][kind]["plain_ms"],
         bound_ms=out["mutants"][kind]["bound_ms"], bound_by="bytes",
-        library_ms=None, mismatches=out["mutants"][kind]["mismatches"])
+        floor_ms=floor_ms, library_ms=None,
+        mismatches=out["mutants"][kind]["mismatches"])
         for kind, fn in fixtures.MUTANTS.items()]
     return out
 
@@ -1888,6 +2195,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write every number to this JSON file")
+    ap.add_argument("--train-child", metavar="PATH", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     need(torch.cuda.is_available(), "no CUDA device: the port's kernels "
@@ -1896,6 +2204,9 @@ def main(argv=None) -> int:
          f"no src/repro_torch beside {Path(__file__).name}: run it from a "
          f"checkout of the repo")
     sys.path.insert(0, str(SRC))
+    if args.train_child:                 # the train phase's child process
+        Path(args.train_child).write_text(json.dumps(train_child(args.seed)))
+        return 0
     from repro_torch.core import LocalisationPolicy
     from repro_torch.kernels import _build, ops
 
@@ -1928,6 +2239,7 @@ def main(argv=None) -> int:
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
     serve = phase_serve(args.seed)
+    train = phase_train(args.seed, smi)
     dtypes = phase_dtypes(args.seed)
     full_width = {
         "flagship": flat.pop("recorded") + hier.pop("recorded")
@@ -1961,6 +2273,7 @@ def main(argv=None) -> int:
     rows += analysis.pop("lines")
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
+             "floor_ms",
              *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
@@ -1969,7 +2282,8 @@ def main(argv=None) -> int:
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
              "engine": engine, "flat": flat, "hier": hier,
              "constraint": constraint, "fig1": fig1, "attention": attention,
-             "serve": serve, "dtypes": dtypes, "analysis": analysis},
+             "serve": serve, "train": train, "dtypes": dtypes,
+             "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))
     say(smi)

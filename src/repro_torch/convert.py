@@ -6,7 +6,8 @@ has to import the other; the tests hand the reference's numpy outputs in.
 `make_sort_data`, `grid_rows`, `make_fig1_data`, `make_attention_inputs`
 and `make_serve_stream` make the inputs that the tests and
 ``chip_smoke.py`` feed to both sides; `lm_params_from_reference` carries a
-reference `LM`'s parameters over.
+reference `LM`'s parameters over, `opt_state_from_reference` its
+trainer's optimiser state.
 """
 from __future__ import annotations
 
@@ -182,6 +183,14 @@ def lm_params_from_reference(tree, device="cuda"):
     if isinstance(tree, Mapping):
         return {k: lm_params_from_reference(v, device) for k, v in tree.items()}
     return _tensor_from_numpy(np.asarray(tree)).to(device)
+
+
+def opt_state_from_reference(tree, device="cuda"):
+    """The port's optimiser state (`models.steps.init_opt_state`'s
+    structure) from the reference's, its leaves as numpy arrays: AdamW's
+    float32 ``m`` and ``v``, its int32 ``step``, and ``ef`` when the
+    config compresses gradients -- the same walk as the parameters'."""
+    return lm_params_from_reference(tree, device)
 
 
 def make_serve_stream(n: int, vocab: int, prompt_len, *, sessions: int,

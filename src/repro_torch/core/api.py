@@ -224,15 +224,17 @@ class Locale:
         read them after the call (`donate_buffers`)."""
         return donate_buffers(fn)
 
-    def make(self, shape: Tuple[int, ...], cb: Callable) -> torch.Tensor:
+    def make(self, shape: Tuple[int, ...], cb: Callable,
+             device=None) -> torch.Tensor:
         """A tensor born locally homed: home d's rows are ``cb(index)`` over
         its chunk of dim 0 (`chunk_bounds`), built home by home on the
         mesh's device and returned as the logical ``shape`` tensor (the
         chunked layout's rows are its consecutive chunks).  Without a
-        mesh, `cb` runs once over the full index, on ``"cuda"``.
+        mesh, `cb` runs once over the full index, on `device` (default
+        ``"cuda"``; `entry_device`).
         """
         shape = tuple(shape)
-        dev = entry_device(self.mesh)
+        dev = entry_device(self.mesh, device)
         rest = tuple(slice(None) for _ in shape[1:])
         if self.mesh is None:
             return torch.as_tensor(cb((slice(None),) + rest)).to(dev).reshape(

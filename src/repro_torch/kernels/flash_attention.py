@@ -42,6 +42,14 @@ tiles each block reads (its live ones), and the block's shared memory
 (`smem_bytes`); `c_plan` reads the same launch from the C entry's
 dry-run twin on the card.  ``fa_wgmma`` takes its q tile from the
 block's linear index, last tile first (`wgmma_block_tiles`).
+
+Neither kernel has a backward pass, and neither has the reference's (JAX
+refuses to differentiate its `pallas_call`): under autograd, with any of
+q, k, v requiring grad, the wrapper raises on both devices
+(`needs_grad`), so that a CPU run cannot pass where the card would drop
+the attention's share of every gradient.  Training runs the plain
+chunked attention (`models.LM(cfg, flash=False)`), as the reference's
+trains on its ``lax.scan`` form.
 """
 from __future__ import annotations
 
@@ -95,6 +103,12 @@ def _lib() -> ctypes.CDLL:
     lib.repro_flash_attention_plan.argtypes = (
         [ctypes.c_int] * 11 + [ctypes.POINTER(_build.Launch), ctypes.c_int])
     return lib
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would differentiate through `tensors`: grad mode
+    is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _check(q, k, v, window: int):
@@ -359,11 +373,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, H, Sq, hd), k/v (B, KV, Skv, hd) -> (B, H, Sq, hd), the
     scores scaled by `scale` (default ``hd ** -0.5``).
 
+    Raises under autograd (`needs_grad`): there is no backward pass.
     CPU tensors: `flash_attention_reference`.  CUDA tensors: the kernel,
     counted in ``flash_attention.launches``; it takes contiguous inputs,
     hd in `HEAD_DIMS`, blocks up to `MAX_BLOCK` and, in bfloat16, q, k and
     v on 16-byte boundaries (TMA's rule).
     """
+    if needs_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention has no backward pass (nor has the reference "
+            "kernel): call it under torch.no_grad(), or train on the plain "
+            "chunked attention, models.LM(cfg, flash=False)")
     _check(q, k, v, window)
     note(lambda: plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                       k.shape[2], q.shape[3], block_q, block_k, causal,

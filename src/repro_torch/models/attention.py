@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import needs_grad
 from repro_torch.models.common import ninit, out_scale, pdt, rmsnorm, rope
 
 NEG_INF = -1e30
@@ -114,8 +115,11 @@ def prefill_attention(q, k, v, *, positions, kv_chunk: int = 1024,
     plain `chunked_attention`.  The two round differently: the kernel
     keeps P as a bfloat16 hi + lo pair where the chunked form rounds it
     once, so in bfloat16 they differ by about one step of the output.
+    The kernel has no backward pass: with `flash` under autograd this
+    raises on either device (`flash_attention.needs_grad`), so train on
+    ``flash=False``, as the reference trains on its chunked form.
     """
-    if flash and q.is_cuda:
+    if flash and (q.is_cuda or needs_grad(q, k, v)):
         return flash_prefill_attention(q, k, v)
     return chunked_attention(q, k, v, q_positions=positions,
                              kv_positions=positions, kv_chunk=kv_chunk)

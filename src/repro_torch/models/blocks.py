@@ -5,6 +5,8 @@ smallest repeating unit of an architecture (one layer for dense models).
 Parameters are stacked with a leading superblock axis, as in the
 reference's pytree, and the reference's ``lax.scan`` over it is a Python
 loop here.  Decode caches are stacked the same way: (superblocks, B, ...).
+Training rematerialises each superblock when ``cfg.parallel.remat``
+(`apply_stack`), as the reference checkpoints its scan body.
 
 Ported members: attention ("attn") with the SwiGLU MLP ("mlp").  Mamba2,
 mixture-of-experts and cross-attention members raise `NotImplementedError`
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 from typing import List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (NOT_PORTED, _rowwise_positions,
@@ -110,22 +113,46 @@ def _apply_member(p, x, *, cfg, positions, build_cache: bool, cache_len,
     return x + apply_mlp(p["mlp"], h, cfg), cache
 
 
+def tree_unbind(tree, n: int):
+    """The n superblocks of a stacked dict tree, as views: one `unbind` a
+    leaf, whose backward stacks the n gradients in one copy (indexing
+    each superblock in turn would add n full-size gradients instead)."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def apply_stack(stack, x, *, cfg: ArchConfig, positions=None,
                 build_cache: bool = False, cache_len=None, flash: bool = True):
     """x: (B, S, D) -> (y, caches_or_None): the superblocks in turn;
-    caches stacked (superblocks, B, ...) when `build_cache`."""
+    caches stacked (superblocks, B, ...) when `build_cache`.
+
+    With ``cfg.parallel.remat`` and grad enabled (training), each
+    superblock runs under `torch.utils.checkpoint`: only its input is kept
+    for the backward pass, which runs the superblock's forward again --
+    the reference's ``jax.checkpoint`` of the scan body."""
     check_ported(cfg)
     members = superblock_spec(cfg)
-    caches = []
-    for i in range(num_superblocks(cfg)):
-        sb = tree_index(stack, i)
-        sb_caches = {}
+    remat = (cfg.parallel.remat and torch.is_grad_enabled()
+             and not build_cache)
+
+    def superblock(sb, x):
+        caches = {}
         for j in range(len(members)):
-            x, c = _apply_member(sb[f"m{j}"], x, cfg=cfg, positions=positions,
-                                 build_cache=build_cache, cache_len=cache_len,
-                                 flash=flash)
-            sb_caches[f"m{j}"] = c
-        caches.append(sb_caches)
+            x, caches[f"m{j}"] = _apply_member(
+                sb[f"m{j}"], x, cfg=cfg, positions=positions,
+                build_cache=build_cache, cache_len=cache_len, flash=flash)
+        return x, caches
+
+    caches = []
+    for sb in tree_unbind(stack, num_superblocks(cfg)):
+        if remat:
+            x = checkpoint(lambda sb, x: superblock(sb, x)[0], sb, x,
+                           use_reentrant=False)
+        else:
+            x, sb_caches = superblock(sb, x)
+            caches.append(sb_caches)
     return x, (tree_stack(caches) if build_cache else None)
 
 

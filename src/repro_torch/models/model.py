@@ -22,7 +22,9 @@ class LM(nn.Module):
     ``flash``: prefill attention through the `flash_attention` kernel on
     the card (the default); False runs the plain chunked form there too,
     the yardstick the card check holds the kernel's logits to.  On the
-    CPU the plain form runs either way.
+    CPU the plain form runs either way.  The kernel has no backward pass,
+    so under autograd ``flash=True`` raises on both devices: training
+    (`models.steps`, `runtime.trainer`) builds ``LM(cfg, flash=False)``.
     """
 
     def __init__(self, cfg: ArchConfig, flash: bool = True):

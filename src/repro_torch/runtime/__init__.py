@@ -1,7 +1,6 @@
-"""Serving: the KV page pool, the home-aware scheduler and the decode server.
-
-The counterpart of `repro.runtime` for serving; the trainer comes with the
-training slice.
+"""Serving and training: the KV page pool, the home-aware scheduler, the
+decode server (`server`), the fault-tolerant trainer (`trainer`) and its
+`ft.Supervisor`.  The counterpart of `repro.runtime`.
 """
 from repro_torch.runtime.scheduler import (Scheduler, kv_bytes_per_token,
                                            make_scheduler)

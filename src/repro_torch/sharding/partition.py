@@ -5,8 +5,10 @@ partition.py`, with the fields the server reads: `mesh` (a `HomeMesh`, or
 None) and `batch_axes` (the mesh axes the batch-slot dim is homed over).
 Every home of a `HomeMesh` lies on one device, so the reference's
 activation sharding constraints (``ws``) have nothing to move here; the
-slot homing is `Locale.pin_tree`'s counted relayout.  The parameter and
-activation layouts of training come with the training slice.
+slot homing is `Locale.pin_tree`'s counted relayout.  Training runs on one
+card too (`models.steps`): the reference's parameter and activation
+layouts across devices (``param_specs``, ``ws``, its training
+`make_plan`) come with the ``torch.distributed`` backend.
 """
 from __future__ import annotations
 

@@ -542,3 +542,86 @@ def test_decode_server_on_card_matches_cpu():
         assert outs["cuda", "homed"] == outs["cpu", "homed"]
         if pad:
             assert outs["cuda", "fifo"] == outs["cuda", "homed"]
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(remat):
+    """One train step of the reduced float32 qwen3-0.6b on the card against
+    the same step on the CPU, from the same parameters and batch (the
+    pipeline's, born on each device): the loss within rtol 1e-5, the
+    gradient norm within rtol 1e-4, AdamW's first moment (0.1 x the
+    clipped gradient after one step from zero) within rtol 1e-4, atol
+    1e-6 x each leaf's largest value; no kernel launched.  With `remat`
+    the superblocks are rematerialised, which must not change the step."""
+    _need_card()
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.models.steps import init_opt_state, make_train_step
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.sharding.partition import NULL_PLAN
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduce_config(get_config("qwen3-0.6b"))
+    cfg = cfg.replace(parallel=cfg.parallel.__class__(remat=remat))
+    params = LM(cfg).init(torch.Generator().manual_seed(5))
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(device, copy=True),  # updated in place
+                     params)
+        opt = AdamW(lr=cosine_schedule(3e-4, 2, 10))
+        state = init_opt_state(cfg, opt, p)
+        step = make_train_step(LM(cfg, flash=False), cfg, NULL_PLAN, opt)
+        batch = SyntheticLM(cfg, 4, 64, seed=2, device=device).batch(0)
+        ops.reset_launches()
+        _, state, met = step(p, state, batch)
+        assert not any(ops.launch_counts().values())
+        out[device] = met, state
+    (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(mg["grad_norm"]), float(mc["grad_norm"]),
+                               rtol=1e-4)
+    for g, c in zip(tree_leaves(sg["adam"]["m"]), tree_leaves(sc["adam"]["m"])):
+        c = c.numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), c, rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(c).max()))
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_autograd_on_card():
+    """The kernel has no backward pass: under autograd its wrapper raises
+    before launching, and so does `LM(cfg)`'s prefill attention; without
+    grad the same call launches it."""
+    _need_card()
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import LM
+    from repro_torch.models.steps import make_loss_fn
+    from repro_torch.tree import tree_leaves
+    q, k, v = (torch.from_numpy(a).cuda() for a in
+               make_attention_inputs(1, 4, 2, 64, 64, 32, "float32", 0))
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        ops.flash_attention(q.requires_grad_(), k, v, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+
+    cfg = reduce_config(get_config("qwen3-0.6b"))
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    LM(cfg).prefill(params, batch)                  # serving: the kernel
+    assert ops.launch_counts()["flash_attention"] == 1 + cfg.num_layers
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        make_loss_fn(LM(cfg), cfg)(params, batch)
+    loss, _ = make_loss_fn(LM(cfg, flash=False), cfg)(params, batch)
+    loss.backward()
+    assert ops.launch_counts()["flash_attention"] == 1 + cfg.num_layers
+
+
