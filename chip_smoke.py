@@ -35,6 +35,28 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 "data": 4}, with launches, merged elements against
                 `exchange_schedule`, times, the kernels' device times
                 from `torch.profiler` and peak memory;
+  5b. ranks  — the engine with one torch.distributed rank a home: 8 gloo
+                ranks sharing the card (`launch.mesh.spawn`; gloo has no
+                device transport, so every exchange is staged through
+                pinned host memory and counted apart), each launching
+                `local_sort` and `merge_split` on its own row: (a) the 8
+                Table-1 cases x (int32, float32) at n = 2^24 + 5 on
+                {"data": 8}, each rank's row equal by SHA-256 to the
+                one-process HomeMesh engine's; (b) the flagships at n =
+                100,000,000 int32 (case 8 on {"data": 8}, hierarchical hash
+                on {"pod": 2, "data": 4}): the median of 3 calls after a
+                warm-up (a barrier before each, the slowest rank's time),
+                launches by rank, merged elements, wire and staged bytes,
+                peak memory by rank, rank 0's kernels by `torch.profiler`;
+                (c) `compressed_psum` of a (1024, 3072) float32 a rank,
+                equal by SHA-256 to the same arithmetic in one process,
+                with its int8 wire; (d) every rank's collective log of
+                every call of (a) and (b) equal to `exchange_schedule` / m
+                op for op and to `collective_census`, and R1/R2 clean;
+                then an NCCL world of `torch.cuda.device_count()` ranks,
+                one a card (case 8 at n = 2^24 + 5, checked the same way;
+                on one card one rank, with no exchange).  Any rank's
+                failure fails the phase;
   6. constraint — the 8 Table-1 cases through the default
                 ``Locale(...).workload("sort")`` (the constraint backend)
                 at n = 2^24 + 5, int32 and float32, checked against
@@ -265,6 +287,21 @@ def profile_call(fn, warm=None, cpu: bool = False):
     return prof
 
 
+def device_ms_by(prof, kernels: dict) -> dict:
+    """{tag: {"ms", "launches"}} of a profile's device time, each kernel
+    whose name holds a key of `kernels` under its tag."""
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        us = ev.cuda_time_total if us is None else us
+        for key, tag in kernels.items():
+            if key in ev.key and us:
+                rec = out.setdefault(tag, {"ms": 0.0, "launches": 0})
+                rec["ms"] += us / 1e3
+                rec["launches"] += ev.count
+    return out
+
+
 def kernel_breakdown(fn, kernels: dict) -> dict:
     """Device milliseconds and launches of one call of fn() by kernel,
     from `torch.profiler`'s `key_averages()`; where the profiler shows no
@@ -283,15 +320,7 @@ def kernel_breakdown(fn, kernels: dict) -> dict:
             fn()
         recorded.extend(launches)
     prof = profile_call(active, warm=fn, cpu=True)
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        us = ev.cuda_time_total if us is None else us
-        for key, tag in kernels.items():
-            if key in ev.key and us:
-                rec = out.setdefault(tag, {"ms": 0.0, "launches": 0})
-                rec["ms"] += us / 1e3
-                rec["launches"] += ev.count
+    out = device_ms_by(prof, kernels)
     if not out:
         return {"whole": {"ms": cuda_ms(fn, reps=1), "launches": None,
                           "note": "the profiler showed no device time"}}
@@ -777,6 +806,337 @@ def phase_flagship(seed: int, tag: str, shape: dict, axis,
     torch.cuda.empty_cache()
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# ranks: the engine with one torch.distributed rank a home
+# ---------------------------------------------------------------------------
+RANKS = 8
+PSUM_SHAPE = (1024, 3072)
+#: tag: (mesh shape, axis, its policy's name in `launch.sort.policies`)
+RANK_FLAGSHIPS = {"flat": ({"data": 8}, "data", "case8"),
+                  "hier": ({"pod": 2, "data": 4}, ("pod", "data"), "hier")}
+
+
+def digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (its bit patterns, row-major)."""
+    import hashlib
+    return hashlib.sha256(bits(t.contiguous()).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def row_digests(y: torch.Tensor, m: int, policy) -> list:
+    """The digest of every home's row of a one-process engine result `y`
+    (logical order): padded to the engine's granule, in its output
+    homing."""
+    from repro_torch.core.engine import engine_granule
+    from repro_torch.core.homing import Homing
+    from repro_torch.core.sort import pad_to_multiple
+    hash_homed = policy.homing == Homing.HASH_INTERLEAVED
+    y = pad_to_multiple(y, engine_granule(m, None, hash_homed),
+                        nan_check=False)
+    if policy.localised or not hash_homed:
+        rows = y.view(m, -1)
+    else:
+        rows = y.view(-1, m).t()
+    return [digest(r) for r in rows]
+
+
+def psum_input(seed: int, rank: int, shape) -> np.ndarray:
+    rng = np.random.default_rng([seed, 1000 + rank])
+    return rng.standard_normal(shape, dtype=np.float32) * 3
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rank_child(device, seed: int, want: dict, sizes: dict) -> dict:
+    """One rank of the ranks phase: (a) the 8 cases at n_engine, (b) the
+    flagships at n_flagship, (c) compressed_psum (`sizes`); each sort's
+    row held to the one-process engine's by digest, its collectives to the
+    schedule, the census and R1/R2."""
+    need("jax" not in sys.modules, "a rank process imported JAX")
+    import torch.distributed as dist
+
+    from repro_torch.convert import make_sort_data
+    from repro_torch.core import Locale
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sort import policies, rank_report
+    from repro_torch.optim.compression import (compressed_psum,
+                                               gather_quantized)
+
+    rank = dist.get_rank()
+    cuda = torch.device(device).type == "cuda"
+    flat = RankMesh({"data": RANKS}, device=device)
+    meshes = {"flat": flat,
+              "hier": RankMesh(RANK_FLAGSHIPS["hier"][0], device=device)}
+    out = {"rank": rank, "device": str(flat.device), "cases": {},
+           "flagships": {}}
+    # (a) the 8 Table-1 cases
+    for tag, policy in policies(False).items():
+        k = int(tag.removeprefix("case"))
+        for dt in ("int32", "float32"):
+            fn = Locale(flat, "data", policy).workload("sort",
+                                                       backend="shard_map")
+            shard = fn.place(torch.from_numpy(
+                make_sort_data(sizes["n_engine"], dt, seed + k)))
+            ops.reset_launches()
+            coll.reset_collectives()
+            y = fn(shard)
+            sync(device)
+            out["cases"][f"case{k}_{dt}"] = {
+                "equal": digest(y.data) == want["cases"][f"case{k}_{dt}"][rank],
+                "launches": ops.launch_counts(),
+                "staged": coll.staged_bytes(),
+                **rank_report(coll.collective_log(), flat, ("data",),
+                             sizes["n_engine"], policy, 4)}
+    # (b) the flagships at the paper's size
+    for tag, (shape, axis, pname) in RANK_FLAGSHIPS.items():
+        mesh, policy = meshes[tag], policies(True)[pname]
+        axes = (axis,) if isinstance(axis, str) else axis
+        fn = Locale(mesh, axis, policy).workload("sort", backend="shard_map")
+        shard = fn.place(torch.from_numpy(
+            make_sort_data(sizes["n_flagship"], "int32", seed)))
+        sync(device)
+        # the main path's counted run: counts to 0 just before, read after
+        ops.reset_launches()
+        coll.reset_collectives()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        y = fn(shard)
+        sync(device)
+        res = {"peak_bytes": (torch.cuda.max_memory_allocated() - base
+                              if cuda else None),
+               "launches": ops.launch_counts(),
+               "merged_elems": ops.merged_elems(),
+               "staged": coll.staged_bytes(),
+               "equal": digest(y.data) == want["flagships"][tag][rank],
+               **rank_report(coll.collective_log(), mesh, axes,
+                            sizes["n_flagship"], policy, 4)}
+        res["wire"] = sum(r["wire_bytes"] for r in coll.LOG)
+        del y
+        fn(shard)                          # warm-up
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            sync(device)
+            t0 = time.perf_counter()
+            fn(shard)
+            sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["times_ms"] = times
+        if rank == 0 and cuda:
+            prof = profile_call(lambda: fn(shard))
+            res["kernel_ms"] = device_ms_by(prof, ENGINE_KERNELS)
+        else:
+            fn(shard)
+            sync(device)
+        out["flagships"][tag] = res
+        del shard
+    # (c) compressed_psum over the 8 ranks
+    x = torch.from_numpy(psum_input(seed, rank, sizes["psum"])).to(
+        flat.device)
+    qg, sg = gather_quantized(x, flat, "data")
+    coll.reset_collectives()
+    total = compressed_psum(x, flat, "data")
+    sync(device)
+    out["psum"] = {"sum": digest(total) == want["psum"]["sum"],
+                   "q": digest(qg) == want["psum"]["q"],
+                   "s": digest(sg) == want["psum"]["s"],
+                   "log": [(r["kind"], r["wire_bytes"]) for r in coll.LOG]}
+    out["jax_free"] = "jax" not in sys.modules
+    return out
+
+
+def nccl_child(device, seed: int, want: list, n: int) -> dict:
+    """One rank of the NCCL world: case 8 at `n` on {"data": world}."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import make_sort_data
+    from repro_torch.core import Locale
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sort import policies, rank_report
+
+    world = dist.get_world_size()
+    mesh = RankMesh({"data": world}, device=device)
+    policy = policies(False)["case8"]
+    fn = Locale(mesh, "data", policy).workload("sort", backend="shard_map")
+    shard = fn.place(torch.from_numpy(make_sort_data(n, "int32", seed + 8)))
+    ops.reset_launches()
+    coll.reset_collectives()
+    y = fn(shard)
+    sync(device)
+    return {"backend": dist.get_backend(), "equal":
+            digest(y.data) == want[dist.get_rank()],
+            "launches": ops.launch_counts(), "staged": coll.staged_bytes(),
+            "collectives": len(coll.LOG),
+            **rank_report(coll.collective_log(), mesh, ("data",), n, policy,
+                         4)}
+
+
+def rank_wants(seed: int, device) -> dict:
+    """What every rank must give, from the one-process engine (and the
+    one-process compressed sum) on `device`: digests of each home's row."""
+    from repro_torch.convert import make_sort_data
+    from repro_torch.core import HomeMesh, Locale
+    from repro_torch.launch.sort import policies
+    from repro_torch.optim.compression import quantize
+
+    want = {"cases": {}, "flagships": {}}
+    mesh = HomeMesh({"data": RANKS}, device=device)
+    for tag, policy in policies(False).items():
+        k = int(tag.removeprefix("case"))
+        fn = Locale(mesh, "data", policy).workload("sort",
+                                                   backend="shard_map")
+        for dt in ("int32", "float32"):
+            x = torch.from_numpy(make_sort_data(N_ENGINE, dt, seed + k))
+            want["cases"][f"case{k}_{dt}"] = row_digests(
+                fn(x.to(device)), RANKS, policy)
+    x = torch.from_numpy(make_sort_data(N_FLAGSHIP, "int32", seed))
+    for tag, (shape, axis, pname) in RANK_FLAGSHIPS.items():
+        policy = policies(True)[pname]
+        fn = Locale(HomeMesh(shape, device=device), axis, policy).workload(
+            "sort", backend="shard_map")
+        want["flagships"][tag] = row_digests(fn(x.to(device)), RANKS, policy)
+    # compressed_psum's arithmetic in one process
+    parts = [quantize(torch.from_numpy(psum_input(seed, r, PSUM_SHAPE))
+                      .to(device)) for r in range(RANKS)]
+    qg = torch.stack([q for q, _ in parts])
+    sg = torch.stack([s for _, s in parts])
+    total = (qg.float() * sg[..., None]).sum(dim=0).reshape(-1)
+    total = total[:math.prod(PSUM_SHAPE)].reshape(PSUM_SHAPE)
+    want["psum"] = {"sum": digest(total), "q": digest(qg), "s": digest(sg),
+                    "q_bytes": qg[0].numel(), "s_bytes": sg[0].numel() * 4}
+    return want
+
+
+def phase_ranks(seed: int, device="cuda") -> dict:
+    """The engine with one rank a home: 8 gloo ranks sharing the card,
+    then an NCCL world of every card (see the module docstring)."""
+    from repro_torch.core import exchange_schedule
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.sort import policies
+
+    t_phase = time.perf_counter()
+    want = rank_wants(seed, device)
+    t0 = time.perf_counter()
+    sizes = {"n_engine": N_ENGINE, "n_flagship": N_FLAGSHIP,
+             "psum": PSUM_SHAPE}
+    ranks = spawn(rank_child, RANKS, "gloo", device, seed, want, sizes)
+    spawn_s = time.perf_counter() - t0
+    need(all(r["jax_free"] for r in ranks), "a rank imported JAX")
+    for r in ranks:
+        for key, res in list(r["cases"].items()) + list(
+                r["flagships"].items()):
+            what = f"ranks: rank {r['rank']} {key}"
+            need(res["equal"], f"{what}: its row differs from the "
+                               f"one-process engine's")
+            need(not res["schedule"], f"{what}: {res['schedule']}")
+            need(res["census"], f"{what}: the log's census differs")
+            need(not res["findings"], f"{what}: R1/R2 {res['findings']}")
+            if torch.device(device).type == "cuda":
+                need(res["launches"]["local_sort"] == 1, f"{what}: "
+                     f"{res['launches']}")
+    out = {"spawn_s": spawn_s, "cases": len(ranks[0]["cases"]),
+           "flagships": {}}
+    say(f"phase ranks (a): {RANKS} gloo ranks on {ranks[0]['device']}, the "
+        f"8 Table-1 cases x (int32, float32) at n={N_ENGINE}: every rank's "
+        f"row equal by SHA-256 to the one-process HomeMesh engine's; every "
+        f"rank's collectives equal to exchange_schedule / m op for op and to "
+        f"collective_census; R1/R2 clean ({spawn_s:.1f} s for the world)")
+    for tag, (shape, axis, pname) in RANK_FLAGSHIPS.items():
+        rs = [r["flagships"][tag] for r in ranks]
+        times = [max(r["times_ms"][i] for r in rs) for i in range(3)]
+        policy = policies(True)[pname]
+        merged = sum(r["merged_elems"] for r in rs)
+        expect = sum(r["local_merge_elems"] for r in exchange_schedule(
+            N_FLAGSHIP, tuple(shape.values()), policy)
+            if r["op"] == "merge_split")
+        if torch.device(device).type == "cuda":
+            need(merged == expect, f"ranks {tag}: merged {merged}, the "
+                                   f"schedule {expect}")
+            kms = rs[0]["kernel_ms"]
+            need({"local_sort", "merge_split"} <= set(kms), f"ranks {tag}: "
+                 f"torch.profiler saw {kms} in rank 0")
+        res = {"median_ms": statistics.median(times), "times_ms": times,
+               "rank_times_ms": [r["times_ms"] for r in rs],
+               "launches": [r["launches"] for r in rs],
+               "merged_elems": merged, "schedule_merge_elems": expect,
+               "wire_bytes": [r["wire"] for r in rs],
+               "staged_bytes": [r["staged"] for r in rs],
+               "peak_bytes": [r["peak_bytes"] for r in rs],
+               "kernel_ms_rank0": rs[0].get("kernel_ms")}
+        out["flagships"][tag] = res
+        say(f"phase ranks (b) {tag}: n={N_FLAGSHIP} int32 on {shape}, "
+            f"{policy.name}: median {res['median_ms']:.3f} ms of 3 (slowest "
+            f"rank a call: {', '.join(f'{t:.3f}' for t in times)}); rows "
+            f"equal to the HomeMesh engine's; launches by rank "
+            f"local_sort {[c['local_sort'] for c in res['launches']]} "
+            f"merge_split {[c['merge_split'] for c in res['launches']]}; "
+            f"merged {merged} == schedule {expect}; wire bytes by rank "
+            f"{res['wire_bytes']} (== exchange_schedule / m, op for op; "
+            f"census equal; R1/R2 clean); staged bytes by rank "
+            f"{res['staged_bytes']}; peak bytes by rank {res['peak_bytes']}; "
+            f"rank 0's device ms and launches by wrapper (torch.profiler) "
+            + (by_wrapper(res["kernel_ms_rank0"])
+               if res["kernel_ms_rank0"] else "not profiled"))
+    q_bytes, s_bytes = want["psum"]["q_bytes"], want["psum"]["s_bytes"]
+    for r in ranks:
+        p = r["psum"]
+        need(p["sum"] and p["q"] and p["s"], f"ranks: rank {r['rank']}'s "
+             f"compressed_psum differs from one process's: {p}")
+        need(p["log"] == [("all-gather", (RANKS - 1) * q_bytes),
+                          ("all-gather", (RANKS - 1) * s_bytes)],
+             f"ranks: compressed_psum's wire {p['log']}")
+    out["psum_wire"] = ranks[0]["psum"]["log"]
+    say(f"phase ranks (c): compressed_psum over {RANKS} ranks of a "
+        f"{PSUM_SHAPE} float32 each: the sum, the int8 payload and the "
+        f"scales equal by SHA-256 to the same arithmetic in one process; "
+        f"wire {ranks[0]['psum']['log']} (1 byte a padded element to each "
+        f"of {RANKS - 1} ranks, then the float32 scales)")
+    findings = sum(len(res["findings"]) for r in ranks for res in
+                   list(r["cases"].values())
+                   + list(r["flagships"].values()))
+    say(f"phase ranks (d): R1/R2 over {RANKS} ranks x "
+        f"{len(ranks[0]['cases']) + len(RANK_FLAGSHIPS)} calls: {findings} "
+        f"finding(s)")
+    out["rank_launches"] = {k: [c[k] for c in
+                                out["flagships"]["flat"]["launches"]]
+                            for k in ranks[0]["flagships"]["flat"]["launches"]}
+    # the NCCL world: every card, one rank each
+    world = torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    from repro_torch.convert import make_sort_data
+    from repro_torch.core import HomeMesh, Locale
+    policy = policies(False)["case8"]
+    fn = Locale(HomeMesh({"data": world}, device=device), "data",
+                policy).workload("sort", backend="shard_map")
+    y = fn(torch.from_numpy(make_sort_data(N_ENGINE, "int32", seed + 8))
+           .to(device))
+    nccl = spawn(nccl_child, world, backend, device, seed,
+                 row_digests(y, world, policy), N_ENGINE)
+    for i, r in enumerate(nccl):
+        need(r["backend"] == backend and r["equal"] and not r["schedule"]
+             and r["census"] and not r["findings"],
+             f"ranks {backend} world, rank {i}: {r}")
+    out["nccl"] = nccl
+    say(f"phase ranks {backend}: a world of {world} rank(s), one a card: "
+        f"case 8 at n={N_ENGINE} int32 equal by SHA-256 to the one-process "
+        f"engine's row(s), launches {[r['launches']['local_sort'] for r in nccl]} "
+        f"local_sort by rank, {[r['collectives'] for r in nccl]} collective(s) "
+        f"by rank"
+        + (" -- the world has one rank and no exchange" if world == 1
+           else ""))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def phase_constraint(seed: int) -> dict:
@@ -2235,6 +2595,7 @@ def main(argv=None) -> int:
     hier = phase_flagship(args.seed, "hier", {"pod": 2, "data": 4},
                           ("pod", "data"),
                           LocalisationPolicy.hierarchical(inner="hash"))
+    ranks = phase_ranks(args.seed)
     constraint = phase_constraint(args.seed)
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
@@ -2271,16 +2632,20 @@ def main(argv=None) -> int:
            for k in SERVE_LINE_KEYS})
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
+    # each kernel's launches in each rank of the ranks phase's counted
+    # flat run (one rank a home, 8 ranks sharing the card)
+    for row in rows:
+        row["rank_launches"] = ranks["rank_launches"][row["name"]]
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
-             "floor_ms",
+             "floor_ms", "rank_launches",
              *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
-             "engine": engine, "flat": flat, "hier": hier,
+             "engine": engine, "flat": flat, "hier": hier, "ranks": ranks,
              "constraint": constraint, "fig1": fig1, "attention": attention,
              "serve": serve, "train": train, "dtypes": dtypes,
              "analysis": analysis},

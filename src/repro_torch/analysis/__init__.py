@@ -4,8 +4,12 @@ The counterpart of `repro.analysis`.  Every wrapper of
 `repro_torch.kernels` states the launches it makes as data
 (`launches.LaunchFacts`: grid, threads, shared memory, operand tile maps,
 index type, ``blockIdx`` lanes); `launches.record()` collects them while a
-workload runs, and the rules check them:
+workload runs, and the rules check them, with R1 and R2 on the
+collective log of a `RankMesh`'s rank (`core.collectives`):
 
+  R1 surprise-collective   a rank's collectives against collective_census
+  R2 home-leak             no collective's ranks vary over an undeclared
+                           mesh axis
   R3 smem-budget           shared memory per launch fits one block
   R5 write-race/coverage   output tile maps partition each output over
                            the blocks; input tiles stay in bounds
@@ -14,7 +18,8 @@ workload runs, and the rules check them:
                            sentinel is representable and tie-stable
   R8 grid-dead-lane        no ``blockIdx`` lane that no block takes
 
-R1, R2, R4, R9, R10 and R11 have no counterpart yet (report notes).
+R4, R9, R10 and R11 have no counterpart yet (report notes), nor have R1
+and R2 on a one-process `HomeMesh`, which makes no collective.
 
 Entry points: `Locale.check(...)` (`repro_torch.core.api`),
 `check_workload` / `check_artifacts` here, and the

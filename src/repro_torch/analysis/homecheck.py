@@ -8,17 +8,22 @@ kernel wrapper on its path hands in the plan of the launches it makes (on
 the card, the launches themselves; on the CPU, the launches the card
 would make), and the rules run on those facts afterwards:
 
+  R1  on a `RankMesh`: this rank's collectives (`core.collectives`'s
+      log of the run) against `engine.collective_census`;
+  R2  on a `RankMesh`: the ranks each collective spans against the
+      locale's declared axes;
   R3  shared memory per launch against `kernels.SMEM_BYTES_PER_BLOCK`;
   R5  write races, coverage and out-of-bounds reads of the tile maps;
   R6  the exchange network the engine was built from (shard_map backend);
   R7  index arithmetic in each launch's index type, and the sentinel;
   R8  dead ``blockIdx`` lanes.
 
-R1, R2 and R4 read HLO (collectives, home leaks, donation) and wait for
-the torch.distributed slice; R9 (the serving scheduler), R10 (peak device
-memory) and R11 (collectives under control flow) wait for theirs.  Each
-of them adds a report note when selected, as the reference does for a
-rule it skips.  `check_decode` waits for serving.
+On a `HomeMesh` the homes are rows of one process's tensor and no
+collective runs, so R1 and R2 are noted as skipped there.  R4 reads HLO
+(donation) and waits for its slice; R9 (the serving scheduler), R10
+(peak device memory) and R11 (collectives under control flow) wait for
+theirs.  Each of them adds a report note when selected, as the
+reference does for a rule it skips.  `check_decode` waits for serving.
 """
 from __future__ import annotations
 
@@ -30,12 +35,11 @@ from repro_torch.analysis.kernelcheck import (r5_block_coverage,
                                               r7_index_arith, r8_dead_lanes)
 from repro_torch.analysis.launches import record
 from repro_torch.analysis.netverify import r6_network_certification
-from repro_torch.analysis.rules import r3_smem_budget
+from repro_torch.analysis.rules import (r1_surprise_collective,
+                                        r2_home_leak, r3_smem_budget)
 
 #: rules with no counterpart in the port yet, and what they wait for
 NOT_PORTED = {
-    "R1": "the collective census needs the torch.distributed slice",
-    "R2": "home leaks need the torch.distributed slice",
     "R4": "the donation audit needs the torch.distributed slice",
     "R9": "the scheduler certificate needs the serving slice",
     "R10": "the device-memory live range needs its slice",
@@ -44,13 +48,19 @@ NOT_PORTED = {
 
 
 def check_artifacts(target: str, launches: Sequence, *, network=None,
+                    collectives: Optional[Sequence[Dict]] = None,
+                    predicted: Optional[Dict[str, Dict]] = None,
+                    mesh=None, allowed_axes: Sequence[str] = (),
                     context: Optional[Dict] = None, rules=None,
                     suppress: Sequence[str] = ()) -> Report:
-    """Run the selected rules over recorded launches (`LaunchFacts`) and an
-    exchange network.
+    """Run the selected rules over recorded launches (`LaunchFacts`), an
+    exchange network and a rank's collective log.
 
     ``network=None`` (else a ``(policy, sizes, axes)`` triple for the
-    shard_map engine) skips R6 with a note.  R3's ceiling is
+    shard_map engine) skips R6 with a note.  ``collectives=None`` (else a
+    rank's `core.collectives` log, with the `RankMesh` it ran on as
+    `mesh`) skips R1 and R2; ``predicted=None`` (else the
+    `engine.collective_census` budget) skips R1.  R3's ceiling is
     `repro_torch.kernels.SMEM_BYTES_PER_BLOCK`.
     """
     from repro_torch.kernels import SMEM_BYTES_PER_BLOCK
@@ -61,6 +71,23 @@ def check_artifacts(target: str, launches: Sequence, *, network=None,
         if rid in NOT_PORTED:
             report.notes.append(f"{rid} skipped: no port counterpart yet "
                                 f"({NOT_PORTED[rid]})")
+    no_log = ("no collective log: the homes of a HomeMesh are rows of one "
+              "process's tensor, and only a RankMesh's ranks make "
+              "collectives")
+    if "R1" in active:
+        if collectives is None:
+            report.notes.append(f"R1 skipped: {no_log}")
+        elif predicted is None:
+            report.notes.append("R1 skipped: no analytic collective budget "
+                                "for this target")
+        else:
+            r1_surprise_collective(report, list(collectives), predicted)
+    if "R2" in active:
+        if collectives is None:
+            report.notes.append(f"R2 skipped: {no_log}")
+        else:
+            r2_home_leak(report, list(collectives), tuple(mesh.shape),
+                         tuple(mesh.shape.values()), allowed_axes)
     if "R3" in active:
         r3_smem_budget(report, launches, SMEM_BYTES_PER_BLOCK)
     if "R5" in active:
@@ -97,14 +124,18 @@ def check_workload(locale, workload: str = "sort", *,
     input of ~2**logn elements (granule-aligned ``arange`` int32; float32
     for the microbench) on the locale's device -- without a mesh, on
     `device` (default ``"cuda"``) -- while recording its launches, and runs
-    the selected rules (default all) on them.
+    the selected rules (default all) on them.  On a `RankMesh` every rank
+    calls it (the engine's collectives span the ranks), and each rank's
+    report covers its own launches and collectives.
     """
     import torch
 
+    from repro_torch.core import collectives as coll
+
     from repro_torch.core.api import Locale
-    from repro_torch.core.engine import engine_granule
+    from repro_torch.core.engine import collective_census, engine_granule
     from repro_torch.core.homing import Homing, axis_tuple
-    from repro_torch.core.mesh import HomeMesh, entry_device
+    from repro_torch.core.mesh import HomeMesh, RankMesh, entry_device
     from repro_torch.core.sort import constraint_granule
 
     mesh, policy = locale.mesh, locale.policy
@@ -115,6 +146,8 @@ def check_workload(locale, workload: str = "sort", *,
     hash_homed = policy.homing == Homing.HASH_INTERLEAVED
     dev = entry_device(mesh, device)
     mesh_ctx = mesh.shape if mesh is not None else None
+    ranks = isinstance(mesh, RankMesh)
+    predicted = None
 
     if workload in ("sort", "engine"):
         backend = backend or ("shard_map" if workload == "engine"
@@ -135,6 +168,10 @@ def check_workload(locale, workload: str = "sort", *,
                 kw["device"] = dev
         fn = locale.workload(workload, **kw)
         n = _round_up(1 << logn, granule)
+        if backend == "shard_map":
+            predicted = collective_census(n, sort_sizes, policy,
+                                          num_workers=num_workers,
+                                          itemsize=4, local_phase=local_phase)
         dtype = torch.int32
         target = f"{workload}[{backend}]"
         context = dict(workload=workload, backend=backend,
@@ -154,10 +191,18 @@ def check_workload(locale, workload: str = "sort", *,
             f"(check_decode) waits for its slice")
 
     x = torch.arange(n, dtype=torch.int32).to(dtype).to(dev)
+    if ranks:                       # the engine takes this rank's shard
+        x = fn.place(x)
+    coll.reset_collectives()
     with record() as launches:
         fn(x)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     context.update(device=str(dev), launches=len(launches))
-    return check_artifacts(target, launches, network=network,
-                           context=context, rules=rules, suppress=suppress)
+    if ranks:
+        context.update(rank=mesh.rank, collectives=len(coll.LOG))
+    return check_artifacts(
+        target, launches, network=network,
+        collectives=coll.collective_log() if ranks else None,
+        predicted=predicted, mesh=mesh, allowed_axes=axes,
+        context=context, rules=rules, suppress=suppress)

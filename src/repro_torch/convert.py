@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import Homed, Locale
-from repro_torch.core.homing import Homing, to_layout
+from repro_torch.core.homing import Homing, rank_shard, to_layout
 from repro_torch.core.localisation import LocalisationPolicy
+from repro_torch.core.mesh import RankMesh
 
 INT32_MIN = np.iinfo(np.int32).min
 INT32_MAX = np.iinfo(np.int32).max
@@ -39,7 +40,8 @@ def homed_from_reference(array_np: np.ndarray, homing, locale: Locale) -> Homed:
 
     ``(n,)`` for chunked homing, the ``(n/N, N)`` stripe view for
     interleaved homing; returns the same layout as per-home rows on the
-    locale's device (row d = what device d held).
+    locale's device (row d = what device d held).  On a `RankMesh` it is
+    this rank's shard: the one row of what its device held.
     """
     homing = Homing(homing) if not isinstance(homing, Homing) else homing
     arr = np.asarray(array_np)
@@ -53,6 +55,9 @@ def homed_from_reference(array_np: np.ndarray, homing, locale: Locale) -> Homed:
     if homing == Homing.HASH_INTERLEAVED and arr.shape[1] != locale.axis_size:
         raise ValueError(f"interleaved data has {arr.shape[1]} columns, the "
                          f"locale {locale.axis_size} homes")
+    if isinstance(locale.mesh, RankMesh):
+        return Homed(rank_shard(x, locale.mesh, homing, locale.axis), homing,
+                     locale.axis)
     return Homed(to_layout(x, locale.mesh, homing, locale.axis), homing,
                  locale.axis)
 

@@ -1,6 +1,12 @@
 """The placement API — the paper's technique as a first-class object.
 
-The counterpart of `repro/core/api.py`, on a `HomeMesh`:
+The counterpart of `repro/core/api.py`, on a `HomeMesh` (every home a row
+of one tensor) or a `RankMesh` (every home a ``torch.distributed`` rank;
+there `put` gives the rank its own shard, `workload("sort",
+backend="shard_map")` / `workload("engine")` run the per-rank engine and
+`check` adds R1/R2 on the collectives; the constraint tree, the
+microbench and the relayout methods wait for ROADMAP.md Queue 1 item 1
+and raise `NotImplementedError`):
 
 `Locale`
     A frozen bundle of ``(mesh, axis, LocalisationPolicy)``:
@@ -20,27 +26,33 @@ The counterpart of `repro/core/api.py`, on a `HomeMesh`:
     ``locale.workload(n)``  a registered workload (``"sort"``, ``"engine"``,
                             ``"microbench"``).
     ``locale.check(n)``     homecheck: run the workload, check the kernel
-                            launches it makes (R3/R5-R8); a `Report`.
+                            launches it makes (R3/R5-R8) and, on a
+                            `RankMesh`, its collectives (R1/R2); a
+                            `Report`.
     ==================  ====================================================
 
 `Homed`
     ``(data, homing, axis)``: ``data`` is the ``(m, chunk)`` per-home
-    tensor and ``.logical()`` gives the 1-D logical order.
+    tensor and ``.logical()`` gives the 1-D logical order.  On a
+    `RankMesh`, ``data`` is this rank's ``(1, chunk)`` row
+    (`engine.gather_sorted` assembles a sorted result's logical order).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.homing import (Axis, Homing, Layout, axis_size,
                                      check_divisible, homing_layout,
-                                     logical_view, relayout, to_layout)
+                                     logical_view, rank_shard, relayout,
+                                     to_layout)
 from repro_torch.core.localisation import (LocalisationPolicy, chunk_bounds,
                                            donate_buffers, localise, place)
-from repro_torch.core.mesh import HomeMesh, entry_device
+from repro_torch.core.mesh import (HomeMesh, RankMesh, entry_device,
+                                   one_process)
 
 
 @dataclass(frozen=True)
@@ -98,7 +110,7 @@ class Locale:
     axes, outer (pod) axes first — ``Locale(mesh, axis=("pod", "data"))``
     linearises homes pod-major.
     """
-    mesh: Optional[HomeMesh] = None
+    mesh: Optional[Union[HomeMesh, RankMesh]] = None
     axis: Axis = "data"
     policy: LocalisationPolicy = LocalisationPolicy()
 
@@ -133,13 +145,18 @@ class Locale:
         mesh's device (without a mesh: one home on ``"cuda"``).
 
         Lengths must divide the axis size; with ``pad=True`` the input is
-        extended with BIG sort-neutral sentinels first.
+        extended with BIG sort-neutral sentinels first.  On a `RankMesh`
+        every rank passes the whole input and keeps its own shard (a
+        ``(1, n/N)`` row, `homing.rank_shard`).
         """
         from repro_torch.core.sort import pad_to_multiple
         x = torch.as_tensor(x)
         if pad:
             x = pad_to_multiple(x, self.axis_size)
         mesh, axis = self.mesh, self.axis
+        if isinstance(mesh, RankMesh):
+            return Homed(rank_shard(x, mesh, self.policy.homing, axis),
+                         self.policy.homing, axis)
         if mesh is None:                  # one home on the default device
             axis = axis if isinstance(axis, str) else axis[-1]
             mesh = HomeMesh({axis: 1})
@@ -158,6 +175,7 @@ class Locale:
         has constrained to the chunked sharding; here the tag says where
         the rows are), and otherwise unchanged.
         """
+        one_process(self.mesh, "Locale.pin")
         if self.mesh is None or not self.policy.static_mapping:
             return x                         # no-op before any checking
         if isinstance(x, Homed):
@@ -174,6 +192,7 @@ class Locale:
     def localise(self, x):
         """The one-shot Algorithm-2 relayout into the locally-homed layout;
         a `Homed` comes back as a LOCAL_CHUNKED `Homed`."""
+        one_process(self.mesh, "Locale.localise")
         if not isinstance(x, Homed):
             return localise(x, self.mesh, self.axis)
         if self.mesh is None:
@@ -193,6 +212,7 @@ class Locale:
         the homes are left alone.  No-op without a mesh or under
         ``static_mapping=False``.
         """
+        one_process(self.mesh, "Locale.pin_tree")
         if self.mesh is None or not self.policy.static_mapping:
             return tree
         N = self.axis_size
@@ -233,6 +253,7 @@ class Locale:
         mesh, `cb` runs once over the full index, on `device` (default
         ``"cuda"``; `entry_device`).
         """
+        one_process(self.mesh, "Locale.make")
         shape = tuple(shape)
         dev = entry_device(self.mesh, device)
         rest = tuple(slice(None) for _ in shape[1:])
@@ -268,7 +289,10 @@ class Locale:
         while recording every kernel launch it makes, and runs rules R3
         (shared memory per block), R5 (write races, coverage, out-of-bounds
         reads), R6 (exchange-network certification), R7 (index arithmetic,
-        sentinel) and R8 (dead ``blockIdx`` lanes) on them.  Returns an
+        sentinel) and R8 (dead ``blockIdx`` lanes) on them, and on a
+        `RankMesh` R1 (this rank's collectives against
+        `collective_census`) and R2 (their groups against the locale's
+        axes) on the collectives it made.  Returns an
         `analysis.Report`; ``report.clean`` is the contract.  `rules`
         selects a subset (e.g. ``rules=("R5", "R6")``; None = all, the
         rules without a port counterpart yet noted as skipped); `suppress`
@@ -318,6 +342,7 @@ def _microbench_workload(locale: Locale, *, reps: int, device=None):
     """The Fig-1 repetitive-copy micro-benchmark (`core.microbench`).
     ``device``: where a mesh-less locale runs (default ``"cuda"``)."""
     from repro_torch.core.microbench import make_microbench_fn
+    one_process(locale.mesh, "the microbench")
     axis = locale.axis if locale.mesh is not None else "data"
     return make_microbench_fn(locale.mesh, locale.policy, reps, axis=axis,
                               device=device)

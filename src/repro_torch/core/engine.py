@@ -1,10 +1,19 @@
 """The explicit per-home engine of the distributed merge sort.
 
-The counterpart of `repro/core/engine.py` (the `shard_map` backend),
-held on a `HomeMesh`: the m homes of the sort axes are the rows of one
-``(m, chunk)`` tensor on one device, each collective of the reference is
-the index operation it performs on those rows, and each per-device kernel
-call is one launch over all m rows.  Per home, Algorithms 1-3:
+The counterpart of `repro/core/engine.py` (the `shard_map` backend), on
+either kind of mesh (`core.mesh`):
+
+* a `HomeMesh`: the m homes of the sort axes are the rows of one
+  ``(m, chunk)`` tensor on one device, each collective of the reference
+  is the index operation it performs on those rows, and each per-device
+  kernel call is one launch over all m rows (`_localised_shard`,
+  `_unlocalised_shard`);
+* a `RankMesh`: each home is a ``torch.distributed`` rank, and its body
+  (`_localised_rank`, `_unlocalised_rank`) is the reference's per-device
+  body line for line: the same collectives (`core.collectives`), counted,
+  and the same kernel calls on the rank's own ``(1, chunk)`` row.
+
+Per home, Algorithms 1-3:
 
   1. chunk ownership comes from `chunk_bounds` — after BIG padding every
      home owns one equal, contiguous logical chunk;
@@ -34,11 +43,15 @@ call is one launch over all m rows.  Per home, Algorithms 1-3:
 the reference's "pallas": `local_sort` + `merge_split` kernels) or
 "reference" (leaf `local_sort`, then the plain `merge_sorted` tree and
 merge-everything-discard-half substages).  `LOCAL_PHASES` maps each to
-the reference's name.  The trace spans of the reference's `engine.sort`
-are not ported yet.
+the reference's name.  With a tracer on (`obs.tracelog.set_tracer`),
+`make_engine_fn` wraps each call in the reference's ``engine.sort`` span
+with one ``engine.exchange_level`` event per `exchange_schedule` record
+(on a `RankMesh`, rank 0 emits them), which `obs.reconcile` checks.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 from dataclasses import dataclass
 from functools import lru_cache, partial
@@ -47,13 +60,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.homing import (Axis, Homing, axis_tuple, logical_view,
                                      to_layout)
 from repro_torch.core.localisation import LocalisationPolicy, chunk_bounds
-from repro_torch.core.mesh import HomeMesh
-from repro_torch.core.sort import (bits_view, merge_sorted, pad_to_multiple,
-                                   sort_entry, take)
+from repro_torch.core.mesh import HomeMesh, RankMesh
+from repro_torch.core.sort import (bits_view, check_nan_free, merge_sorted,
+                                   pad_to_multiple, sort_entry, take)
 from repro_torch.kernels import ops
+from repro_torch.obs.tracelog import get_tracer
 
 AXIS = "data"
 
@@ -547,20 +562,169 @@ def _unlocalised_shard(rows: torch.Tensor, *, w: int, homing: Homing,
     return rows
 
 
-def shard_map_sort(x: torch.Tensor, mesh: HomeMesh,
+# ---------------------------------------------------------------------------
+# the per-rank bodies: one home per torch.distributed rank
+# ---------------------------------------------------------------------------
+@lru_cache(maxsize=64)
+def _rank_routes(net: ExchangeNetwork, d: int, device: torch.device) -> tuple:
+    """Home d's routing of the network as tensors on `device`, built once.
+
+    One entry per level: a NetExchange gives its ``(1,)`` keep flag; a
+    NetGatherReplay gives ``(((pod partner, pod keep), ...), own pod)``.
+    """
+    def on(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    log_inner = net.sizes[-1].bit_length() - 1
+    out = []
+    for lv in net.levels:
+        if isinstance(lv, NetGatherReplay):
+            out.append((tuple((on(rp.pod_partner), on(rp.pod_keep_low))
+                              for rp in lv.replays), d >> log_inner))
+        else:
+            out.append(on([lv.keep_low[d]]))
+    return tuple(out)
+
+
+def _localised_rank(mine: torch.Tensor, mesh: RankMesh, *, axes, sizes,
+                    chunk: int, w_per_dev: int, hash_homed: bool,
+                    local_sort: LocalSort, net: ExchangeNetwork,
+                    local_phase: str) -> torch.Tensor:
+    """Per-rank body, localised (`repro/core/engine.py:373-440`): this
+    rank's (1, chunk) row in the input homing -> its (1, chunk) sorted
+    chunk of the chunk-contiguous output."""
+    m = math.prod(sizes)
+    if hash_homed:
+        # Algorithm 2's memcpy: one explicit all-to-all turns my
+        # interleaved column into my contiguous chunk (order scrambled;
+        # the sort fixes it)
+        mine = collectives.all_to_all(mine.view(m, chunk // m), mesh,
+                                      axes).view(1, chunk)
+    if local_phase == "kernel":
+        # ONE local_sort launch: leaves and the local merge tree
+        run = ops.local_sort(mine)
+        merge_split = ops.merge_split
+    else:
+        runs = _leaf_sort(mine.view(w_per_dev, chunk // w_per_dev),
+                          local_sort)
+        while runs.shape[0] > 1:          # merge my own leaves, no traffic
+            runs = merge_sorted(runs[0::2], runs[1::2])
+        run = runs
+        merge_split = _merge_split
+    d = mesh.index(axes)
+    for lv, route in zip(net.levels, _rank_routes(net, d, mine.device)):
+        if isinstance(lv, NetGatherReplay):
+            # ONE all_gather over the pod axes pulls the n_pods chunks at
+            # my inner index; this stage's cross-pod substages are
+            # replayed on them (one launch over the n_pods rows each),
+            # then I keep my own pod's chunk
+            pods = collectives.all_gather(run[0], mesh, axis_tuple(lv.axes))
+            replays, own = route
+            for partner, keep in replays:
+                pods = merge_split(pods, take(pods, partner), keep)
+            run = pods[own:own + 1]
+        else:
+            other = collectives.ppermute(run, mesh, lv.axis, lv.perm)
+            run = merge_split(run, other, route)
+    return run
+
+
+def _unlocalised_rank(xloc: torch.Tensor, mesh: RankMesh, *, axes, w: int,
+                      homing: Homing, local_sort: LocalSort) -> torch.Tensor:
+    """Per-rank body, non-localised (`repro/core/engine.py:443-484`): one
+    full all_gather per level, every rank merging its whole copy and
+    keeping its own shard, in the input homing."""
+    chunk = xloc.shape[-1]
+    m = math.prod(mesh.shape[a] for a in axes)
+    n_p = m * chunk
+    d = mesh.index(axes)
+
+    def gather(row):                    # every rank receives every shard
+        return logical_view(collectives.all_gather(row.view(chunk), mesh,
+                                                   axes), homing)
+
+    def scatter(full):                  # I keep my own shard
+        if homing == Homing.LOCAL_CHUNKED:
+            return full.view(m, chunk)[d:d + 1]
+        return bits_view(full).view(chunk, m)[:, d].contiguous().view(
+            full.dtype).view(1, chunk)
+
+    runs = _leaf_sort(gather(xloc).reshape(w, n_p // w), local_sort)
+    xloc = scatter(runs.reshape(n_p))
+    k = w
+    while k > 1:                        # one full exchange a level
+        runs = gather(xloc).reshape(k, n_p // k)
+        xloc = scatter(merge_sorted(runs[0::2], runs[1::2]).reshape(n_p))
+        k //= 2
+    return xloc
+
+
+def _rank_sort(x, mesh: RankMesh, policy: LocalisationPolicy,
+               num_workers: Optional[int], local_sort: LocalSort, axis: Axis,
+               local_phase: str):
+    """`shard_map_sort` on a `RankMesh`: run the per-rank body on the row
+    of `x`, this rank's `Homed` shard (the entry point's `place`); returns
+    the sorted row as a `Homed`, chunk-contiguous when localised, in the
+    input homing when not."""
+    from repro_torch.core.api import Homed   # local: api imports this module
+    axes = axis_tuple(axis)
+    sizes = _axes_sizes(mesh, axes)
+    m = math.prod(sizes)
+    w = num_workers or m
+    hash_homed = policy.homing == Homing.HASH_INTERLEAVED
+    granule = engine_granule(m, num_workers, hash_homed)
+    if not isinstance(x, Homed):
+        raise TypeError(f"the engine on a RankMesh sorts this rank's shard, "
+                        f"got a {type(x).__name__}: place the whole input "
+                        f"with the entry point's `place` (Locale.put)")
+    if x.homing != policy.homing:
+        raise TypeError(f"a {x.homing.value!r}-homed shard given to a "
+                        f"{policy.homing.value!r} engine: place it with "
+                        f"the entry point's `place` (Locale.put)")
+    check_nan_free(x.data, "sort")
+    row = x.data.to(mesh.device)
+    chunk = row.shape[-1]
+    if (m * chunk) % granule:
+        raise ValueError(
+            f"{m} x {chunk} elements are not a multiple of the engine's "
+            f"granule {granule}: place the input padded (the entry point's "
+            f"`place`)")
+    if policy.localised:
+        y = _localised_rank(
+            row, mesh, axes=axes, sizes=sizes, chunk=chunk, w_per_dev=w // m,
+            hash_homed=hash_homed, local_sort=local_sort,
+            net=exchange_network(policy, sizes, axes),
+            local_phase=local_phase)
+        return Homed(y, Homing.LOCAL_CHUNKED, axis)
+    y = _unlocalised_rank(row, mesh, axes=axes, w=w, homing=policy.homing,
+                          local_sort=local_sort)
+    return Homed(y, policy.homing, axis)
+
+
+def gather_sorted(y, mesh: RankMesh, n: Optional[int] = None) -> torch.Tensor:
+    """The logical order of a rank-engine result (a `Homed` of every
+    rank's row), on every rank, cut to `n`: one all_gather over the
+    result's axes, for checks -- never inside a timed call."""
+    rows = collectives.all_gather(y.data.view(-1), mesh, axis_tuple(y.axis))
+    return logical_view(rows, y.homing)[:n]
+
+
+def shard_map_sort(x, mesh: Union[HomeMesh, RankMesh],
                    policy: LocalisationPolicy = LocalisationPolicy(),
                    num_workers: Optional[int] = None,
                    local_sort: LocalSort = "bitonic", axis: Axis = AXIS,
-                   local_phase: Optional[str] = None) -> torch.Tensor:
-    """Sort a 1-D tensor on the mesh's homes; returns the logical order.
+                   local_phase: Optional[str] = None):
+    """Sort a 1-D tensor on the mesh's homes.
 
+    On a `HomeMesh`: returns the logical order.  On a `RankMesh`: `x` is
+    this rank's shard (a `Homed`, placed by the entry point's ``place``);
+    returns this rank's sorted shard as a `Homed`.
     ``local_phase`` selects the per-home compute (see the module
     docstring): "kernel", "reference", or None = auto by ``local_sort``.
     """
     local_phase = resolve_local_phase(local_phase, local_sort)
     axes = axis_tuple(axis)
     sizes = _axes_sizes(mesh, axes)
-    n = x.shape[0]
     m = math.prod(sizes)
     w = num_workers or m
     hash_homed = policy.homing == Homing.HASH_INTERLEAVED
@@ -568,8 +732,11 @@ def shard_map_sort(x: torch.Tensor, mesh: HomeMesh,
         raise ValueError(
             f"hierarchical policy {policy.name!r} needs a (pod, ..., inner) "
             f"axis tuple, got {axis!r} — use a flat policy on one axis")
-
+    if isinstance(mesh, RankMesh):
+        return _rank_sort(x, mesh, policy, num_workers, local_sort, axis,
+                          local_phase)
     granule = engine_granule(m, num_workers, hash_homed)
+    n = x.shape[0]
     x = pad_to_multiple(x, granule)
     n_p = x.shape[0]
     bounds = chunk_bounds(n_p, m)                  # ownership, paper step 1
@@ -589,15 +756,75 @@ def shard_map_sort(x: torch.Tensor, mesh: HomeMesh,
     return logical_view(y, out_homing)[:n]
 
 
-def make_engine_fn(mesh: Optional[HomeMesh], policy: LocalisationPolicy,
+def _rank_place(x, mesh: RankMesh, policy: LocalisationPolicy, granule: int,
+                axis: Axis):
+    """This rank's shard of the whole 1-D input `x` (the same on every
+    rank), NaN-checked and padded to `granule`: `Locale.put`'s `Homed`
+    row."""
+    from repro_torch.core.api import Locale  # local: api imports this module
+    x = torch.as_tensor(x)
+    if x.dim() != 1:
+        raise ValueError(f"sort takes a 1-D input, got shape "
+                         f"{tuple(x.shape)}")
+    check_nan_free(x, "sort")
+    return Locale(mesh, axis, policy).put(
+        pad_to_multiple(x, granule, nan_check=False))
+
+
+_SORT_CALLS = itertools.count()
+
+
+def _traced(entry, mesh, sizes, policy: LocalisationPolicy,
+            num_workers: Optional[int], local_phase: Optional[str]):
+    """`entry` inside the reference's ``engine.sort`` span when a tracer is
+    on: the span stamps what `obs.reconcile` needs to recompute
+    `exchange_schedule`, and one ``engine.exchange_level`` event carries
+    each of its records.  On a `RankMesh` only rank 0 emits."""
+    m = math.prod(sizes)
+
+    @functools.wraps(entry)
+    def traced(x, *a, **kw):
+        tr = get_tracer()
+        if not tr.enabled or getattr(mesh, "rank", 0) != 0:
+            return entry(x, *a, **kw)
+        from repro_torch.core.api import Homed   # local: cycle
+        if isinstance(x, Homed):                    # a placed shard
+            n, itemsize = x.data.numel() * m, x.data.element_size()
+        else:
+            x = torch.as_tensor(x)
+            n, itemsize = int(x.shape[0]), x.element_size()
+        cid = next(_SORT_CALLS)
+        with tr.span("engine.sort", cat="engine", call=cid, n=n,
+                     sizes=list(sizes), num_workers=num_workers,
+                     itemsize=itemsize, local_phase=local_phase,
+                     policy={"localised": policy.localised,
+                             "static_mapping": policy.static_mapping,
+                             "homing": policy.homing.name,
+                             "outer": policy.outer}) as sp:
+            for lr in exchange_schedule(n, sizes, policy,
+                                        num_workers=num_workers,
+                                        itemsize=itemsize,
+                                        local_phase=local_phase):
+                sp.event("engine.exchange_level", call=cid, **lr)
+            return entry(x, *a, **kw)
+
+    traced.__wrapped__ = getattr(entry, "__wrapped__", entry)
+    return traced
+
+
+def make_engine_fn(mesh: Optional[Union[HomeMesh, RankMesh]],
+                   policy: LocalisationPolicy,
                    num_workers: Optional[int] = None,
                    local_sort: LocalSort = "bitonic", axis: Axis = AXIS,
                    local_phase: Optional[str] = None):
-    """The engine sort for one Table-1 case: ``fn(x) -> sorted 1-D``.
+    """The engine sort for one Table-1 case.
 
-    ``x`` is a 1-D tensor or array; it is NaN-checked, moved to the mesh's
-    device, padded and sorted, and the result stays on that device.
-    ``mesh=None`` is one home on the default device (``"cuda"``).
+    On a `HomeMesh` (``mesh=None``: one home on ``"cuda"``): ``fn(x) ->
+    sorted 1-D``; ``x`` is a 1-D tensor or array, NaN-checked, moved to
+    the mesh's device, padded and sorted, and the result stays there.  On
+    a `RankMesh`: ``fn(shard) -> this rank's sorted shard`` (a `Homed`,
+    `shard_map_sort`), and ``fn.place(x)`` gives the rank's shard of the
+    whole input `x`, padded to the engine's granule, on its device.
     """
     resolve_local_phase(local_phase, local_sort)    # fail fast, not at call
     if mesh is None:
@@ -605,10 +832,17 @@ def make_engine_fn(mesh: Optional[HomeMesh], policy: LocalisationPolicy,
         mesh = HomeMesh({a: 1})
         axis = a
     axes = axis_tuple(axis)
-    m = math.prod(_axes_sizes(mesh, axes))
+    sizes = _axes_sizes(mesh, axes)
+    m = math.prod(sizes)
     hash_homed = policy.homing == Homing.HASH_INTERLEAVED
     granule = engine_granule(m, num_workers, hash_homed)
     fn = partial(shard_map_sort, mesh=mesh, policy=policy,
                  num_workers=num_workers, local_sort=local_sort, axis=axis,
                  local_phase=local_phase)
-    return sort_entry(fn, granule, mesh.device)
+    if isinstance(mesh, RankMesh):
+        traced = _traced(fn, mesh, sizes, policy, num_workers, local_phase)
+        traced.place = partial(_rank_place, mesh=mesh, policy=policy,
+                               granule=granule, axis=axis)
+        return traced
+    return _traced(sort_entry(fn, granule, mesh.device), mesh, sizes, policy,
+                   num_workers, local_phase)

@@ -67,6 +67,23 @@ def to_layout(x: torch.Tensor, mesh, homing: Homing,
     return x.reshape(n // N, N).t().contiguous()
 
 
+def rank_shard(x: torch.Tensor, mesh, homing: Homing,
+               axis: Axis = "data") -> torch.Tensor:
+    """This rank's shard of a 1-D tensor on a `RankMesh`, as a fresh
+    ``(1, n/N)`` row on its device: row d of what `to_layout` gives on a
+    `HomeMesh` of the same shape (chunk d, or column d of the ``(n/N, N)``
+    view), d the rank's home on `axis`."""
+    n = x.shape[0]
+    N = axis_size(mesh, axis)
+    check_divisible(n, N, homing, str(axis))
+    d = mesh.index(axis_tuple(axis))
+    if homing == Homing.LOCAL_CHUNKED:
+        row = x[d * (n // N):(d + 1) * (n // N)]
+    else:
+        row = x.view(n // N, N)[:, d]
+    return row.to(mesh.device, copy=True).contiguous().view(1, n // N)
+
+
 def logical_view(rows: torch.Tensor, homing: Homing) -> torch.Tensor:
     """Recover the logical 1-D order from the per-home rows."""
     if homing == Homing.LOCAL_CHUNKED:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.homing import Axis, Homing, Layout, axis_size, relayout
 from repro_torch.core.localisation import LocalisationPolicy
-from repro_torch.core.mesh import entry_device
+from repro_torch.core.mesh import entry_device, one_process
 from repro_torch.kernels.bitonic_sort import widen
 
 BIG = {torch.int32: torch.iinfo(torch.int32).max,
@@ -295,7 +295,6 @@ def make_sort_fn(mesh, policy, num_workers=None, local_sort=None,
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
-    dev = entry_device(mesh, device)
     if backend == "shard_map":
         from repro_torch.core.engine import make_engine_fn  # local: cycle
         if mesh is None and device is not None:
@@ -304,10 +303,12 @@ def make_sort_fn(mesh, policy, num_workers=None, local_sort=None,
         return make_engine_fn(mesh, policy, num_workers=num_workers,
                               local_sort=local_sort or "bitonic", axis=axis,
                               local_phase=local_phase)
+    one_process(mesh, "the constraint backend")
     if local_phase not in (None, "reference"):
         raise ValueError(
             f"local_phase={local_phase!r} needs backend='shard_map' -- the "
             f"constraint tree's local phase is the reference's by nature")
+    dev = entry_device(mesh, device)
     fn = functools.partial(distributed_merge_sort, mesh=mesh, policy=policy,
                            num_workers=num_workers, local_sort=local_sort,
                            axis=axis)

@@ -13,8 +13,11 @@ workload(s) once on `--device` (default the card; ``--device cpu`` runs
 the kernels' plain versions and records the launches the card would
 make) over a `HomeMesh` of homes on that one device, records every kernel
 launch, and runs rules R3/R5/R6/R7/R8 on them (`repro_torch.analysis`);
-R1, R2, R4, R9, R10 and R11 have no port counterpart yet and are noted as
-skipped.  ``--pods PxD`` is the mesh's shape, ``{"pod": P, "data": D}``
+R1 and R2 read the collectives of a `RankMesh`'s ranks: `Locale.check`
+called in every rank of a world, or ``python -m repro_torch.launch.sort``,
+which runs them on every rank's collectives of every case
+(`launch.sort.rank_report`).  On this one-process mesh they are noted as
+skipped, as R4, R9, R10 and R11 are.  ``--pods PxD`` is the mesh's shape, ``{"pod": P, "data": D}``
 (``{"data": D}`` for P = 1); it sets no environment variable.  Without it
 the locale has no mesh: one home, as the reference on a one-device host.
 When R6 is active the run also prints the repo-wide certificate: every

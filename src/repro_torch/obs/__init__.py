@@ -1,7 +1,6 @@
 """Structured observability: tracing and the per-home metrics registry.
 
-The counterpart of `repro.obs`, without ``reconcile`` (the trace
-validator, which comes with the engine's tracing):
+The counterpart of `repro.obs`:
 
 ``repro_torch.obs.tracelog``
     `Span`/`Event`/`Counter`/`Gauge`, a thread-safe in-memory `Tracer` with
@@ -13,6 +12,11 @@ validator, which comes with the engine's tracing):
     (`summarise` -> `format_summary` / `bench_rows` / JSON) that the
     serving launcher's exit summary and the trace's ``sched.summary``
     event share.
+
+``repro_torch.obs.reconcile``
+    The offline trace validator: schema checks, then the serving
+    identities against each ``sched.summary`` and I-engine, each
+    ``engine.sort`` span's levels against `exchange_schedule`.
 """
 from repro_torch.obs.tracelog import (NULL_TRACER, Counter, Event, Gauge,
                                       NullTracer, Span, Tracer, get_tracer,

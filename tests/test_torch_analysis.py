@@ -624,5 +624,4 @@ def test_normalize_rules():
     assert normalize_rules("R5,R8") == ("R5", "R8")
     with pytest.raises(ValueError, match="unknown rule"):
         normalize_rules(["R12"])
-    assert port_homecheck.NOT_PORTED.keys() == {"R1", "R2", "R4", "R9",
-                                                "R10", "R11"}
+    assert port_homecheck.NOT_PORTED.keys() == {"R4", "R9", "R10", "R11"}

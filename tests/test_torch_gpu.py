@@ -625,3 +625,68 @@ def test_flash_attention_refuses_autograd_on_card():
     assert ops.launch_counts()["flash_attention"] == 1 + cfg.num_layers
 
 
+
+
+def _two_ranks_on_card(device, n, seed):
+    """A rank of the card test below: the 8 cases, int32 and float32, on
+    a 2-rank `RankMesh` of the card (gloo, staged exchanges)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.mesh import RankMesh
+    mesh = RankMesh({"data": 2}, device=device)
+    out = {}
+    for k, c in CASES.items():
+        policy = LocalisationPolicy(c.localised, c.static_mapping,
+                                    Homing(c.homing))
+        fn = Locale(mesh, "data", policy).workload("sort",
+                                                   backend="shard_map")
+        for dt in ("int32", "float32"):
+            shard = fn.place(torch.from_numpy(make_sort_data(n, dt,
+                                                             seed + k)))
+            ops.reset_launches()
+            coll.reset_collectives()
+            y = fn(shard)
+            torch.cuda.synchronize()
+            out[(k, dt)] = {"row": nbits(y.data), "homing": y.homing.value,
+                            "launches": ops.launch_counts(),
+                            "staged": coll.staged_bytes(),
+                            "log": coll.collective_log()}
+    return out
+
+
+@pytest.mark.gpu
+def test_rank_engine_on_card_matches_home_mesh():
+    """Two gloo ranks sharing the card, each launching the kernels on its
+    own row, give row r of the one-process HomeMesh engine's result bit
+    for bit; every exchange is staged through pinned host memory."""
+    _need_card()
+    from repro_torch.core.engine import engine_granule
+    from repro_torch.core.sort import pad_to_multiple
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn
+    _build.build(("local_sort", "merge_split"))    # once, before the ranks
+    n, seed = (1 << 16) + 5, 41
+    ranks = spawn(_two_ranks_on_card, 2, "gloo", "cuda", n, seed)
+    for k, c in CASES.items():
+        policy = LocalisationPolicy(c.localised, c.static_mapping,
+                                    Homing(c.homing))
+        hash_homed = policy.homing == Homing.HASH_INTERLEAVED
+        for dt in ("int32", "float32"):
+            x = torch.from_numpy(make_sort_data(n, dt, seed + k))
+            y = Locale(HomeMesh({"data": 2}), "data", policy).workload(
+                "sort", backend="shard_map")(x.cuda())
+            padded = pad_to_multiple(y, engine_granule(2, None, hash_homed))
+            homing = Homing.LOCAL_CHUNKED if c.localised else policy.homing
+            rows = (padded.view(2, -1) if homing == Homing.LOCAL_CHUNKED
+                    else padded.view(-1, 2).t())
+            for r, res in enumerate(ranks):
+                got = res[(k, dt)]
+                assert got["homing"] == homing.value
+                np.testing.assert_array_equal(got["row"][0], nbits(rows[r]))
+                if c.localised:
+                    assert got["launches"]["local_sort"] == 1
+                    assert got["launches"]["merge_split"] == 1
+                assert got["staged"] == sum(rec["staged_bytes"]
+                                            for rec in got["log"]) > 0
+                for rec in got["log"]:        # a permute stages out and in
+                    if rec["kind"] == "collective-permute":
+                        assert rec["staged_bytes"] == 2 * rec["wire_bytes"]
