@@ -53,6 +53,22 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 with its int8 wire; (d) every rank's collective log of
                 every call of (a) and (b) equal to `exchange_schedule` / m
                 op for op and to `collective_census`, and R1/R2 clean;
+                (e) the constraint tree (the default ``workload("sort")``)
+                on the same 8 ranks, the 8 cases x (int32, float32) at
+                n = 2^24 + 5; (f) its flagships at n = 100,000,000 int32
+                (cases 8, 3 and 4 on {"data": 8}, case 8 on {"pod": 2,
+                "data": 4}), timed as (b), with launches (`local_sort`,
+                `merge_runs`) by rank as the layouts predict, wire,
+                inter-pod and staged bytes and peak by rank, rank 0's
+                kernels by `torch.profiler`: every rank's elements equal
+                by SHA-256 to the one-process tree's under the final
+                layout, every log to `constraint_schedule` op for op, R2
+                clean; (g) Fig 1 across the ranks (localised, static
+                non-localised, auto; n = 2^24 f32 at R = 2, 8, 32 and
+                100 M at R = 8): each rank's chunk equal by SHA-256 to
+                the one-process microbench's, R `localised_copy` launches
+                a rank, wire bytes the one-process relayout bytes / 8,
+                and the gap against R;
                 then an NCCL world of `torch.cuda.device_count()` ranks,
                 one a card (case 8 at n = 2^24 + 5, checked the same way;
                 on one card one rank, with no exchange).  Any rank's
@@ -816,6 +832,14 @@ PSUM_SHAPE = (1024, 3072)
 #: tag: (mesh shape, axis, its policy's name in `launch.sort.policies`)
 RANK_FLAGSHIPS = {"flat": ({"data": 8}, "data", "case8"),
                   "hier": ({"pod": 2, "data": 4}, ("pod", "data"), "hier")}
+#: the constraint tree's flagships across ranks, at N_FLAGSHIP int32: tag:
+#: (the `RANK_FLAGSHIPS` mesh it runs on, axis, policy name)
+TREE_FLAGSHIPS = {"case8": ("flat", "data", "case8"),
+                  "case3": ("flat", "data", "case3"),
+                  "case4": ("flat", "data", "case4"),
+                  "case8_pods": ("hier", ("pod", "data"), "case8")}
+#: Fig 1 across ranks: (n float32, the R of each run)
+RANK_FIG1 = ((2**24, (2, 8, 32)), (N_FLAGSHIP, (8,)))
 
 
 def digest(t: torch.Tensor) -> str:
@@ -856,7 +880,8 @@ def rank_child(device, seed: int, want: dict, sizes: dict) -> dict:
     """One rank of the ranks phase: (a) the 8 cases at n_engine, (b) the
     flagships at n_flagship, (c) compressed_psum (`sizes`); each sort's
     row held to the one-process engine's by digest, its collectives to the
-    schedule, the census and R1/R2."""
+    schedule, the census and R1/R2; then the constraint tree and Fig 1
+    (`tree_child`)."""
     need("jax" not in sys.modules, "a rank process imported JAX")
     import torch.distributed as dist
 
@@ -949,6 +974,8 @@ def rank_child(device, seed: int, want: dict, sizes: dict) -> dict:
                    "q": digest(qg) == want["psum"]["q"],
                    "s": digest(sg) == want["psum"]["s"],
                    "log": [(r["kind"], r["wire_bytes"]) for r in coll.LOG]}
+    del x, qg, sg, total
+    out["tree"] = tree_child(device, seed, want["tree"], sizes, meshes)
     out["jax_free"] = "jax" not in sys.modules
     return out
 
@@ -1017,6 +1044,308 @@ def rank_wants(seed: int, device) -> dict:
     return want
 
 
+def tree_digests(y: torch.Tensor, shape: dict, axis, policy) -> list:
+    """The digest of what each rank of `shape` holds of the one-process
+    constraint tree's result `y` (logical order): padded to the rank
+    tree's granule, its elements under the tree's final layout (the last
+    move of `constraint_schedule`; replicated: the whole)."""
+    from repro_torch.core.homing import Layout, positions
+    from repro_torch.core.sort import (constraint_schedule, pad_to_multiple,
+                                       rank_granule)
+    axes = (axis,) if isinstance(axis, str) else axis
+    N = math.prod(shape[a] for a in axes)
+    y = pad_to_multiple(y, rank_granule(N, policy, None), nan_check=False)
+    moves = constraint_schedule(y.numel(), tuple(shape[a] for a in axes),
+                                policy)
+    lay = moves[-1]["dst"] if moves else Layout("chunked", N)
+    return [digest(y[positions(y.numel(), lay, d, y.device)])
+            for d in range(N)]
+
+
+def tree_launches(policy, N: int) -> dict:
+    """The constraint tree's launches by home with m = N workers, as its
+    layouts predict: a home sorts leaves and merges pair-rows where it
+    leads rows (`Layout("leaders", N, rows)`), every home every row under
+    replicated (case 4)."""
+    from repro_torch.core.homing import Homing, Layout, shares
+    levels = N.bit_length() - 1
+    if policy.static_mapping and not policy.localised \
+            and policy.homing == Homing.LOCAL_CHUNKED:
+        return {"local_sort": [1] * N, "merge_runs": [levels] * N}
+    leads = [shares(N * N, Layout("leaders", N, N >> j)) > 0
+             for j in range(levels + 1)]
+    return {"local_sort": [int(h) for h in leads[0]],
+            "merge_runs": [int(sum(lv[d] for lv in leads[1:]))
+                           for d in range(N)]}
+
+
+def tree_wants(seed: int, device, sizes: dict) -> dict:
+    """What every rank of the tree's part must give, from the one-process
+    port on `device`: digests of each rank's elements of the constraint
+    tree's result (the 8 cases at n_engine, the flagships at n_flagship),
+    and for Fig 1 of each rank's chunk with the one-process relayout
+    bytes."""
+    from repro_torch.convert import make_fig1_data, make_sort_data
+    from repro_torch.core import HomeMesh, Homing, Locale, LocalisationPolicy
+    from repro_torch.core.homing import relayout_counts, reset_relayouts
+    from repro_torch.launch.sort import policies
+
+    want = {"cases": {}, "flagships": {}, "fig1": {}}
+    flat = RANK_FLAGSHIPS["flat"][0]
+    for tag, policy in policies(False).items():
+        fn = Locale(HomeMesh(flat, device=device), "data", policy).workload(
+            "sort")
+        k = int(tag.removeprefix("case"))
+        for dt in ("int32", "float32"):
+            x = torch.from_numpy(make_sort_data(sizes["n_engine"], dt,
+                                                seed + k))
+            want["cases"][f"case{k}_{dt}"] = tree_digests(
+                fn(x.to(device)), flat, "data", policy)
+    x = torch.from_numpy(make_sort_data(sizes["n_flagship"], "int32", seed))
+    for tag, (mesh_tag, axis, pname) in TREE_FLAGSHIPS.items():
+        shape, policy = RANK_FLAGSHIPS[mesh_tag][0], policies(False)[pname]
+        fn = Locale(HomeMesh(shape, device=device), axis, policy).workload(
+            "sort")
+        want["flagships"][tag] = tree_digests(fn(x.to(device)), shape, axis,
+                                              policy)
+    for n, reps in sizes["fig1"]:
+        x = torch.from_numpy(make_fig1_data(n, "float32", seed)).to(device)
+        for name, (loc, static, h) in FIG1_POLICIES.items():
+            for R in reps:
+                reset_relayouts()
+                y = Locale(HomeMesh(flat, device=device), "data",
+                           LocalisationPolicy(loc, static, Homing(h))
+                           ).workload("microbench", reps=R)(x)
+                want["fig1"][f"{name}_n{n}_R{R}"] = {
+                    "digests": [digest(c) for c in y.view(RANKS, -1)],
+                    "bytes": relayout_counts()["bytes"]}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return want
+
+
+def timed_calls(call, device, calls: int = 3) -> list:
+    """Host-clock ms of `calls` calls on every rank, a barrier before
+    each (the caller has warmed up)."""
+    import torch.distributed as dist
+    times = []
+    for _ in range(calls):
+        dist.barrier()
+        sync(device)
+        t0 = time.perf_counter()
+        call()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def tree_child(device, seed: int, want: dict, sizes: dict, meshes: dict
+               ) -> dict:
+    """One rank of the ranks phase's tree part: (e) the constraint tree,
+    the 8 cases at n_engine; (f) its flagships at n_flagship; (g) Fig 1
+    across ranks.  Each result held to the one-process port's by digest,
+    each log to `constraint_schedule` and R2."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import make_fig1_data, make_sort_data
+    from repro_torch.core import Homing, Locale, LocalisationPolicy
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sort import policies, rank_report
+
+    rank = dist.get_rank()
+    cuda = torch.device(device).type == "cuda"
+    flat = meshes["flat"]
+    out = {"cases": {}, "flagships": {}, "fig1": {}}
+    # (e) the 8 Table-1 cases through the default workload("sort")
+    for tag, policy in policies(False).items():
+        k = int(tag.removeprefix("case"))
+        for dt in ("int32", "float32"):
+            fn = Locale(flat, "data", policy).workload("sort")
+            share = fn.place(torch.from_numpy(
+                make_sort_data(sizes["n_engine"], dt, seed + k)))
+            ops.reset_launches()
+            coll.reset_collectives()
+            y = fn(share)
+            sync(device)
+            out["cases"][f"case{k}_{dt}"] = {
+                "equal": digest(y.data) == want["cases"][f"case{k}_{dt}"][rank],
+                "launches": ops.launch_counts(),
+                **rank_report(coll.collective_log(), flat, ("data",),
+                              sizes["n_engine"], policy, 4,
+                              backend="constraint")}
+    # (f) the tree's flagships at the paper's size
+    for tag, (mesh_tag, axis, pname) in TREE_FLAGSHIPS.items():
+        mesh, policy = meshes[mesh_tag], policies(False)[pname]
+        axes = (axis,) if isinstance(axis, str) else axis
+        fn = Locale(mesh, axis, policy).workload("sort")
+        share = fn.place(torch.from_numpy(
+            make_sort_data(sizes["n_flagship"], "int32", seed)))
+        sync(device)
+        # the path's counted run: counts to 0 just before, read after
+        ops.reset_launches()
+        coll.reset_collectives()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        y = fn(share)
+        sync(device)
+        res = {"peak_bytes": (torch.cuda.max_memory_allocated() - base
+                              if cuda else None),
+               "launches": ops.launch_counts(),
+               "staged": coll.staged_bytes(),
+               "wire": sum(r["wire_bytes"] for r in coll.LOG),
+               "inter_pod": sum(r["inter_pod_bytes"] for r in coll.LOG),
+               "equal": digest(y.data) == want["flagships"][tag][rank],
+               **rank_report(coll.collective_log(), mesh, axes,
+                             sizes["n_flagship"], policy, 4,
+                             backend="constraint")}
+        del y
+        res["times_ms"] = timed_calls(lambda: fn(share), device)
+        if rank == 0 and cuda:
+            prof = profile_call(lambda: fn(share))
+            res["kernel_ms"] = device_ms_by(prof, CONSTRAINT_KERNELS)
+        else:
+            fn(share)
+            sync(device)
+        out["flagships"][tag] = res
+        del share
+    # (g) Fig 1 across ranks: each rank passes over its own chunk
+    for n, reps in sizes["fig1"]:
+        x = torch.from_numpy(make_fig1_data(n, "float32", seed))
+        for name, (loc, static, h) in FIG1_POLICIES.items():
+            for R in reps:
+                key = f"{name}_n{n}_R{R}"
+                fn = Locale(flat, "data", LocalisationPolicy(
+                    loc, static, Homing(h))).workload("microbench", reps=R)
+                chunk = fn.place(x)
+                sync(device)
+                ops.reset_launches()
+                coll.reset_collectives()
+                y = fn(chunk)
+                sync(device)
+                res = {"equal": digest(y) == want["fig1"][key]["digests"][rank],
+                       "launches": ops.launch_counts()["localised_copy"],
+                       "wire": sum(r["wire_bytes"] for r in coll.LOG),
+                       "kinds": sorted({r["kind"] for r in coll.LOG}),
+                       "collectives": len(coll.LOG),
+                       "staged": coll.staged_bytes()}
+                del y
+                res["times_ms"] = timed_calls(lambda: fn(chunk), device)
+                out["fig1"][key] = res
+    return out
+
+
+def tree_summary(ranks: list, device, sizes: dict) -> dict:
+    """Check and print the ranks' tree part (`tree_child`): every rank's
+    elements equal to the one-process port's, its log to
+    `constraint_schedule`, R2 clean, its launches as the layouts predict;
+    Fig 1's wire bytes the one-process relayout bytes / RANKS."""
+    from repro_torch.launch.sort import policies
+    cuda = torch.device(device).type == "cuda"
+    for r in ranks:
+        t = r["tree"]
+        for key, res in list(t["cases"].items()) + list(
+                t["flagships"].items()):
+            what = f"ranks tree: rank {r['rank']} {key}"
+            need(res["equal"], f"{what}: its elements differ from the "
+                               f"one-process constraint tree's")
+            need(not res["schedule"], f"{what}: {res['schedule']}")
+            need(not res["findings"], f"{what}: R2 {res['findings']}")
+    for key in ranks[0]["tree"]["cases"]:
+        policy = policies(False)[key.split("_")[0]]
+        want = tree_launches(policy, RANKS)
+        for k in ("local_sort", "merge_runs"):
+            got = [r["tree"]["cases"][key]["launches"][k] for r in ranks]
+            need(not cuda or got == want[k], f"ranks tree {key}: {k} "
+                 f"launches by rank {got}, the layouts predict {want[k]}")
+    out = {"flagships": {}, "fig1": {}}
+    say(f"phase ranks (e): the constraint tree (the default "
+        f"workload('sort')) on {RANKS} gloo ranks, the 8 Table-1 cases x "
+        f"(int32, float32) at n={sizes['n_engine']}: every rank's elements "
+        f"equal by SHA-256 to the one-process HomeMesh tree's under the "
+        f"final layout; every rank's collectives equal to "
+        f"constraint_schedule op for op; R2 clean; launches by rank as the "
+        f"layouts predict")
+    for tag, (mesh_tag, axis, pname) in TREE_FLAGSHIPS.items():
+        rs = [r["tree"]["flagships"][tag] for r in ranks]
+        times = [max(r["times_ms"][i] for r in rs) for i in range(3)]
+        policy = policies(False)[pname]
+        launches = {k: [r["launches"][k] for r in rs]
+                    for k in ("local_sort", "merge_runs")}
+        want = tree_launches(policy, RANKS)
+        if cuda:
+            need(launches == want, f"ranks tree {tag}: launches by rank "
+                                   f"{launches}, the layouts predict {want}")
+            kms = rs[0]["kernel_ms"]
+            need({"local_sort", "merge_runs"} <= set(kms),
+                 f"ranks tree {tag}: torch.profiler saw {kms} in rank 0")
+        res = {"median_ms": statistics.median(times), "times_ms": times,
+               "rank_times_ms": [r["times_ms"] for r in rs],
+               "launches": launches,
+               "wire_bytes": [r["wire"] for r in rs],
+               "inter_pod_bytes": [r["inter_pod"] for r in rs],
+               "staged_bytes": [r["staged"] for r in rs],
+               "peak_bytes": [r["peak_bytes"] for r in rs],
+               "kernel_ms_rank0": rs[0].get("kernel_ms")}
+        out["flagships"][tag] = res
+        say(f"phase ranks (f) tree {tag}: n={sizes['n_flagship']} int32 on "
+            f"{RANK_FLAGSHIPS[mesh_tag][0]}, {policy.name}: median "
+            f"{res['median_ms']:.3f} ms of 3 (slowest rank a call: "
+            f"{', '.join(f'{t:.3f}' for t in times)}); elements equal to the "
+            f"HomeMesh tree's; launches by rank {launches}; wire bytes by "
+            f"rank {res['wire_bytes']} (sum {sum(res['wire_bytes'])}; == "
+            f"constraint_schedule, op for op; R2 clean); inter-pod "
+            f"{res['inter_pod_bytes']}; staged bytes by rank "
+            f"{res['staged_bytes']}; peak bytes by rank {res['peak_bytes']}; "
+            f"rank 0's device ms and launches by wrapper (torch.profiler) "
+            + (by_wrapper(res["kernel_ms_rank0"])
+               if res["kernel_ms_rank0"] else "not profiled"))
+    want_fig1 = ranks[0]["tree"]["fig1"]
+    for key in want_fig1:
+        rs = [r["tree"]["fig1"][key] for r in ranks]
+        R = int(key.rsplit("_R", 1)[1])
+        for i, r in enumerate(rs):
+            need(r["equal"], f"ranks fig1 {key} rank {i}: its chunk differs "
+                             f"from the one-process microbench's")
+            need(not cuda or r["launches"] == R,
+                 f"ranks fig1 {key} rank {i}: {r['launches']} launches")
+        times = [max(r["times_ms"][i] for r in rs) for i in range(3)]
+        out["fig1"][key] = {"median_ms": statistics.median(times),
+                            "times_ms": times,
+                            "wire_bytes": [r["wire"] for r in rs],
+                            "staged_bytes": [r["staged"] for r in rs],
+                            "collectives": rs[0]["collectives"]}
+    return out
+
+
+def check_fig1_bytes(out: dict, want: dict) -> None:
+    """Each rank's Fig-1 wire bytes are the one-process relayout bytes /
+    RANKS; print the gap, non-localised over localised, against R."""
+    gaps = {}
+    for key, res in out["fig1"].items():
+        home = want["fig1"][key]["bytes"]
+        need(all(w * RANKS == home for w in res["wire_bytes"]),
+             f"ranks fig1 {key}: wire bytes by rank {res['wire_bytes']}, "
+             f"the one-process relayouts {home} B / {RANKS}")
+    for n, reps in RANK_FIG1:
+        for R in reps:
+            row = {p: out["fig1"][f"{p}_n{n}_R{R}"]["median_ms"]
+                   for p in FIG1_POLICIES}
+            row["gap"] = row["nonlocalised"] / row["localised"]
+            gaps[f"n{n}_R{R}"] = row
+    out["fig1_gap"] = gaps
+    say(f"phase ranks (g) fig1 across {RANKS} ranks: median ms of 3, the "
+        f"slowest rank (localised, nonlocalised, auto; gap), chunks equal by "
+        f"SHA-256 to the one-process microbench's, wire bytes by rank == "
+        f"the one-process relayout bytes / {RANKS} "
+        + json.dumps({k: [round(v[p], 3) for p in FIG1_POLICIES]
+                      + [round(v["gap"], 3)] for k, v in gaps.items()})
+        + "; wire bytes a rank " + json.dumps(
+            {k: v["wire_bytes"][0] for k, v in out["fig1"].items()
+             if k.startswith("nonlocalised")}))
+
+
 def phase_ranks(seed: int, device="cuda") -> dict:
     """The engine with one rank a home: 8 gloo ranks sharing the card,
     then an NCCL world of every card (see the module docstring)."""
@@ -1025,10 +1354,11 @@ def phase_ranks(seed: int, device="cuda") -> dict:
     from repro_torch.launch.sort import policies
 
     t_phase = time.perf_counter()
-    want = rank_wants(seed, device)
-    t0 = time.perf_counter()
     sizes = {"n_engine": N_ENGINE, "n_flagship": N_FLAGSHIP,
-             "psum": PSUM_SHAPE}
+             "psum": PSUM_SHAPE, "fig1": RANK_FIG1}
+    want = rank_wants(seed, device)
+    want["tree"] = tree_wants(seed, device, sizes)
+    t0 = time.perf_counter()
     ranks = spawn(rank_child, RANKS, "gloo", device, seed, want, sizes)
     spawn_s = time.perf_counter() - t0
     need(all(r["jax_free"] for r in ranks), "a rank imported JAX")
@@ -1107,9 +1437,22 @@ def phase_ranks(seed: int, device="cuda") -> dict:
     say(f"phase ranks (d): R1/R2 over {RANKS} ranks x "
         f"{len(ranks[0]['cases']) + len(RANK_FLAGSHIPS)} calls: {findings} "
         f"finding(s)")
-    out["rank_launches"] = {k: [c[k] for c in
-                                out["flagships"]["flat"]["launches"]]
-                            for k in ranks[0]["flagships"]["flat"]["launches"]}
+    out["tree"] = tree_summary(ranks, device, sizes)
+    check_fig1_bytes(out["tree"], want["tree"])
+    # each kernel's launches by rank in the counted runs of the main paths
+    # across ranks: the engine's flat flagship, the constraint tree's case
+    # 8 flagship and Fig 1's localised run at the largest n
+    fig1_key = "localised_n{}_R{}".format(*max(
+        (n, max(reps)) for n, reps in RANK_FIG1))
+    paths = {"engine": [r["flagships"]["flat"]["launches"] for r in ranks],
+             "constraint": [r["tree"]["flagships"]["case8"]["launches"]
+                            for r in ranks],
+             "fig1": [{"localised_copy": r["tree"]["fig1"][fig1_key][
+                 "launches"]} for r in ranks]}
+    out["rank_launches"] = {
+        k: {path: [c.get(k, 0) for c in counts]
+            for path, counts in paths.items()}
+        for k in ranks[0]["flagships"]["flat"]["launches"]}
     # the NCCL world: every card, one rank each
     world = torch.cuda.device_count() if torch.device(device).type == "cuda" \
         else 1
@@ -2632,8 +2975,10 @@ def main(argv=None) -> int:
            for k in SERVE_LINE_KEYS})
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
-    # each kernel's launches in each rank of the ranks phase's counted
-    # flat run (one rank a home, 8 ranks sharing the card)
+    # each kernel's launches by rank, {path: [launches of rank 0..7]}, in
+    # the ranks phase's three counted runs (one rank a home, 8 ranks
+    # sharing the card): the engine's flat flagship, the constraint tree's
+    # case 8 flagship and Fig 1's localised run at n = 100 M, R = 8
     for row in rows:
         row["rank_launches"] = ranks["rank_launches"][row["name"]]
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",

@@ -8,8 +8,10 @@ kernel wrapper on its path hands in the plan of the launches it makes (on
 the card, the launches themselves; on the CPU, the launches the card
 would make), and the rules run on those facts afterwards:
 
-  R1  on a `RankMesh`: this rank's collectives (`core.collectives`'s
-      log of the run) against `engine.collective_census`;
+  R1  on a `RankMesh`, for the engine: this rank's collectives
+      (`core.collectives`'s log of the run) against
+      `engine.collective_census` (the constraint tree and the microbench
+      have no budget, as in the reference: a note says R1 skipped);
   R2  on a `RankMesh`: the ranks each collective spans against the
       locale's declared axes;
   R3  shared memory per launch against `kernels.SMEM_BYTES_PER_BLOCK`;
@@ -125,8 +127,8 @@ def check_workload(locale, workload: str = "sort", *,
     for the microbench) on the locale's device -- without a mesh, on
     `device` (default ``"cuda"``) -- while recording its launches, and runs
     the selected rules (default all) on them.  On a `RankMesh` every rank
-    calls it (the engine's collectives span the ranks), and each rank's
-    report covers its own launches and collectives.
+    calls it (every workload's collectives span the ranks), and each
+    rank's report covers its own launches and collectives.
     """
     import torch
 
@@ -191,7 +193,7 @@ def check_workload(locale, workload: str = "sort", *,
             f"(check_decode) waits for its slice")
 
     x = torch.arange(n, dtype=torch.int32).to(dtype).to(dev)
-    if ranks:                       # the engine takes this rank's shard
+    if ranks:                       # each workload takes this rank's share
         x = fn.place(x)
     coll.reset_collectives()
     with record() as launches:

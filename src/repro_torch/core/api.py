@@ -1,12 +1,13 @@
 """The placement API — the paper's technique as a first-class object.
 
 The counterpart of `repro/core/api.py`, on a `HomeMesh` (every home a row
-of one tensor) or a `RankMesh` (every home a ``torch.distributed`` rank;
-there `put` gives the rank its own shard, `workload("sort",
-backend="shard_map")` / `workload("engine")` run the per-rank engine and
-`check` adds R1/R2 on the collectives; the constraint tree, the
-microbench and the relayout methods wait for ROADMAP.md Queue 1 item 1
-and raise `NotImplementedError`):
+of one tensor) or a `RankMesh` (every home a ``torch.distributed`` rank,
+holding its own elements: `put` gives the rank its shard, `pin` and
+`localise` move this rank's elements by counted collectives, `make`
+builds its chunk, every workload runs per rank, and each workload's
+``fn.place(x)`` gives the rank its share of the whole input; `check` adds
+R2 on the collectives, and R1 for the engine; `pin_tree` waits for
+serving across ranks and raises `NotImplementedError`):
 
 `Locale`
     A frozen bundle of ``(mesh, axis, LocalisationPolicy)``:
@@ -35,7 +36,8 @@ and raise `NotImplementedError`):
     ``(data, homing, axis)``: ``data`` is the ``(m, chunk)`` per-home
     tensor and ``.logical()`` gives the 1-D logical order.  On a
     `RankMesh`, ``data`` is this rank's ``(1, chunk)`` row
-    (`engine.gather_sorted` assembles a sorted result's logical order).
+    (`engine.gather_sorted` assembles an engine result's logical order,
+    `sort.gather_sorted` a constraint tree's `sort.RankPart`).
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.homing import (Axis, Homing, Layout, axis_size,
-                                     check_divisible, homing_layout,
+                                     axis_tuple, check_divisible,
+                                     homing_layout,
                                      logical_view, rank_shard, relayout,
                                      to_layout)
 from repro_torch.core.localisation import (LocalisationPolicy, chunk_bounds,
@@ -173,9 +176,10 @@ class Locale:
         under a localised policy it comes back chunk-contiguous, as a
         LOCAL_CHUNKED `Homed` (the reference keeps the old tag on data it
         has constrained to the chunked sharding; here the tag says where
-        the rows are), and otherwise unchanged.
+        the rows are), and otherwise unchanged.  On a `RankMesh` a raw
+        tensor is this rank's chunk, and the result its elements under
+        the policy's layout.
         """
-        one_process(self.mesh, "Locale.pin")
         if self.mesh is None or not self.policy.static_mapping:
             return x                         # no-op before any checking
         if isinstance(x, Homed):
@@ -191,14 +195,18 @@ class Locale:
 
     def localise(self, x):
         """The one-shot Algorithm-2 relayout into the locally-homed layout;
-        a `Homed` comes back as a LOCAL_CHUNKED `Homed`."""
-        one_process(self.mesh, "Locale.localise")
+        a `Homed` comes back as a LOCAL_CHUNKED `Homed`.  On a `RankMesh`
+        a raw tensor is this rank's chunk (nothing moves), and a `Homed`'s
+        row is relaid out by one counted all-to-all."""
         if not isinstance(x, Homed):
             return localise(x, self.mesh, self.axis)
         if self.mesh is None:
             return Homed(x.logical().reshape(1, -1), Homing.LOCAL_CHUNKED,
                          self.axis)
         src = homing_layout(x.homing, self.mesh, self.axis)
+        if isinstance(self.mesh, RankMesh):
+            y = localise(x.data, self.mesh, self.axis, src)
+            return Homed(y.view(1, -1), Homing.LOCAL_CHUNKED, self.axis)
         y = localise(x.logical(), self.mesh, self.axis, src)
         return Homed(to_layout(y, self.mesh, Homing.LOCAL_CHUNKED, self.axis),
                      Homing.LOCAL_CHUNKED, self.axis)
@@ -251,9 +259,9 @@ class Locale:
         mesh's device and returned as the logical ``shape`` tensor (the
         chunked layout's rows are its consecutive chunks).  Without a
         mesh, `cb` runs once over the full index, on `device` (default
-        ``"cuda"``; `entry_device`).
+        ``"cuda"``; `entry_device`).  On a `RankMesh` each rank builds
+        and returns its own chunk only, ``(shape[0] / N, *shape[1:])``.
         """
-        one_process(self.mesh, "Locale.make")
         shape = tuple(shape)
         dev = entry_device(self.mesh, device)
         rest = tuple(slice(None) for _ in shape[1:])
@@ -262,6 +270,11 @@ class Locale:
                 shape)
         check_divisible(shape[0], self.axis_size, Homing.LOCAL_CHUNKED,
                         str(self.axis))
+        if isinstance(self.mesh, RankMesh):
+            lo, hi = chunk_bounds(shape[0], self.axis_size)[
+                self.mesh.index(axis_tuple(self.axis))]
+            return torch.as_tensor(cb((slice(lo, hi),) + rest)).to(
+                dev).reshape((hi - lo,) + shape[1:])
         rows = [torch.as_tensor(cb((slice(lo, hi),) + rest)).to(dev)
                 for lo, hi in chunk_bounds(shape[0], self.axis_size)]
         return torch.stack(rows).view(shape)
@@ -272,6 +285,9 @@ class Locale:
             locale.workload("sort")                      # constraint backend
             locale.workload("sort", backend="shard_map")
             locale.workload("microbench", reps=R)
+
+        On a `RankMesh` each rank calls ``fn(fn.place(x))`` with the same
+        whole input `x` and gets its own part of the result.
         """
         try:
             builder = _WORKLOADS[name]
@@ -342,7 +358,6 @@ def _microbench_workload(locale: Locale, *, reps: int, device=None):
     """The Fig-1 repetitive-copy micro-benchmark (`core.microbench`).
     ``device``: where a mesh-less locale runs (default ``"cuda"``)."""
     from repro_torch.core.microbench import make_microbench_fn
-    one_process(locale.mesh, "the microbench")
     axis = locale.axis if locale.mesh is not None else "data"
     return make_microbench_fn(locale.mesh, locale.policy, reps, axis=axis,
                               device=device)

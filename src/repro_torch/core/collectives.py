@@ -7,6 +7,10 @@ ones over the mesh's axis subgroups:
   ``all_to_all(x, mesh, axes)``       ``jax.lax.all_to_all``: block j of
                                       dim 0 goes to home j of `axes`
                                       (``dist.all_to_all_single``);
+  ``all_to_all_v(x, mesh, axes, s, r)`` the uneven form, a relayout's
+                                      move between two layouts
+                                      (`homing.relayout`): s[j] elements
+                                      to home j, r[i] from home i;
   ``ppermute(x, mesh, axis, perm)``   ``jax.lax.ppermute``: one
                                       ``dist.batch_isend_irecv`` with the
                                       partner on `axis` that `perm` names;
@@ -32,12 +36,13 @@ group's, chosen by the caller; nothing switches backend on a failure.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.homing import Axis, axis_tuple
+from repro_torch.core.mesh import Axis, axis_tuple
 
 #: this process's collective records since the last `reset_collectives`
 LOG: List[Dict] = []
@@ -130,6 +135,36 @@ def all_to_all(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     return _view(recv, x)
 
 
+def all_to_all_v(x: torch.Tensor, mesh, axes: Axis,
+                 send_counts: Sequence[int],
+                 recv_counts: Sequence[int]) -> torch.Tensor:
+    """The uneven all-to-all: the 1-D `x` holds, in order, ``send_counts[j]``
+    elements for home j of `axes` (itself included); returns the
+    ``recv_counts[i]`` elements from each home i, stacked by source.  Both
+    counts come from the layout maps, the same on every rank, so no
+    sizes are exchanged (one ``dist.all_to_all_single`` with splits)."""
+    axes = axis_tuple(axes)
+    group, ranks = mesh.group(axes)
+    if len(send_counts) != len(ranks) or sum(send_counts) != x.numel():
+        raise ValueError(f"all_to_all_v over {axes!r}: {list(send_counts)} "
+                         f"for {len(ranks)} homes, {x.numel()} elements")
+    item = x.element_size()
+    send = _bytes(x)
+    if len(ranks) == 1:
+        _record("all-to-all", mesh, axes, mesh.partition(axes), {}, 0)
+        return x.reshape(-1).clone()
+    out_splits = [int(c) * item for c in recv_counts]
+    in_splits = [int(c) * item for c in send_counts]
+    recv, staged = _transport(
+        lambda r, s: dist.all_to_all_single(r, s, out_splits, in_splits,
+                                            group=group),
+        send, sum(out_splits), dist.get_backend(group))
+    _record("all-to-all", mesh, axes, mesh.partition(axes),
+            {r: b for r, b in zip(ranks, in_splits) if r != mesh.rank},
+            staged)
+    return recv.view(x.dtype)
+
+
 def ppermute(x: torch.Tensor, mesh, axis: str,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """`perm`'s ``(src, dst)`` pairs on `axis`'s index: this rank sends
@@ -207,6 +242,33 @@ def log_against_schedule(log: Sequence[Dict], schedule: Sequence[Dict],
     return out
 
 
+def log_against_moves(log: Sequence[Dict], moves: Sequence[Dict], d: int,
+                      sizes: Sequence[int]) -> List[str]:
+    """Where a rank's collective log differs from `sort.constraint_schedule`
+    op for op, the rank at home d of homes of `sizes` (outer first; with
+    more than one axis, the homes that share every outer coordinate
+    share a pod): the kind and the wire, inter-pod and intra-pod bytes,
+    row d of each move's ``send_counts`` off its diagonal, exactly.
+    Returns the differences (empty when they agree)."""
+    inner = sizes[-1] if len(sizes) > 1 else math.prod(sizes)
+    out = []
+    if len(log) != len(moves):
+        out.append(f"{len(log)} collectives logged, the schedule has "
+                   f"{len(moves)}")
+    for i, (got, w) in enumerate(zip(log, moves)):
+        row = [int(c) * w["itemsize"] for c in w["send_counts"][d]]
+        inter = sum(b for j, b in enumerate(row) if j // inner != d // inner)
+        intra = sum(row) - row[d] - inter
+        exp = {"kind": w["collective"], "wire_bytes": inter + intra,
+               "inter_pod_bytes": inter, "intra_pod_bytes": intra}
+        bad = {k: (got[k], v) for k, v in exp.items() if got[k] != v}
+        if bad:
+            out.append(f"collective {i} (level {w['level']} {w['move']} "
+                       f"{w['src']} -> {w['dst']}): " + ", ".join(
+                           f"{k} {a} != {b}" for k, (a, b) in bad.items()))
+    return out
+
+
 def census(log: Sequence[Dict]) -> Dict[str, Dict]:
     """A log folded as `engine.collective_census` folds the schedule:
     ``{kind: {"count", "wire_bytes"}}``, this rank's bytes."""
@@ -218,6 +280,6 @@ def census(log: Sequence[Dict]) -> Dict[str, Dict]:
     return out
 
 
-__all__ = ["all_to_all", "ppermute", "all_gather", "collective_log",
-           "reset_collectives", "staged_bytes", "log_against_schedule",
-           "census"]
+__all__ = ["all_to_all", "all_to_all_v", "ppermute", "all_gather",
+           "collective_log", "reset_collectives", "staged_bytes",
+           "log_against_schedule", "log_against_moves", "census"]

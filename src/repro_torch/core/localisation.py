@@ -1,4 +1,4 @@
-"""The paper's technique: Algorithm 1, for homes on a `HomeMesh`.
+"""The paper's technique: Algorithm 1, on a `HomeMesh` or a `RankMesh`.
 
   1. Divide the input array of size n into m = #homes chunks.       (bounds)
   2. Assign each chunk to a worker by passing pointers.              (rows)
@@ -10,7 +10,8 @@ The counterpart of `repro/core/localisation.py`: `chunk_bounds`,
 `LocalisationPolicy`, and the constraint-backend mechanics `localise`,
 `place` and `donate_buffers`.  Where the reference emits a sharding
 constraint, the port makes the relayout it stands for
-(`repro_torch.core.homing.relayout`).
+(`repro_torch.core.homing.relayout`): on a `HomeMesh` a copy between the
+rows of one tensor, on a `RankMesh` one counted collective.
 """
 from __future__ import annotations
 
@@ -82,10 +83,12 @@ class LocalisationPolicy:
 
 def localise(x, mesh, axis: Axis = "data", src: Optional[Layout] = None):
     """One-shot relayout of `x` (in `src`, default chunked) into the
-    chunk-contiguous locally-homed layout.  Identity without a mesh."""
+    chunk-contiguous locally-homed layout.  Identity without a mesh.  On a
+    `RankMesh` `x` is this rank's elements under `src`, and the result its
+    chunk (`homing.relayout`)."""
     if mesh is None:
         return x
-    return relayout(x, mesh, chunked_sharding(mesh, axis), src)
+    return relayout(x, mesh, chunked_sharding(mesh, axis), src, axis)
 
 
 def place(x, mesh, policy: LocalisationPolicy, axis: Axis = "data",

@@ -21,10 +21,20 @@ from __future__ import annotations
 import itertools
 import math
 import os
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+
+# A placement axis: one mesh axis name, or a tuple of names linearised
+# row-major (the hierarchical case — e.g. ("pod", "data"): pod-major home
+# order, so home d = pod * n_data + data_index owns logical chunk d).
+Axis = Union[str, Tuple[str, ...]]
+
+
+def axis_tuple(axis: Axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
 def resolve_device(device) -> torch.device:
@@ -86,12 +96,12 @@ class HomeMesh:
 
 def one_process(mesh, what: str) -> None:
     """Raise for what runs on one process's mesh only, given a
-    `RankMesh`: the constraint form (relayouts) across ranks is still to
-    port."""
+    `RankMesh`: `Locale.pin_tree`, whose only user is the serving stack,
+    waits for serving across ranks."""
     if isinstance(mesh, RankMesh):
         raise NotImplementedError(
-            f"{what} on a RankMesh waits for the constraint backend across "
-            f"ranks (DTensor placements, ROADMAP.md Queue 1 item 1)")
+            f"{what} on a RankMesh waits for serving across ranks, its only "
+            f"user (ROADMAP.md Queue 1 item 1)")
 
 
 #: the mesh axis that stands for the slow cross-pod link (the reference's

@@ -12,7 +12,9 @@ amortised, the paper's Figure 1.
 A pass is one launch of the `localised_copy` kernel with ``reps=1`` on
 the card (the one fused elementwise pass XLA makes of the reference's
 ``y * 1.0001 + 1.0``), its plain version on the CPU; the relayouts are
-`repro_torch.core.homing.relayout`s.
+`repro_torch.core.homing.relayout`s.  On a `RankMesh` each rank passes
+over the elements it holds, in whatever layout (a pass is elementwise),
+and each relayout is one counted all-to-all.
 
 Entry point: `Locale.workload("microbench", reps=R)` (`repro_torch.core.api`).
 """
@@ -22,9 +24,10 @@ import functools
 
 import torch
 
-from repro_torch.core.homing import Axis, constrain, homing_layout
+from repro_torch.core.homing import (Axis, Homing, constrain, homing_layout,
+                                     rank_shard)
 from repro_torch.core.localisation import LocalisationPolicy, localise
-from repro_torch.core.mesh import entry_device
+from repro_torch.core.mesh import RankMesh, entry_device
 from repro_torch.kernels import ops
 
 
@@ -36,7 +39,8 @@ def _pass(y: torch.Tensor) -> torch.Tensor:
 def repetitive_copy(x: torch.Tensor, reps: int, mesh,
                     policy: LocalisationPolicy,
                     axis: Axis = "data") -> torch.Tensor:
-    """R passes over a 1-D tensor under the policy; returns the output."""
+    """R passes over a 1-D tensor under the policy; returns the output.
+    On a `RankMesh` `x` and the output are this rank's chunk."""
     static = mesh is not None and policy.static_mapping
     if policy.localised:
         y = localise(x, mesh, axis)             # Algorithm 2's memcpy, once
@@ -65,7 +69,9 @@ def reference(x: torch.Tensor, reps: int) -> torch.Tensor:
 def make_microbench_fn(mesh, policy: LocalisationPolicy, reps: int,
                        axis: Axis = "data", device=None):
     """``fn(x)``: move `x` to the mesh's device (without a mesh: `device`,
-    default ``"cuda"``) and run `repetitive_copy`."""
+    default ``"cuda"``) and run `repetitive_copy`.  On a `RankMesh`, `x`
+    is this rank's chunk, and ``fn.place(x)`` gives it from the whole
+    input."""
     dev = entry_device(mesh, device)
 
     @functools.wraps(repetitive_copy)
@@ -75,4 +81,7 @@ def make_microbench_fn(mesh, policy: LocalisationPolicy, reps: int,
             raise ValueError(f"microbench takes a 1-D input, got shape "
                              f"{tuple(x.shape)}")
         return repetitive_copy(x, reps, mesh, policy, axis)
+    if isinstance(mesh, RankMesh):
+        fn.place = lambda x: rank_shard(torch.as_tensor(x), mesh,
+                                        Homing.LOCAL_CHUNKED, axis).view(-1)
     return fn

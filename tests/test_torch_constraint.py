@@ -322,8 +322,9 @@ def test_moved_elems_counts_each_home_change():
 
 
 def test_replicated_policy_sorts_over_one_copy_per_home():
-    """Cases 2/4 under static mapping: the leaves are sorted over the m
-    copies (one `local_sort` call of m * 8 rows), counted as one gather."""
+    """Case 4 (static, non-localised, local homing): the leaves are sorted
+    over the m copies (one `local_sort` call of m * 8 rows), counted as one
+    gather."""
     seen = []
 
     def leaf_sort(runs):

@@ -690,3 +690,119 @@ def test_rank_engine_on_card_matches_home_mesh():
                 for rec in got["log"]:        # a permute stages out and in
                     if rec["kind"] == "collective-permute":
                         assert rec["staged_bytes"] == 2 * rec["wire_bytes"]
+
+
+#: Fig 1 on the card's ranks: the three policies of `repetitive_copy`
+FIG1_POLICIES = {"localised": (True, True, "local"),
+                 "nonlocalised": (False, True, "hash"),
+                 "auto": (False, False, "hash")}
+
+
+def _four_ranks_tree_on_card(device, n, seed, reps):
+    """A rank of the two card tests below, on a 4-rank `RankMesh` of the
+    card (gloo, staged exchanges): the constraint tree for the 8 cases,
+    int32 and float32, and the microbench under the Fig-1 policies."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.mesh import RankMesh
+    mesh = RankMesh({"data": 4}, device=device)
+    out = {"sort": {}, "fig1": {}}
+    for k, c in CASES.items():
+        fn = Locale(mesh, "data", LocalisationPolicy(
+            c.localised, c.static_mapping, Homing(c.homing))).workload("sort")
+        for dt in ("int32", "float32"):
+            share = fn.place(torch.from_numpy(make_sort_data(n, dt,
+                                                             seed + k)))
+            ops.reset_launches()
+            coll.reset_collectives()
+            y = fn(share)
+            torch.cuda.synchronize()
+            out["sort"][k, dt] = {"row": nbits(y.data), "layout": y.layout,
+                                  "n": y.n, "launches": ops.launch_counts(),
+                                  "staged": coll.staged_bytes(),
+                                  "log": coll.collective_log()}
+    x = torch.from_numpy(make_fig1_data(n - 5, "float32", seed))
+    for name, (loc, static, h) in FIG1_POLICIES.items():
+        fn = Locale(mesh, "data", LocalisationPolicy(
+            loc, static, Homing(h))).workload("microbench", reps=reps)
+        chunk = fn.place(x)
+        ops.reset_launches()
+        coll.reset_collectives()
+        y = fn(chunk)
+        torch.cuda.synchronize()
+        out["fig1"][name] = {"chunk": bits(y), "launches": ops.launch_counts(),
+                             "log": coll.collective_log()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def tree_ranks_on_card():
+    """Four gloo ranks sharing the card, one spawn for both tests."""
+    _need_card()
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn
+    _build.build(("local_sort", "merge_split", "localised_copy"))
+    n, seed, reps = (1 << 16) + 5, 43, 3
+    return n, seed, reps, spawn(_four_ranks_tree_on_card, 4, "gloo", "cuda",
+                                n, seed, reps)
+
+
+@pytest.mark.gpu
+def test_rank_constraint_sort_on_card_matches_home_mesh(tree_ranks_on_card):
+    """The default workload("sort") on four gloo ranks sharing the card:
+    each rank holds the one-process HomeMesh tree's elements under the
+    final layout bit for bit, its collectives are `constraint_schedule`'s
+    op for op (staged through pinned host memory), and it launches
+    `local_sort` and `merge_runs` where the layouts put rows: every rank
+    one leaf sort; the merges on each pair's leader ([2, 0, 1, 0] at 4
+    homes), or on every rank under replicated (case 4)."""
+    from repro_torch.core.collectives import log_against_moves
+    from repro_torch.core.homing import positions
+    from repro_torch.core.sort import constraint_schedule, pad_to_multiple
+    n, seed, _, ranks = tree_ranks_on_card
+    for k, c in CASES.items():
+        policy = LocalisationPolicy(c.localised, c.static_mapping,
+                                    Homing(c.homing))
+        replicated = c.static_mapping and not c.localised \
+            and c.homing == "local"
+        for dt in ("int32", "float32"):
+            x = torch.from_numpy(make_sort_data(n, dt, seed + k))
+            y = Locale(HomeMesh({"data": 4}), "data", policy).workload(
+                "sort")(x.cuda())
+            sched = constraint_schedule(n, (4,), policy)
+            for r, res in enumerate(ranks):
+                got = res["sort"][k, dt]
+                padded = pad_to_multiple(y, got["n"], nan_check=False)
+                idx = positions(got["n"], got["layout"], r, "cuda")
+                np.testing.assert_array_equal(got["row"], nbits(padded[idx]))
+                assert log_against_moves(got["log"], sched, r, (4,)) == []
+                assert got["staged"] == sum(rec["staged_bytes"]
+                                            for rec in got["log"])
+                assert got["launches"]["local_sort"] == 1
+                assert got["launches"]["merge_runs"] == (
+                    2 if replicated else [2, 0, 1, 0][r]), (k, dt, r)
+
+
+@pytest.mark.gpu
+def test_rank_microbench_on_card_matches_home_mesh(tree_ranks_on_card):
+    """The Fig-1 workload on four gloo ranks sharing the card: each rank's
+    chunk bit for bit the one-process microbench's, R `localised_copy`
+    launches a rank, and its wire bytes the one-process relayout bytes
+    / 4 (2R all-to-alls under static non-localised mapping, none
+    otherwise)."""
+    from repro_torch.core.homing import relayout_counts, reset_relayouts
+    n, seed, reps, ranks = tree_ranks_on_card
+    x = torch.from_numpy(make_fig1_data(n - 5, "float32", seed)).cuda()
+    for name, (loc, static, h) in FIG1_POLICIES.items():
+        reset_relayouts()
+        y = Locale(HomeMesh({"data": 4}), "data", LocalisationPolicy(
+            loc, static, Homing(h))).workload("microbench", reps=reps)(x)
+        home_bytes = relayout_counts()["bytes"]
+        for r, res in enumerate(ranks):
+            got = res["fig1"][name]
+            np.testing.assert_array_equal(got["chunk"],
+                                          bits(y.view(4, -1)[r]))
+            assert got["launches"]["localised_copy"] == reps
+            assert 4 * sum(rec["wire_bytes"] for rec in got["log"]) \
+                == home_bytes
+            assert len(got["log"]) == (2 * reps if name == "nonlocalised"
+                                       else 0)
