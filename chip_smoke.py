@@ -118,6 +118,44 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 with the attention phase's two planted faults in the
                 kernel's place (outside it), and the costs of a wave:
                 prefill, a decode step, the `pin_tree` copy of the cache;
+  8e. stack   — the rest of the model stack at full width in bf16:
+                deepseek-moe-16b (28 layers, 64 experts, top-6, 2 shared)
+                and mamba2-2.7b (64 layers) at full width and depth
+                through `DecodeServer` in aligned waves, 8 slots homed
+                over {"data": 8}, 16 requests of the mixed stream each
+                under fifo and homed (deepseek: prompts of 128-256, at
+                most 2048 tokens a wave; mamba: prompts of 128-512
+                padded to 512, two SSD chunks): mamba's tokens equal
+                across the policies, each of deepseek's waves replayed
+                through the plain model (every served token the plain
+                pick within `STACK_REPLAY_TOL`, a planted wrong token
+                outside it), and deepseek's determinism run (prompts all
+                256 tokens, a session a request: placements and tokens
+                equal across the policies), launches (28
+                `flash_attention` a deepseek wave, none for mamba),
+                tokens/s, peak, prefill and decode-step
+                time (CUDA events, host clock, kernels busy); mamba's
+                state handoff (prefill(200) against prefill(199) and one
+                decode step, logits and SSM states, a zeroed state as the
+                planted fault); mixtral-8x7b at 4 layers of full width:
+                a prefill of S = 8192 through the windowed kernel, each of
+                its 4 launches against the plain banded form (float32) on
+                its own inputs within `KERNEL_TOL`, 4 decode steps over
+                the 4096-slot ring; llama-3.2-vision-90b at one superblock of
+                full width: the non-causal kernel over 4096 image tokens
+                and the causal one at the prompt's shape against their
+                plain versions first, then a prefill of (2, 512) (4 causal
+                and 1 cross launch) and 4 decode steps through the static
+                cross cache; for both, the prefill's last logits through
+                the kernel against the plain chunked form in float32
+                within `LOGIT_TOL`, and outside it with a planted fault
+                in the windowed (a dropped tile, a scale 1 % off) or the
+                cross launch (a dropped tile), the bf16 forms reported
+                against the float32 plain one; and all five
+                new configs (with jamba-1.5-large-398b, whose one
+                full-width superblock does not fit the card) at
+                `reduce_config` in float32, card against CPU within rtol
+                1e-4, atol 1e-5;
   8c. train   — training at qwen3-0.6b's full width in bf16 through
                 `Trainer` on the card (remat, the plain chunked attention,
                 AdamW), batch 2 x 4096 tokens, in a child process under
@@ -163,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1827,6 +1866,26 @@ def dropped_tile_attention(q, k, v, window: int, block: int):
     return out
 
 
+def planted_faults() -> dict:
+    """The attention phase's two planted faults as stand-ins for
+    `ops.flash_attention` (same arguments): a dropped KV tile -- for
+    self-attention the row's oldest live tile (`dropped_tile_attention`),
+    for cross attention (not causal, keys 0 .. Skv-1 for every row) the
+    first tile of keys -- and a scale 1 % off."""
+    from repro_torch.kernels.flash_attention import flash_attention_reference
+
+    def dropped_tile(q, k, v, causal=True, window=0):
+        if causal:
+            return dropped_tile_attention(q, k, v, window, ATTN_BLOCK)
+        return flash_attention_reference(q, k[:, :, ATTN_BLOCK:],
+                                         v[:, :, ATTN_BLOCK:], causal=False)
+
+    def scale_1pct(q, k, v, causal=True, window=0):
+        return flash_attention_reference(q, k, v, causal=causal, window=window,
+                                         scale=1.01 * q.shape[-1] ** -0.5)
+    return {"dropped_tile": dropped_tile, "scale_1pct": scale_1pct}
+
+
 def phase_attention(seed: int) -> dict:
     import torch.nn.functional as F
     from repro_torch.analysis import record
@@ -2273,10 +2332,7 @@ def phase_serve(seed: int) -> dict:
     runs = {"bfloat16": (model, plain_model, params, {"tokens": toks}),
             "float32": (LM(cfg32), LM(cfg32, flash=False), p32,
                         {"tokens": toks[:LOGIT_ROWS_F32]})}
-    faults = {"dropped_tile": lambda q, k, v, causal: dropped_tile_attention(
-                  q, k, v, 0, ATTN_BLOCK),
-              "scale_1pct": lambda q, k, v, causal: flash_attention_reference(
-                  q, k, v, causal=causal, scale=1.01 * q.shape[-1] ** -0.5)}
+    faults = planted_faults()
     out["logits"] = {}
     for dt, (flash_lm, plain_lm, prm, batch) in runs.items():
         with untimed():
@@ -2364,6 +2420,756 @@ def phase_serve(seed: int) -> dict:
     out["recorded"] = recorded
     out["line_launches"] = out["runs"]["waves-fifo"]["launches"].get(
         "flash_attention", 0)
+    return out
+
+
+#: the stack phase: the members the earlier phases never ran (MoE, Mamba2,
+#: sliding windows, cross attention) at full width.  deepseek-moe-16b
+#: (src/repro/configs/deepseek_moe_16b.py, 16.9 B parameters, 34 GB in
+#: bf16) and mamba2-2.7b (2.8 B) at full width and depth through
+#: `DecodeServer` in aligned waves, 8 slots over HomeMesh({"data": 8}), 16
+#: requests of the serve phase's mixed stream (4 zipf-skewed sessions, 8 or
+#: 16 new tokens): deepseek with prompts of 128-256 tokens (a wave pads to
+#: its longest prompt, so 8 rows give at most 2048 tokens: one MoE group,
+#: as the reference's ``T % 2048`` asks), mamba with prompts of 128-512
+#: tokens padded to 512 (two SSD chunks of 256: the state crosses a chunk).
+#: The MoE's capacity buckets couple the rows of a wave (a token past its
+#: expert's capacity is dropped, in row order), so where the policies form
+#: other waves deepseek's tokens may differ between them: each policy's
+#: waves are replayed through the plain model (`replay_waves`) instead.
+#: Mamba's rows are independent, so its tokens must be equal across them
+STACK_SLOTS, STACK_REQUESTS = 8, 16
+STACK_SERVE = {"deepseek-moe-16b": dict(prompt_len=(128, 256), pad=None,
+                                        sessions=4, new=(8, 16), max_len=384),
+               "mamba2-2.7b": dict(prompt_len=(128, 512), pad=512,
+                                   sessions=4, new=(8, 16), max_len=640)}
+#: deepseek's determinism run: every prompt 256 tokens (8 x 256 = 2048
+#: tokens a wave), a session a request and 16 new tokens each, so that
+#: fifo and homed place every request on the same slot of the same wave
+#: and must give the same tokens; its first wave is the one timed
+STACK_ALIGNED = dict(prompt_len=(256, 256), pad=None, sessions=STACK_REQUESTS,
+                     new=(16, 16), max_len=384)
+#: a served token against the plain model's logits for the same wave and
+#: inputs: (the plain row's largest logit - its logit of the served token)
+#: over the row's largest |logit|.  In bf16 the kernel and the chunked
+#: form round apart (2^-6 of the logits for the dense qwen3-0.6b, the
+#: serve phase's `LOGIT_TOL`), and in the MoE such a difference flips a
+#: near-tie among a token's top 6 of 64 experts or a token at a bucket's
+#: capacity, which moves its output by a whole expert's share: the logits
+#: then differ by up to 0.14 of the largest and the greedy picks on 7-12 %
+#: of the tokens, where the two picks are near-ties.  The bound lies
+#: between the sound reading and the planted fault's (H100, seed 0: every
+#: served token within 0.037 of the plain pick; the next token id at
+#: least 0.32 away)
+STACK_REPLAY_TOL = 2.0 ** -4
+#: mamba2-2.7b's state handoff: prefill(S) against prefill(S - 1) and one
+#: decode step, S < 256 (one SSD chunk), 2 rows
+STACK_HANDOFF_S = 200
+#: mixtral-8x7b at full width, depth cut to 4 layers (12.2 GB in bf16; the
+#: 32 layers' 93 GB do not fit): a prefill of S = 8192 through the
+#: windowed kernel (window 4096), then decode steps over the 4096-slot ring
+STACK_MIXTRAL_LAYERS, STACK_MIXTRAL_S, STACK_DECODE = 4, 8192, 4
+#: llama-3.2-vision-90b at full width, one superblock (4 self-attention
+#: layers and one cross layer, 13 GB in bf16): prompts of 512 tokens over
+#: 4096 image tokens
+STACK_VISION_B, STACK_VISION_S = 2, 512
+#: the five configs the float32 reduced run holds card against CPU
+STACK_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "mixtral-8x7b",
+               "jamba-1.5-large-398b", "llama-3.2-vision-90b")
+STACK_RTOL, STACK_ATOL = 1e-4, 1e-5
+#: the state handoff's bound on the logits and the SSM states, as the
+#: largest difference over the largest |value|: the chunked scan rounds
+#: its weights, states and decays to bf16 where the recurrent step keeps
+#: float32, across 64 layers.  It lies between the sound run's reading
+#: and the planted fault's (H100, seed 0: logits 0.0292 and SSM states
+#: 0.0332 against 0.154 for a decode step from a zeroed SSM state)
+STACK_HANDOFF_TOL = 2.0 ** -4
+
+
+def rel_err(a, b) -> float:
+    """The largest difference over the largest |value| of b."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def cross_work(B, H, KV, Sq, Skv, hd, itemsize):
+    """(flops, bytes) of non-causal attention: every (query, key) pair."""
+    return (4 * hd * Sq * Skv * B * H,
+            (2 * B * H * Sq + 2 * B * KV * Skv) * hd * itemsize)
+
+
+def kernel_cell(q, k, v, *, causal: bool, window: int = 0) -> dict:
+    """The kernel against its plain version at one shape (untimed run
+    first), then its time, the plain version's, SDPA's and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (KERNEL_TOL,
+                                                     flash_attention_reference)
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    rtol, atol = KERNEL_TOL[q.dtype]
+    kw = dict(causal=causal, window=window)
+    with untimed():
+        got = ops.flash_attention(q, k, v, **kw)
+    plain = flash_attention_reference(q, k, v, **kw)
+    if causal:
+        flops, nbytes = attention_work(B, H, KV, Sq, hd, window,
+                                       q.element_size())
+    else:
+        flops, nbytes = cross_work(B, H, KV, Sq, Skv, hd, q.element_size())
+    mask = None
+    if window:
+        i = torch.arange(Sq, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+    def library():
+        if mask is not None:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    rec = dict(shape=[B, H, KV, Sq, Skv, hd], causal=causal, window=window,
+               beyond=beyond(got, plain, rtol, atol), rtol=rtol, atol=atol,
+               max_abs_err=float((got.float() - plain.float()).abs().max()),
+               ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                          reps=20),
+               plain_ms=cuda_ms(lambda: flash_attention_reference(
+                   q, k, v, **kw), reps=1),
+               library_ms=cuda_ms(library, reps=5),
+               ops_ms=flops / 989e12 * 1e3,
+               bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
+    rec["bound_by"] = ("operations" if rec["ops_ms"] >= rec["bytes_ms"]
+                       else "bytes")
+    need(rec["beyond"] == 0, f"stack: flash_attention outside rtol={rtol} "
+                             f"atol={atol} at {rec['shape']} causal={causal} "
+                             f"window={window}: {rec}")
+    return rec
+
+
+def stack_float32(seed: int) -> dict:
+    """Each new config at `reduce_config` in float32: forward, prefill and
+    three decode steps on the card against the same on the CPU, from the
+    same seeded parameters and tokens, within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    out = {}
+    for name in STACK_ARCHS:
+        cfg = reduce_config(get_config(name))
+        m = LM(cfg)
+        cpu = m.init(torch.Generator().manual_seed(seed))
+        rng = np.random.default_rng(seed)
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 32)))}
+        if cfg.family == "vlm":
+            b["image_embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
+                (2, cfg.num_image_tokens, cfg.d_model))).astype(np.float32))
+        res = {}
+        ops.reset_launches()
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), cpu)
+            bd = tree_map(lambda t: t.to(dev), b)
+            cut = {k: v if k == "image_embeds" else v[:, :16]
+                   for k, v in bd.items()}
+            logits, _, aux = m.forward(p, bd)
+            last, caches = m.prefill(p, cut, max_len=32)
+            steps = []
+            for pos in range(16, 19):
+                one = {k: v if k == "image_embeds" else v[:, pos:pos + 1]
+                       for k, v in bd.items()}
+                lg, caches = m.decode_step(p, caches, one, pos)
+                steps.append(lg)
+            res[dev] = [logits, aux, last, *steps, *tree_leaves(caches)]
+        launches = ops.launch_counts()["flash_attention"]
+        errs = []
+        for a, c in zip(res["cpu"], res["cuda"]):
+            c = c.cpu()
+            if a.dtype == torch.int32:
+                errs.append(0.0 if torch.equal(a, c) else float("inf"))
+                continue
+            ok = torch.allclose(c.float(), a.float(), rtol=STACK_RTOL,
+                                atol=STACK_ATOL)
+            errs.append(float((c.float() - a.float()).abs().max())
+                        if ok else float("inf"))
+        out[name] = dict(compared=len(errs), max_abs_err=max(errs),
+                         flash_launches=launches)
+        need(all(e != float("inf") for e in errs),
+             f"stack float32 {name}: the card differs from the CPU beyond "
+             f"rtol={STACK_RTOL} atol={STACK_ATOL}: {errs}")
+        del cpu, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def recording(srv) -> list:
+    """Keep what `srv` computes, wave by wave: its placements (slot, rid),
+    the prefill's tokens and last logits, and each decode step's fed
+    tokens and logits.  Returns the list it fills."""
+    waves = []
+    serve_wave, prefill, decode = srv._serve_wave, srv.model.prefill, \
+        srv._decode
+
+    def _serve_wave(placements):
+        waves.append(dict(placements=[(s, r.rid) for s, r in placements],
+                          steps=[]))
+        return serve_wave(placements)
+
+    def _prefill(params, batch, max_len=None):
+        last, caches = prefill(params, batch, max_len=max_len)
+        waves[-1]["prefill"] = (batch["tokens"].clone(), last.clone())
+        return last, caches
+
+    def _decode(params, caches, batch, pos):
+        logits, caches = decode(params, caches, batch, pos)
+        waves[-1]["steps"].append((batch["tokens"].clone(), logits.clone(),
+                                   pos))
+        return logits, caches
+    srv._serve_wave, srv.model.prefill, srv._decode = (_serve_wave, _prefill,
+                                                       _decode)
+    return waves
+
+
+def replay_waves(cfg, params, waves, served, max_len: int) -> dict:
+    """Replay each recorded wave through the plain model (`LM(cfg,
+    flash=False)`: the chunked attention) on the card: the prefill batch
+    built anew from the placements and prompts, then every decode step on
+    the inputs the server fed (those of empty and finished rows too, which
+    share the MoE's capacity buckets).  Each served token is held to the
+    plain logits of its row and step by `STACK_REPLAY_TOL`; the planted
+    fault, the served token's id plus one, must fall outside it."""
+    from repro_torch.models import LM
+    plain = LM(cfg, flash=False)
+    by_rid = {r.rid: r for r in served}
+    margins, faults, errs, agree, n = [], [], [], 0, 0
+
+    def hold(lp, ls, rows, t):
+        nonlocal agree, n
+        lp = lp.float()
+        errs.append(rel_err(ls, lp))
+        top, scale = lp.max(-1).values, lp.abs().max(-1).values
+        for i, r in rows:
+            if t >= len(r.out):
+                continue
+            tok = r.out[t]
+            margins.append(float((top[i] - lp[i, tok]) / scale[i]))
+            faults.append(float((top[i] - lp[i, (tok + 1) % lp.shape[-1]])
+                                / scale[i]))
+            agree += int(int(lp[i].argmax()) == tok)
+            n += 1
+    for w in waves:
+        rows = [(s, by_rid[rid]) for s, rid in w["placements"]]
+        plen = max(len(r.prompt) for _, r in rows)
+        toks = torch.zeros(STACK_SLOTS, plen, dtype=torch.long)
+        for s, r in rows:
+            toks[s, plen - len(r.prompt):] = torch.from_numpy(r.prompt)
+        fed, served_last = w["prefill"]
+        need(torch.equal(fed.cpu(), toks), f"stack {cfg.name}: the server "
+                                           f"built another prefill batch")
+        last, caches = plain.prefill(params, {"tokens": toks.cuda()},
+                                     max_len=max_len)
+        hold(last, served_last, rows, 0)
+        for t, (fed, logits, pos) in enumerate(w["steps"], 1):
+            need(all(int(fed[s, 0]) == r.out[t - 1] for s, r in rows
+                     if t - 1 < len(r.out)) and pos == plen + t - 1,
+                 f"stack {cfg.name}: decode step {t} fed other tokens")
+            lp, caches = plain.decode_step(params, caches, {"tokens": fed},
+                                           pos)
+            hold(lp, logits, rows, t)
+        del caches
+    rec = dict(tokens=n, argmax_agree=agree / n, max_margin=max(margins),
+               fault_min_margin=min(faults), max_logit_rel=max(errs),
+               tol=STACK_REPLAY_TOL)
+    need(n == sum(len(r.out) for r in served),
+         f"stack {cfg.name}: the replay held {n} tokens")
+    need(rec["max_margin"] <= STACK_REPLAY_TOL,
+         f"stack {cfg.name}: a served token is not the plain model's pick "
+         f"within {STACK_REPLAY_TOL}: {rec}")
+    need(rec["fault_min_margin"] > STACK_REPLAY_TOL,
+         f"stack {cfg.name}: a planted wrong token passes the replay: {rec}")
+    return rec
+
+
+def stack_serve(name: str, seed: int, locale, smi: str) -> dict:
+    """One config at full width and depth through `DecodeServer` in
+    aligned waves under fifo and homed (see `STACK_SERVE`): the MoE's
+    waves each replayed through the plain model, the rows of every other
+    member equal across the policies; deepseek also in the determinism
+    run `STACK_ALIGNED`."""
+    from repro_torch.analysis import record
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import KERNELS
+    from repro_torch.models import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.server import DecodeServer, Request
+    from repro_torch.convert import make_serve_stream
+
+    cfg = get_config(name)
+    moe = cfg.num_experts > 0
+    attn_layers = len(cfg.attn_layers)
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    out = {"params": n_params, "param_bytes": sum(
+        t.numel() * t.element_size() for t in tree_leaves(params)),
+        "init_s": time.perf_counter() - t0, "runs": {}}
+    streams = {"mixed": STACK_SERVE[name]}
+    if moe:
+        streams["aligned"] = STACK_ALIGNED
+
+    def server(spec, reqs, policy, tracer=None):
+        srv = DecodeServer(cfg, params, batch_slots=STACK_SLOTS,
+                           max_len=spec["max_len"], locale=locale,
+                           scheduler=policy, prompt_pad=spec["pad"],
+                           tracer=tracer)
+        for d in reqs:
+            srv.submit(Request(**d))
+        return srv
+
+    recorded = []
+    for stream, spec in streams.items():
+        reqs = make_serve_stream(STACK_REQUESTS, cfg.vocab_size,
+                                 spec["prompt_len"],
+                                 sessions=spec["sessions"],
+                                 new_tokens=spec["new"], slots=STACK_SLOTS,
+                                 seed=seed)
+        if spec["sessions"] == STACK_REQUESTS:
+            for d in reqs:                   # a session a request
+                d["session"] = f"r{d['rid']}"
+        replay = moe and stream == "mixed"
+        for policy in ("fifo", "homed"):
+            srv = server(spec, reqs, policy, Tracer())
+            need(not srv.paged, f"stack {name}: served paged, not in waves")
+            waves = recording(srv) if replay else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ops.reset_launches()             # the path's counted run
+            t0 = time.perf_counter()
+            with record() as launches:
+                served = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            recorded += launches
+            summary = srv.scheduler.summary()
+            toks = {r.rid: list(r.out) for r in served}
+            n_tok = sum(len(v) for v in toks.values())
+            tag = f"{stream}-{policy}"
+            out["runs"][tag] = rec = dict(
+                wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                waves=summary["waves"], steps=summary["steps"],
+                launches=counts, kernels=sorted({f.name for f in launches}),
+                homes={r.rid: r.home for r in served},
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                tokens_out=toks)
+            want = attn_layers * summary["waves"]
+            need(len(served) == STACK_REQUESTS and all(
+                len(toks[d["rid"]]) == d["max_new"] for d in reqs)
+                and all(0 <= t < cfg.vocab_padded for v in toks.values()
+                        for t in v), f"stack {name} {tag}: requests or "
+                                     f"tokens wrong")
+            need(counts.get("flash_attention", 0) == want
+                 and set(counts) <= {"flash_attention"},
+                 f"stack {name} {tag}: launches {counts}, want {want} "
+                 f"flash_attention")
+            need(rec["kernels"] == ([KERNELS["bfloat16"]] if want else []),
+                 f"stack {name} {tag}: kernels {rec['kernels']}")
+            if replay:
+                rec["waves_placed"] = [w["placements"] for w in waves]
+                rec["replay"] = replay_waves(cfg, params, waves, served,
+                                             spec["max_len"])
+                del waves
+            say(f"phase stack {name} {tag}: {len(served)} requests, {n_tok} "
+                f"tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s), "
+                f"{summary['waves']} waves, {summary['steps']} steps, "
+                f"launches {json.dumps(counts)}, peak {rec['peak_bytes']} B"
+                + (f"; each wave replayed through the plain model: "
+                   f"{json.dumps(rec['replay'])}" if replay else "")
+                + f" [{smi}]")
+            del srv, served
+        fifo, homed = (out["runs"][f"{stream}-{p}"] for p in ("fifo",
+                                                              "homed"))
+        placed = sum(fifo["homes"][r] != homed["homes"][r]
+                     for r in fifo["homes"])
+        same = fifo.pop("tokens_out") == homed.pop("tokens_out")
+        out[stream] = dict(homes_differ=placed, same_tokens=same)
+        if stream == "aligned":
+            # determinism: equal placements, so the same tokens
+            need(placed == 0 and same, f"stack {name}: the aligned stream "
+                 f"placed {placed} requests apart or its tokens differ "
+                 f"between fifo and homed")
+        elif not moe:
+            need(same, f"stack {name}: tokens differ between fifo and homed")
+
+    # the costs of the first wave: prefill, a decode step (CUDA events,
+    # the host clock, kernels busy), the peak of the prefill
+    first = sorted(reqs, key=lambda d: (d["t_arrive"], d["rid"]))
+    S = spec["pad"] or max(len(d["prompt"]) for d in first[:STACK_SLOTS])
+    toks = torch.zeros(STACK_SLOTS, S, dtype=torch.long)
+    for i, d in enumerate(first[:STACK_SLOTS]):
+        toks[i, S - len(d["prompt"]):] = torch.from_numpy(d["prompt"])
+    toks = toks.cuda()
+    srv = server(spec, reqs, "fifo")
+    prefill = lambda: model.prefill(params, {"tokens": toks},  # noqa: E731
+                                    max_len=spec["max_len"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    last, caches = prefill()
+    torch.cuda.synchronize()
+    prefill_peak = torch.cuda.max_memory_allocated() - base
+    need(bool(torch.isfinite(last.float()).all()),
+         f"stack {name}: prefill logits not finite")
+    batch = {"tokens": last.argmax(-1)[:, None]}
+    srv._decode(params, caches, batch, S)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        srv._decode(params, caches, batch, S)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    step = lambda: srv._decode(params, caches, batch, S)  # noqa: E731
+    out["costs"] = dict(
+        prefill_shape=[STACK_SLOTS, S], prefill_ms=cuda_ms(prefill, reps=3),
+        prefill_busy_ms=device_busy_ms(prefill), prefill_peak_bytes=prefill_peak,
+        decode_step_ms=cuda_ms(step, reps=5), decode_step_host_ms=host_ms,
+        decode_step_busy_ms=device_busy_ms(step),
+        cache_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(caches)))
+    del caches, srv, last
+    out["recorded"] = recorded
+    out["params_ref"] = params
+    return out
+
+
+def mamba_handoff(params, seed: int) -> dict:
+    """prefill(S)'s last logits and SSM states against prefill(S - 1) and
+    one decode step, and a planted fault: the decode step from a zeroed
+    SSM state, which must fall outside the tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config("mamba2-2.7b")
+    model = LM(cfg)
+    S = STACK_HANDOFF_S
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (2, S))).cuda()
+    want, full = model.prefill(params, {"tokens": toks}, max_len=S)
+    _, part = model.prefill(params, {"tokens": toks[:, :-1]}, max_len=S)
+    _, fault = model.prefill(params, {"tokens": toks[:, :-1]}, max_len=S)
+    fault["m0"]["ssm"].zero_()
+    one = {"tokens": toks[:, -1:]}
+    got, part = model.decode_step(params, part, one, S - 1)
+    wrong, _ = model.decode_step(params, fault, one, S - 1)
+    rec = dict(S=S, logits_rel=rel_err(got, want),
+               ssm_rel=rel_err(part["m0"]["ssm"], full["m0"]["ssm"]),
+               conv_rel=max(rel_err(part["m0"][k], full["m0"][k])
+                            for k in ("conv_x", "conv_bc")),
+               fault_rel=rel_err(wrong, want), tol=STACK_HANDOFF_TOL)
+    need(rec["logits_rel"] <= STACK_HANDOFF_TOL
+         and rec["ssm_rel"] <= STACK_HANDOFF_TOL,
+         f"stack mamba2-2.7b: prefill(S) against prefill(S-1) + decode "
+         f"beyond {STACK_HANDOFF_TOL}: {rec}")
+    need(rec["fault_rel"] > STACK_HANDOFF_TOL,
+         f"stack mamba2-2.7b: a zeroed SSM state passes the handoff "
+         f"tolerance: {rec}")
+    return rec
+
+
+def release() -> None:
+    """Give the card back what the last model held: a `DecodeServer` and
+    its decode step refer to each other, so the parameters they hold go
+    only at a garbage collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefill_logits(cfg, params, batch, last16, planted, required) -> dict:
+    """A prefill's last logits through the kernel against the plain
+    chunked form: in float32 (the same weights widened), bounded by
+    `LOGIT_TOL`, and in bf16 (`last16`, the kernel's, from the counted
+    run), where each of the two bf16 forms is reported against the
+    float32 plain one.  The kernel keeps P as a bf16 hi + lo pair where
+    the chunked form rounds it once, so in bf16 they differ by about one
+    rounding step of every attention output.  The float32 prefill is run
+    again with each of `planted_faults` in place of the kernel in the
+    launches that ``planted(causal, window)`` picks; those named in
+    `required` must fall outside the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    b32 = {k: v.float() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    with untimed():
+        k32, _ = LM(c32).prefill(p32, b32)
+    p32_last, _ = LM(c32, flash=False).prefill(p32, b32)
+    kernel, faults = ops.flash_attention, {}
+    for fault, wrong in planted_faults().items():
+        def flash(q, k, v, causal=True, window=0, wrong=wrong):
+            if planted(causal, window):
+                return wrong(q, k, v, causal=causal, window=window)
+            return kernel(q, k, v, causal=causal, window=window)
+        with mock.patch.object(ops, "flash_attention", flash):
+            w, _ = LM(c32).prefill(p32, b32)
+        faults[fault] = rel_err(w, p32_last)
+        del w
+    del p32
+    p16, _ = LM(cfg, flash=False).prefill(params, batch)
+    rec = dict(float32=rel_err(k32, p32_last), tol=LOGIT_TOL["float32"],
+               float32_faults=faults,
+               bf16_kernel_vs_plain=rel_err(last16, p16),
+               bf16_kernel_vs_float32=rel_err(last16, p32_last),
+               bf16_plain_vs_float32=rel_err(p16, p32_last),
+               argmax_equal=bool(torch.equal(last16.argmax(-1),
+                                             p16.argmax(-1))))
+    release()
+    need(rec["float32"] <= LOGIT_TOL["float32"],
+         f"stack {cfg.name}: float32 prefill through the kernel differs from "
+         f"the plain chunked form: {rec}")
+    need(all(faults[f] > LOGIT_TOL["float32"] for f in required),
+         f"stack {cfg.name}: a planted fault's float32 prefill logits pass "
+         f"the tolerance {LOGIT_TOL['float32']}: {rec}")
+    return rec
+
+
+def phase_stack(seed: int, smi: str) -> dict:
+    """The rest of the model stack at full width (see the module
+    docstring, 8e)."""
+    from repro_torch.analysis import record
+    from repro_torch.configs import get_config
+    from repro_torch.convert import make_attention_inputs
+    from repro_torch.core import HomeMesh, Locale
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (KERNEL_TOL,
+                                                     flash_attention_reference)
+    from repro_torch.models import LM, attention
+    from repro_torch.models.attention import (banded_swa_attention,
+                                              flash_prefill_attention)
+
+    t_phase = time.perf_counter()
+    release()
+    out = {"recorded": [], "launches": {}, "cells": {},
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    locale = Locale(HomeMesh({"data": 8}), "data")
+
+    # 1. the served configs, at full width and depth
+    for name in STACK_SERVE:
+        rec = stack_serve(name, seed, locale, smi)
+        params = rec.pop("params_ref")
+        out["recorded"] += rec.pop("recorded")
+        out["launches"][name] = rec["runs"]["mixed-fifo"]["launches"].get(
+            "flash_attention", 0)
+        if name == "mamba2-2.7b":
+            rec["handoff"] = mamba_handoff(params, seed)
+        del params
+        release()
+        out[name] = rec
+        c = rec["costs"]
+        say(f"phase stack {name}: {rec['params']} parameters "
+            f"({rec['param_bytes']} B, init {rec['init_s']:.1f} s); fifo "
+            f"against homed, by stream: " + json.dumps(
+                {k: rec[k] for k in ("mixed", "aligned") if k in rec})
+            + f"; prefill of {c['prefill_shape']} "
+            f"{c['prefill_ms']:.2f} ms (kernels busy "
+            f"{c['prefill_busy_ms']:.2f} ms, peak {c['prefill_peak_bytes']} "
+            f"B); decode step {c['decode_step_ms']:.2f} ms by CUDA events, "
+            f"{c['decode_step_host_ms']:.2f} ms by the host clock, kernels "
+            f"busy {c['decode_step_busy_ms']:.2f} ms; cache "
+            f"{c['cache_bytes']} B"
+            + (f"; state handoff {json.dumps(rec['handoff'])}"
+               if "handoff" in rec else "") + f" [{smi}]")
+
+    # 2. mixtral-8x7b, 4 layers at full width: windowed prefill at S = 8192.
+    # Every windowed launch of the prefill is held against the plain banded
+    # form on its own inputs (in float32, the plain version's arithmetic),
+    # within KERNEL_TOL; the logits against the plain chunked (banded)
+    # model as `prefill_logits` holds them
+    cfg = get_config("mixtral-8x7b").replace(num_layers=STACK_MIXTRAL_LAYERS)
+    W, S = cfg.sliding_window, STACK_MIXTRAL_S
+    model = LM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, S))).cuda()
+    seen = []
+
+    def keep(q, k, v, **kw):
+        o = flash_prefill_attention(q, k, v, **kw)
+        seen.append((q, k, v, o, kw))
+        return o
+    ops.reset_launches()                     # the path's counted run
+    with record() as launches, mock.patch.object(
+            attention, "flash_prefill_attention", keep):
+        last, caches = model.prefill(params, {"tokens": toks},
+                                     max_len=S + STACK_DECODE)
+        cur = last.argmax(-1)[:, None]
+        for i in range(STACK_DECODE):
+            lg, caches = model.decode_step(params, caches, {"tokens": cur},
+                                           S + i)
+            cur = lg.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    out["recorded"] += launches
+    out["launches"]["mixtral-8x7b"] = counts.get("flash_attention", 0)
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    win = []
+    for q, k, v, o, kw in seen:
+        need(kw == dict(causal=True, window=W), f"stack mixtral-8x7b: the "
+                                                f"prefill called {kw}")
+        banded = banded_swa_attention(q.float(), k.float(), v.float(),
+                                      window=W).to(torch.bfloat16)
+        win.append(dict(beyond=beyond(o, banded, rtol, atol),
+                        max_abs_err=float((o.float() - banded.float()).abs()
+                                          .max())))
+        del banded
+    del seen
+    release()
+    need(len(win) == cfg.num_layers and all(w["beyond"] == 0 for w in win),
+         f"stack mixtral-8x7b: a windowed launch outside rtol={rtol} "
+         f"atol={atol} of the banded form: {win}")
+    kp = caches["m0"]["kpos"][0, 0]
+    ring = torch.arange(S - W, S, device="cuda", dtype=torch.int32)
+    ring[:STACK_DECODE] = torch.arange(S, S + STACK_DECODE, device="cuda",
+                                       dtype=torch.int32)
+    mix = dict(layers=cfg.num_layers, S=S, window=W,
+               params=sum(t.numel() for t in tree_leaves(params)),
+               launches=counts, windowed=win, rtol=rtol, atol=atol,
+               ring_slots=int(caches["m0"]["k"].shape[2]),
+               ring_ok=bool(torch.equal(kp, ring)),
+               finite=bool(torch.isfinite(lg.float()).all()),
+               logits=prefill_logits(cfg, params, {"tokens": toks}, last,
+                                     lambda causal, window: window > 0,
+                                     ("dropped_tile", "scale_1pct")),
+               prefill_ms=cuda_ms(lambda: model.prefill(
+                   params, {"tokens": toks}, max_len=S), reps=2))
+    need(counts == {"flash_attention": cfg.num_layers},
+         f"stack mixtral-8x7b: launches {counts}")
+    need(mix["ring_ok"] and mix["ring_slots"] == W and mix["finite"],
+         f"stack mixtral-8x7b: ring or logits wrong: {mix}")
+    out["mixtral-8x7b"] = mix
+    say(f"phase stack mixtral-8x7b ({cfg.num_layers} layers at full width, "
+        f"{mix['params']} parameters): prefill of (1, {S}) through the "
+        f"windowed kernel (window {W}) {mix['prefill_ms']:.2f} ms, launches "
+        f"{json.dumps(counts)}, each against the float32 banded form "
+        f"(rtol={rtol:.3g} atol={atol:.3g}) {json.dumps(win)}; last "
+        f"logits against the plain model, as the largest difference over "
+        f"the largest |logit| {json.dumps(mix['logits'])}; {STACK_DECODE} "
+        f"decode steps over the "
+        f"{mix['ring_slots']}-slot ring (positions as the ring predicts: "
+        f"{mix['ring_ok']}) [{smi}]")
+    del params, caches, last, lg
+    release()
+
+    # 3. llama-3.2-vision-90b, one superblock at full width: the
+    # non-causal kernel over 4096 image tokens, held against its plain
+    # version at that shape before the model runs it
+    cfg = get_config("llama-3.2-vision-90b")
+    cfg = cfg.replace(num_layers=cfg.cross_attn_every)
+    B, S, n = STACK_VISION_B, STACK_VISION_S, cfg.num_image_tokens
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for tag, (sq, skv, causal) in {"cross": (S, n, False),
+                                   "self": (S, S, True)}.items():
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16).cuda() for a in
+                   make_attention_inputs(B, H, KV, sq, skv, hd, "bfloat16",
+                                         seed))
+        out["cells"][f"vision_{tag}"] = kernel_cell(q, k, v, causal=causal)
+        del q, k, v
+    model = LM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).cuda(),
+        "image_embeds": (0.1 * torch.randn(
+            B, n, cfg.d_model, generator=torch.Generator(
+                device="cuda").manual_seed(seed + 2), device="cuda")).to(
+                    torch.bfloat16)}
+    seen = []
+
+    def keep_cross(q, k, v, **kw):
+        o = flash_prefill_attention(q, k, v, **kw)
+        if not kw["causal"]:
+            seen.append((q, k, v, o))
+        return o
+    ops.reset_launches()                     # the path's counted run
+    with record() as launches, mock.patch.object(
+            attention, "flash_prefill_attention", keep_cross):
+        last, caches = model.prefill(params, batch, max_len=S + STACK_DECODE)
+        before = caches["m4"]["k"].clone()
+        cur = last.argmax(-1)[:, None]
+        for i in range(STACK_DECODE):
+            lg, caches = model.decode_step(params, caches, {"tokens": cur},
+                                           S + i)
+            cur = lg.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    out["recorded"] += launches
+    out["launches"]["llama-3.2-vision-90b"] = counts.get("flash_attention", 0)
+    calls = sorted({f.call[1][:9] for f in launches})
+    # every cross launch of the prefill against the plain version on its
+    # own inputs, within KERNEL_TOL, and the planted dropped tile outside
+    # it: in the logits the one cross layer's fault reads under the
+    # float32 bound (the random image embeddings' cross output is small
+    # against the residual), so the launch is where it is held
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    dropped, cross = planted_faults()["dropped_tile"], []
+    for q, k, v, o in seen:
+        qh = q.reshape(B, S, H, hd).transpose(1, 2)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        want = flash_attention_reference(qh, kh, vh, causal=False)
+        wrong = dropped(qh, kh, vh, causal=False)
+        o = o.transpose(1, 2)
+        cross.append(dict(beyond=beyond(o, want, rtol, atol),
+                          max_abs_err=float((o.float() - want.float()).abs()
+                                            .max()),
+                          fault_beyond=beyond(wrong, want, rtol, atol)))
+        del want, wrong
+    del seen
+    need(len(cross) == 1 and all(c["beyond"] == 0 and c["fault_beyond"] > 0
+                                 for c in cross),
+         f"stack vision: the cross launch outside rtol={rtol} atol={atol} of "
+         f"its plain version, or the planted dropped tile inside: {cross}")
+    vis = dict(layers=cfg.num_layers, B=B, S=S, image_tokens=n, cross=cross,
+               params=sum(t.numel() for t in tree_leaves(params)),
+               launches=counts, calls=[list(c) for c in calls],
+               cross_cache_static=bool(torch.equal(before,
+                                                   caches["m4"]["k"])),
+               finite=bool(torch.isfinite(lg.float()).all()),
+               logits=prefill_logits(cfg, params, batch, last,
+                                     lambda causal, window: not causal,
+                                     required=()),
+               prefill_ms=cuda_ms(lambda: model.prefill(params, batch,
+                                                        max_len=S), reps=2))
+    need(counts == {"flash_attention": cfg.num_layers},
+         f"stack vision: launches {counts}")
+    need(any(not c[8] and c[3] != c[4] for c in calls),
+         f"stack vision: no non-causal launch with Sq != Skv: {calls}")
+    need(vis["cross_cache_static"] and vis["finite"],
+         f"stack vision: the cross cache moved or logits not finite: {vis}")
+    out["llama-3.2-vision-90b"] = vis
+    say(f"phase stack llama-3.2-vision-90b ({cfg.num_layers} layers at full "
+        f"width, {vis['params']} parameters): prefill of ({B}, {S}) over "
+        f"{n} image tokens {vis['prefill_ms']:.2f} ms, launches "
+        f"{json.dumps(counts)} (calls {vis['calls']}), the cross launch "
+        f"against its plain version on its inputs (rtol={rtol:.3g} "
+        f"atol={atol:.3g}) {json.dumps(cross)}, last logits against "
+        f"the plain chunked form, as the largest difference over the "
+        f"largest |logit| {json.dumps(vis['logits'])}, "
+        f"{STACK_DECODE} decode steps through the static cross cache; "
+        f"kernel cells " + json.dumps(out["cells"]) + f" [{smi}]")
+    del params, caches, last, lg, before, batch
+    release()
+
+    # 4. float32 reduce_config, card against CPU, all five configs
+    out["float32"] = stack_float32(seed)
+    say("phase stack float32 reduce_config, card against CPU (rtol "
+        f"{STACK_RTOL}, atol {STACK_ATOL}): " + json.dumps(out["float32"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase stack: {out['seconds']:.1f} s, flash_attention launches by "
+        f"path " + json.dumps(out["launches"]) + f", {out['allocated_at_start']}"
+        f" B allocated on the card when it began [{smi}]")
     return out
 
 
@@ -2943,6 +3749,7 @@ def main(argv=None) -> int:
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
     serve = phase_serve(args.seed)
+    stack = phase_stack(args.seed, smi)
     train = phase_train(args.seed, smi)
     dtypes = phase_dtypes(args.seed)
     full_width = {
@@ -2950,7 +3757,8 @@ def main(argv=None) -> int:
         + constraint.pop("recorded"),
         "fig1": fig1.pop("recorded"),
         "attention": {**attention.pop("recorded"),
-                      "serve": serve.pop("recorded")}}
+                      "serve": serve.pop("recorded"),
+                      "stack": stack.pop("recorded")}}
     analysis = phase_analysis(args.seed, full_width)
     # last: the CPU sorts would load the host under the timed phases
     check_dtypes_on_cpu(dtypes, args.seed)
@@ -2972,7 +3780,15 @@ def main(argv=None) -> int:
         max_abs_err=max(attention["line"]["max_abs_err"],
                         serve["kernel"]["max_abs_err"]),
         **{f"serve_{k}": serve["kernel"][k]
-           for k in SERVE_LINE_KEYS})
+           for k in SERVE_LINE_KEYS},
+        stack_launches=stack["launches"], stack_cells={
+            tag: {k: c[k] for k in ("shape", "causal", "window", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_abs_err")}
+            for tag, c in stack["cells"].items()})
+    attention["line"]["max_abs_err"] = max(
+        attention["line"]["max_abs_err"],
+        *(c["max_abs_err"] for c in stack["cells"].values()))
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
     # each kernel's launches by rank, {path: [launches of rank 0..7]}, in
@@ -2983,7 +3799,7 @@ def main(argv=None) -> int:
         row["rank_launches"] = ranks["rank_launches"][row["name"]]
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
-             "floor_ms", "rank_launches",
+             "floor_ms", "rank_launches", "stack_launches", "stack_cells",
              *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
@@ -2992,7 +3808,8 @@ def main(argv=None) -> int:
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
              "engine": engine, "flat": flat, "hier": hier, "ranks": ranks,
              "constraint": constraint, "fig1": fig1, "attention": attention,
-             "serve": serve, "train": train, "dtypes": dtypes,
+             "serve": serve, "stack": stack, "train": train,
+             "dtypes": dtypes,
              "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))

@@ -42,10 +42,13 @@ from repro_torch.analysis.rules import (r1_surprise_collective,
 
 #: rules with no counterpart in the port yet, and what they wait for
 NOT_PORTED = {
-    "R4": "the donation audit needs the torch.distributed slice",
-    "R9": "the scheduler certificate needs the serving slice",
-    "R10": "the device-memory live range needs its slice",
-    "R11": "collective control flow needs the torch.distributed slice",
+    "R4": "the donation audit: donated buffers and the decode cache "
+          "written in place",
+    "R9": "the scheduler certificate: a port of analysis/schedcheck.py",
+    "R10": "the device-memory live range: measured peak against the "
+           "device's memory",
+    "R11": "collective control flow: a comparison of the ranks' "
+           "collectives.LOG",
 }
 
 

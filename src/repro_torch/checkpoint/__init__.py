@@ -1,6 +1,6 @@
 """Atomic checkpoints in the reference's on-disk format: the counterpart
 of `repro.checkpoint`."""
 from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
-                                         restore, save)
+                                         manifest, restore, save)
 
-__all__ = ["save", "restore", "latest_step", "CheckpointManager"]
+__all__ = ["save", "restore", "latest_step", "manifest", "CheckpointManager"]

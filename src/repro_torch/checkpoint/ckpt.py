@@ -103,16 +103,23 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(steps[-1].split("_")[1]) if steps else None
 
 
+def manifest(ckpt_dir: str, step: int) -> dict:
+    """Step `step`'s leaves: ``{path: {"file", "shape", "dtype"}}``, each
+    path its dict keys joined by ``/``."""
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}",
+                           "manifest.json")) as f:
+        return json.load(f)["leaves"]
+
+
 def restore(ckpt_dir: str, step: int, target: Any) -> Any:
     """Restore into `target`'s structure: each leaf a new tensor of the
     saved dtype, on the device of the target's leaf (the CPU where the
     target's leaf is not a tensor)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)["leaves"]
+    saved = manifest(ckpt_dir, step)
     leaves = []
     for path, leaf in tree_items(target):
-        info = manifest["/".join(path)]
+        info = saved["/".join(path)]
         t = _load_leaf(os.path.join(d, info["file"]), info["dtype"])
         assert list(t.shape) == list(leaf.shape), (path, t.shape, leaf.shape)
         leaves.append(t.to(leaf.device) if isinstance(leaf, torch.Tensor)

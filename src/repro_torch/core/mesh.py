@@ -101,7 +101,7 @@ def one_process(mesh, what: str) -> None:
     if isinstance(mesh, RankMesh):
         raise NotImplementedError(
             f"{what} on a RankMesh waits for serving across ranks, its only "
-            f"user (ROADMAP.md Queue 1 item 1)")
+            f"user (ROADMAP.md Queue 1)")
 
 
 #: the mesh axis that stands for the slow cross-pod link (the reference's

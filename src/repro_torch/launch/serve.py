@@ -2,11 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         [--requests 8] [--slots 4] [--policy fifo|homed] [--pods PxD[xM]] \
-        [--device cuda|cpu] [--trace PATH] [--json] [--smoke]
+        [--device cuda|cpu] [--ckpt DIR] [--trace PATH] [--json] [--smoke]
 
 The counterpart of `repro/launch/serve.py`, with the same synthetic
-request stream and the same reduced model (``layers=4``), its parameters
-drawn from a `torch.Generator` seeded 0.  ``--policy`` selects the serving
+request stream and the same reduced model (``layers=4``; a config whose
+superblock does not divide 4 -- jamba's 8 layers -- takes one
+superblock), its parameters drawn from a `torch.Generator` seeded 0.
+Under ``--ckpt`` they are restored from the latest step there, as the
+reference restores them, at the depth that checkpoint holds (the
+reference serves 4 layers, so it cannot restore its own `launch.train`'s
+2-layer checkpoints): a `launch.train` checkpoint of the same ``--arch``,
+or the reference's (the two packages read each other's files).
+``--policy`` selects the serving
 scheduler: ``fifo`` is the arrival-order oracle, ``homed`` routes/
 batches/evicts by each slot's cache home.  ``--pods PxD[xM]`` serves over
 a `HomeMesh` of ``{"pod": P, "data": D, "model": M}`` homes on the one
@@ -14,7 +21,8 @@ device, so the scheduler's inter-pod vs intra-pod relayout split shows.
 ``--device`` (default the card; ``cpu`` runs the plain versions).  The
 per-home admission summary prints at exit; it is the reference's, request
 for request (the scheduler sees arrivals, sessions and prompt lengths,
-never the tokens).  ``--ckpt`` waits for the training slice's checkpoints.
+never the tokens).  The vision config is not served: the server, like the
+reference's, has no image input.
 
 ``--trace PATH`` streams a structured JSONL trace of the whole run
 (scheduler decisions, charges, pool pins, per-wave decode spans).
@@ -27,8 +35,11 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import latest_step, manifest, restore
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.mesh import HomeMesh, resolve_device
+from repro_torch.models.blocks import superblock_spec
 from repro_torch.models.model import LM
 from repro_torch.obs import Tracer, set_tracer
 from repro_torch.obs import metrics as obs_metrics
@@ -59,10 +70,71 @@ def build_plan(pods, slots: int, device):
                               device=device), slots)
 
 
-def main(argv=None):
+def served_config(arch: str, ckpt=None) -> ArchConfig:
+    """The served reduced config: 4 layers (the reference's), one
+    superblock where the superblock does not divide 4, or the depth of
+    the latest checkpoint under `ckpt` when there is one."""
+    cfg = get_config(arch)
+    members = len(superblock_spec(cfg))
+    layers = 4 if 4 % members == 0 else members
+    step = latest_step(ckpt) if ckpt else None
+    if step is not None:
+        stack = manifest(ckpt, step).get("params/stack/m0/ln1")
+        if stack is None:
+            raise ValueError(f"--ckpt {ckpt}: step {step} holds no "
+                             f"model parameters")
+        layers = stack["shape"][0] * members
+    return reduce_config(cfg, layers=layers)
+
+
+def load_params(cfg: ArchConfig, device, ckpt=None):
+    """The served parameters: drawn from a generator seeded 0 on `device`,
+    then, when `ckpt` holds a checkpoint, its latest step's ``params``
+    in their place.  A checkpoint of another config is refused."""
+    params = LM(cfg).init(torch.Generator(device=device).manual_seed(0))
+    step = latest_step(ckpt) if ckpt else None
+    if step is None:
+        return params
+    try:
+        return restore(ckpt, step, {"params": params})["params"]
+    except (AssertionError, KeyError) as e:
+        raise ValueError(f"--ckpt {ckpt}: step {step} does not fit "
+                         f"{cfg.name}: {e!r}") from None
+
+
+def requests(cfg: ArchConfig, args):
+    """The reference launcher's synthetic stream (seeded 0)."""
+    rng = np.random.RandomState(0)
+    out = []
+    for rid in range(args.requests):
+        plen = rng.randint(2, 9)
+        out.append(Request(
+            rid=rid,
+            prompt=rng.randint(0, cfg.vocab_size, plen).astype(np.int32),
+            max_new=int(rng.choice([args.max_new // 2 or 1, args.max_new])),
+            session=f"s{rng.randint(args.sessions)}",
+            t_arrive=float(rid // max(1, args.slots))))
+    return out
+
+
+def serve(cfg: ArchConfig, params, args, device, tracer=None):
+    """Serve `requests` with `params` as ``args`` ask; returns the drained
+    server (its scheduler holds the summary) and the served requests, by
+    id."""
+    plan = build_plan(args.pods, args.slots, device)
+    srv = DecodeServer(cfg, params, batch_slots=args.slots, max_len=96,
+                       plan=plan, scheduler=args.policy,
+                       prompt_pad=args.prompt_pad or None, tracer=tracer)
+    for r in requests(cfg, args):
+        srv.submit(r)
+    return srv, sorted(srv.run(), key=lambda r: r.rid)
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the latest checkpoint's params from here")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
@@ -87,33 +159,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.smoke:
         args.requests, args.slots, args.max_new = 8, 4, 4
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: checkpoints come with the "
-                                  "training slice (ROADMAP.md Queue 1)")
+    return args
 
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = reduce_config(get_config(args.arch), layers=4)
-    params = LM(cfg).init(torch.Generator(device=device).manual_seed(0))
-    plan = build_plan(args.pods, args.slots, device)
+    cfg = served_config(args.arch, args.ckpt)
+    params = load_params(cfg, device, args.ckpt)
     tracer = None
     if args.trace:
         tracer = Tracer(args.trace, tool="launch.serve", arch=args.arch,
                         policy=args.policy, slots=args.slots,
                         pods=args.pods, requests=args.requests)
         set_tracer(tracer)
-    srv = DecodeServer(cfg, params, batch_slots=args.slots, max_len=96,
-                       plan=plan, scheduler=args.policy,
-                       prompt_pad=args.prompt_pad or None, tracer=tracer)
-    rng = np.random.RandomState(0)
-    for rid in range(args.requests):
-        plen = rng.randint(2, 9)
-        srv.submit(Request(
-            rid=rid,
-            prompt=rng.randint(0, cfg.vocab_size, plen).astype(np.int32),
-            max_new=int(rng.choice([args.max_new // 2 or 1, args.max_new])),
-            session=f"s{rng.randint(args.sessions)}",
-            t_arrive=float(rid // max(1, args.slots))))
-    for r in sorted(srv.run(), key=lambda r: r.rid):
+    srv, served = serve(cfg, params, args, device, tracer)
+    for r in served:
         print(f"req {r.rid} (session {r.session}, home {r.home}, "
               f"wait {r.wait:.0f}): -> {r.out}")
     summary = srv.scheduler.emit_summary()

@@ -1,17 +1,18 @@
-"""Attention: GQA + qk-norm + KV cache, for prefill and decode.
+"""Attention: GQA + qk-norm + sliding window + cross attention + KV cache.
 
 The counterpart of `repro/models/attention.py`.  Prefill attention is the
 reference's *chunked* online softmax over KV blocks (`chunked_attention`,
-the plain form) or, on a CUDA tensor, the hand-written `flash_attention`
-kernel, which the reference names as the drop-in for the same computation
-(`prefill_attention` dispatches on where the tensor lies).  Decode and the
-page-stepped prefill attend over the KV cache (`decode_attention`, plain,
-as in the reference).  Where the reference's einsums accumulate in float32
+the plain form, which takes the banded O(S*W) form,
+`banded_swa_attention`, where the reference does) or, on a CUDA tensor,
+the hand-written `flash_attention` kernel -- causal, windowed or (cross
+attention) neither -- which the reference names as the drop-in for the
+same computation (`prefill_attention` dispatches on where the tensor
+lies).  Decode and the page-stepped prefill attend over the KV cache
+(`decode_attention`, plain, as in the reference): a ring of ``W`` slots
+under a sliding window, the static image K/V through a cross layer.
+Where the reference's einsums accumulate in float32
 (``preferred_element_type``), the operands are cast to float32 first, so
 that a bfloat16 product is not rounded to bfloat16 in between.
-
-Not ported yet: sliding windows (`banded_swa_attention`) and cross
-attention; a config that needs them raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -26,37 +27,92 @@ from repro_torch.models.common import ninit, out_scale, pdt, rmsnorm, rope
 
 NEG_INF = -1e30
 
-#: what to say where a config needs a part of attention not ported yet
-NOT_PORTED = ("is not ported yet (ROADMAP.md Queue 1: the rest of the model "
-              "stack)")
-
-
-def init_attention(gen: torch.Generator, cfg: ArchConfig):
+def init_attention(gen: torch.Generator, cfg: ArchConfig, cross: bool = False):
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {"wq": ninit(gen, (D, H, hd), pdt(cfg)),
          "wk": ninit(gen, (D, KV, hd), pdt(cfg)),
          "wv": ninit(gen, (D, KV, hd), pdt(cfg)),
          "wo": ninit(gen, (H, hd, D), pdt(cfg), out_scale(cfg))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=gen.device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=gen.device)
     return p
 
 
+def banded_swa_attention(q, k, v, *, window: int):
+    """Sliding-window attention over a 2-block band: O(S*W) instead of
+    O(S^2), the plain form (any device).
+
+    Query block i touches only KV blocks {i-1, i} (block length ==
+    window).  q: (B, Sq, KV, Gq, hd); k, v: (B, Sq, KV, hd); Sq % window
+    == 0.  Returns (B, Sq, KV*Gq, hd) in q's dtype.
+    """
+    B, Sq, KV, Gq, hd = q.shape
+    W = window
+    nq = Sq // W
+    scale = hd ** -0.5
+    dev = q.device
+    qb = q.reshape(B, nq, W, KV, Gq, hd).permute(0, 1, 3, 4, 2, 5).float()
+    kb = k.reshape(B, nq, W, KV, hd)
+    vb = v.reshape(B, nq, W, KV, hd)
+
+    def prev(t):
+        return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+
+    # relative masks (W, W): diag block = causal & window; prev block = band
+    qp = torch.arange(W, device=dev)[:, None]
+    kp = torch.arange(W, device=dev)[None, :]
+    mask_diag = (kp <= qp) & (qp - kp < W)
+    mask_prev = (qp + W - kp) < W                      # kpos = kp - W
+    block_valid = torch.arange(nq, device=dev) > 0     # block 0 has no prev
+
+    m = l = acc = None
+    for kj, vj, mask, valid in [
+            (prev(kb), prev(vb), mask_prev, block_valid),
+            (kb, vb, mask_diag, torch.ones((nq,), dtype=torch.bool,
+                                           device=dev))]:
+        kj = kj.permute(0, 1, 3, 2, 4)                 # (B, nq, KV, W, hd)
+        vj = vj.permute(0, 1, 3, 2, 4)
+        s = torch.einsum("bnkgqd,bnksd->bnkgqs", qb, kj.float()) * scale
+        full_mask = mask[None, None, None] & valid[:, None, None, None, None]
+        s = torch.where(full_mask[None], s, NEG_INF)
+        mj = s.amax(dim=-1)
+        pj = torch.exp(s - mj[..., None])
+        lj = pj.sum(dim=-1)
+        pvj = torch.einsum("bnkgqs,bnksd->bnkgqd", pj.to(vj.dtype).float(),
+                           vj.float())
+        if m is None:
+            m, l, acc = mj, lj, pvj
+        else:
+            m_new = torch.maximum(m, mj)
+            c1, c2 = torch.exp(m - m_new), torch.exp(mj - m_new)
+            l = l * c1 + lj * c2
+            acc = acc * c1[..., None] + pvj * c2[..., None]
+            m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]   # (B,nq,KV,Gq,W,hd)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, Sq, KV * Gq, hd)
+    return out.to(q.dtype)
+
+
 def chunked_attention(q, k, v, *, q_positions, kv_positions,
+                      causal: bool = True, window: int = 0,
                       kv_chunk: int = 1024):
-    """Causal online-softmax attention over KV chunks, the plain form (any
+    """Online-softmax attention over KV chunks, the plain form (any
     device).
 
     q: (B, Sq, KV, Gq, hd); k, v: (B, Skv, KV, hd).  Positions are int
-    vectors used for the causal mask (a key at a negative position is
-    masked).  Returns (B, Sq, KV*Gq, hd) in q's dtype.  Scores and P V
-    accumulate in float32; P is rounded to v's dtype before P V, as in the
-    reference.  (The reference's sliding-window masks and non-causal cross
-    attention wait for the members that use them.)
+    vectors used for causal/sliding-window masking (a key at a negative
+    position is masked).  Returns (B, Sq, KV*Gq, hd) in q's dtype.  Scores
+    and P V accumulate in float32; P is rounded to v's dtype before P V,
+    as in the reference.  A causal window over equal query and key
+    lengths that the window divides into more than one block takes the
+    banded form (`banded_swa_attention`), where the reference does.
     """
     B, Sq, KV, Gq, hd = q.shape
     Skv = k.shape[1]
+    if (window and causal and Skv == Sq and Sq % window == 0
+            and Sq // window > 1):
+        return banded_swa_attention(q, k, v, window=window)
     scale = hd ** -0.5
     kc = min(kv_chunk, Skv)
     nkc = -(-Skv // kc)
@@ -77,7 +133,11 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
         vj = v[:, j * kc:(j + 1) * kc].transpose(1, 2)
         kpj = kv_positions[j * kc:(j + 1) * kc]
         s = torch.einsum("bkgqd,bksd->bkgqs", qt, kj.float()) * scale
-        mask = (kpj[None, :] >= 0) & (kpj[None, :] <= q_positions[:, None])
+        mask = kpj[None, :] >= 0
+        if causal:
+            mask = mask & (kpj[None, :] <= q_positions[:, None])
+        if window:
+            mask = mask & ((q_positions[:, None] - kpj[None, :]) < window)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -92,23 +152,28 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
     return out.to(q.dtype)
 
 
-def flash_prefill_attention(q, k, v):
-    """Causal self-attention of a prefill (positions 0 .. S-1) through
-    `ops.flash_attention`.  q: (B, S, KV, Gq, hd) -> the kernel's
-    contiguous (B, H, S, hd) with head ``h = kv * Gq + g``, which reads KV
-    head ``h // Gq``, the kernel's grouping; k, v: (B, S, KV, hd) ->
-    (B, KV, S, hd).  Returns (B, S, H, hd)."""
+def flash_prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Prefill attention (queries at 0 .. Sq-1, keys at 0 .. Skv-1)
+    through `ops.flash_attention`: causal self-attention, windowed or not,
+    or (``causal=False``) cross attention over Skv != Sq keys.  q: (B, Sq,
+    KV, Gq, hd) -> the kernel's contiguous (B, H, Sq, hd) with head ``h =
+    kv * Gq + g``, which reads KV head ``h // Gq``, the kernel's grouping;
+    k, v: (B, Skv, KV, hd) -> (B, KV, Skv, hd).  Returns (B, Sq, H, hd)."""
     B, S, KV, Gq, hd = q.shape
     qh = q.reshape(B, S, KV * Gq, hd).transpose(1, 2).contiguous()
     kh = k.transpose(1, 2).contiguous()
     vh = v.transpose(1, 2).contiguous()
-    out = ops.flash_attention(qh, kh, vh, causal=True)
+    out = ops.flash_attention(qh, kh, vh, causal=causal, window=window)
     return out.transpose(1, 2).reshape(B, S, KV * Gq, hd)
 
 
-def prefill_attention(q, k, v, *, positions, kv_chunk: int = 1024,
-                      flash: bool = True):
-    """Causal prefill self-attention at ``positions`` = 0 .. S-1.
+def prefill_attention(q, k, v, *, positions, kv_positions=None,
+                      causal: bool = True, window: int = 0,
+                      kv_chunk: int = 1024, flash: bool = True):
+    """Prefill attention at query ``positions`` = 0 .. Sq-1 over keys at
+    `kv_positions` (default the same): causal self-attention, with a
+    sliding `window` or not, or cross attention (``causal=False``, keys
+    at 0 .. Skv-1).
 
     On a CUDA tensor (with `flash`): the `flash_attention` kernel.
     Otherwise -- any CPU tensor, or ``flash=False`` on the card -- the
@@ -120,9 +185,11 @@ def prefill_attention(q, k, v, *, positions, kv_chunk: int = 1024,
     ``flash=False``, as the reference trains on its chunked form.
     """
     if flash and (q.is_cuda or needs_grad(q, k, v)):
-        return flash_prefill_attention(q, k, v)
-    return chunked_attention(q, k, v, q_positions=positions,
-                             kv_positions=positions, kv_chunk=kv_chunk)
+        return flash_prefill_attention(q, k, v, causal=causal, window=window)
+    return chunked_attention(
+        q, k, v, q_positions=positions,
+        kv_positions=positions if kv_positions is None else kv_positions,
+        causal=causal, window=window, kv_chunk=kv_chunk)
 
 
 def _rowwise_positions(pos, B: int, Sq: int, device):
@@ -139,21 +206,26 @@ def _rowwise_positions(pos, B: int, Sq: int, device):
     return pos
 
 
-def decode_attention(q, cache_k, cache_v, kpos, pos):
-    """Attention for Sq new tokens per row over a KV cache.
+def decode_attention(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
+    """Attention for Sq new tokens per row over a (ring-buffered) KV cache.
 
-    q: (B, Sq, KV, Gq, hd); cache_k/v: (B, Sc, KV, hd); kpos: (B, Sc)
-    holding the absolute position stored in each cache slot
+    q: (B, Sq, KV, Gq, hd); cache_k/v: (B, Sc, KV, hd); kpos: (B, Sc) or
+    (Sc,) holding the absolute position stored in each cache slot
     (-1 == empty); pos: scalar, (B,) or (B, Sq) query positions.  Per-row
     masks keep every row's output a function of its own cache alone, so
     rows at different positions decode in one call.
     """
     B, Sq, KV, Gq, hd = q.shape
+    Sc = cache_k.shape[1]
+    if kpos.dim() == 1:
+        kpos = kpos[None].expand(B, Sc)
     pos = _rowwise_positions(pos, B, Sq, q.device)
     scale = hd ** -0.5
     qt = q.permute(0, 2, 3, 1, 4).float()              # (B, KV, Gq, Sq, hd)
     s = torch.einsum("bkgqd,bskd->bkgqs", qt, cache_k.float()) * scale
     mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= pos[:, :, None])
+    if window:
+        mask = mask & ((pos[:, :, None] - kpos[:, None, :]) < window)
     s = torch.where(mask[:, None, None], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -193,65 +265,108 @@ def write_cache(cache: dict, k_new, v_new, pos, write_mask=None) -> None:
                                      kp.gather(1, slot)))
 
 
+def _build_cache(k, v, positions, *, window: int, cache_len) -> dict:
+    """The decode cache a prefill of (B, Sq) tokens builds from its K/V:
+    sized for the decode horizon ``max(cache_len, Sq)``, or a ring of
+    ``Sc = min(window, horizon)`` slots under a sliding window, holding
+    the last ``keep = min(Sc, Sq)`` positions at slots 0 .. keep-1, the
+    rest empty (position -1).  Per-row kpos: decode is per-slot-clocked,
+    so each row carries its own occupancy map from here on.
+
+    The reference's layout, kept as it is: decode writes position p at
+    slot ``p % Sc``, which is where prefill put it only when ``Sq <= Sc``
+    or ``Sq % Sc == 0``; otherwise decode evicts a key still inside the
+    window (ROADMAP.md, reference caveats)."""
+    B, Sq = k.shape[:2]
+    total = max(cache_len or Sq, Sq)
+    Sc = min(window, total) if window else total
+    keep = min(Sc, Sq)
+    ck = k.new_zeros((B, Sc, *k.shape[2:]))
+    cv = v.new_zeros((B, Sc, *v.shape[2:]))
+    ck[:, :keep] = k[:, Sq - keep:]
+    cv[:, :keep] = v[:, Sq - keep:]
+    kp = torch.full((B, Sc), -1, dtype=torch.int32, device=k.device)
+    kp[:, :keep] = positions[Sq - keep:].to(torch.int32)
+    return {"k": ck, "v": cv, "kpos": kp}
+
+
 def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
-                    cache: Optional[dict] = None, pos=None,
-                    build_cache: bool = False, kv_chunk: int = 1024,
-                    cache_len: Optional[int] = None, write_mask=None,
-                    flash: bool = True):
+                    cache: Optional[dict] = None, pos=None, kv_src=None,
+                    build_cache: bool = False, cross: bool = False,
+                    kv_chunk: int = 1024, cache_len: Optional[int] = None,
+                    write_mask=None, flash: bool = True):
     """Full attention block body (no residual/norm -- the block adds those).
 
     Returns (y, new_cache).  Decode (`cache` given, {k, v, kpos} of this
     layer): Sq new tokens per row at ``pos``, written into `cache` in
     place (`write_cache`; `write_mask` (B, Sq) gates the commits), then
-    attended over it; returns `cache`.  Prefill (`build_cache`): returns
-    the cache built from this call's K/V, sized for ``cache_len``.
-    `flash`: prefill attention through the kernel on a CUDA tensor
-    (`prefill_attention`).
+    attended over it, inside the sliding window if the config has one;
+    returns `cache`.  Through a cross layer (`cross`) decode reads the
+    static image cache {k, v, kpos: (n,)} and writes nothing.  Prefill
+    (`build_cache`): returns the cache built from this call's K/V
+    (`_build_cache`, sized for ``cache_len``; a cross layer's is the image
+    K/V of `kv_src`, with no RoPE).  `flash`: prefill attention through
+    the kernel on a CUDA tensor (`prefill_attention`).
     """
-    if cfg.sliding_window:
-        raise NotImplementedError(f"sliding-window attention {NOT_PORTED}")
     B, Sq, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     Gq = H // KV
+    W = 0 if cross else cfg.sliding_window
 
     q = _project(x, p["wq"])
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
-    if "k_norm" in p:
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and cross:
+        # ---- decode through a cross layer: static image KV
+        out = decode_attention(q.reshape(B, Sq, KV, Gq, hd), cache["k"],
+                               cache["v"], cache["kpos"], 2 ** 30)
+        new_cache = cache
+    elif cache is not None:
         # ---- decode / page-step: Sq new tokens per row, masked write
+        k = _project(x, p["wk"])
+        v = _project(x, p["wv"])
+        if "k_norm" in p:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
         pos = _rowwise_positions(pos, B, Sq, x.device)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
         write_cache(cache, k, v, pos, write_mask)
         new_cache = cache
         out = decode_attention(q.reshape(B, Sq, KV, Gq, hd), cache["k"],
-                               cache["v"], cache["kpos"], pos)
+                               cache["v"], cache["kpos"], pos, window=W)
     else:
-        # ---- train / prefill ----
+        # ---- train / prefill
         if positions is None:
             positions = torch.arange(Sq, device=x.device)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if cross:
+            # the image embeddings keep their own dtype, as the
+            # reference's einsum promotes them with the weights
+            src = kv_src.to(torch.promote_types(kv_src.dtype, x.dtype))
+            k = _project(src, p["wk"].to(x.dtype))
+            v = _project(src, p["wv"].to(x.dtype))
+            kv_positions = torch.arange(kv_src.shape[1], device=x.device)
+        else:
+            k = _project(x, p["wk"])
+            v = _project(x, p["wv"])
+            if "k_norm" in p:
+                k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            kv_positions = positions
         out = prefill_attention(q.reshape(B, Sq, KV, Gq, hd), k, v,
-                                positions=positions, kv_chunk=kv_chunk,
-                                flash=flash)
-        if build_cache:
-            # cache sized for the full decode horizon; per-row kpos: decode
-            # is per-slot-clocked, so each row carries its own occupancy
-            Sc = max(cache_len or Sq, Sq)
-            ck = k.new_zeros((B, Sc, KV, hd))
-            cv = v.new_zeros((B, Sc, KV, hd))
-            ck[:, :Sq] = k
-            cv[:, :Sq] = v
-            kp = torch.full((B, Sc), -1, dtype=torch.int32, device=x.device)
-            kp[:, :Sq] = positions.to(torch.int32)
-            new_cache = {"k": ck, "v": cv, "kpos": kp}
+                                positions=positions,
+                                kv_positions=kv_positions, causal=not cross,
+                                window=W, kv_chunk=kv_chunk, flash=flash)
+        if build_cache and cross:
+            new_cache = {"k": k, "v": v,
+                         "kpos": torch.zeros((kv_src.shape[1],),
+                                             dtype=torch.int32,
+                                             device=x.device)}
+        elif build_cache:
+            new_cache = _build_cache(k, v, positions, window=W,
+                                     cache_len=cache_len)
 
     y = out.reshape(B, Sq, H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, D)
     return y, new_cache

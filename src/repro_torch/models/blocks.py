@@ -1,16 +1,14 @@
-"""Superblock assembly: the layer stack, looped over superblocks.
+"""Superblock assembly: heterogeneous layer stacks, looped over superblocks.
 
 The counterpart of `repro/models/blocks.py`.  A *superblock* is the
-smallest repeating unit of an architecture (one layer for dense models).
-Parameters are stacked with a leading superblock axis, as in the
-reference's pytree, and the reference's ``lax.scan`` over it is a Python
-loop here.  Decode caches are stacked the same way: (superblocks, B, ...).
+smallest repeating unit of an architecture (1 layer for dense/MoE/SSM
+models; 8 layers for Jamba's 1:7 attn:mamba interleave; 5 for the vision
+model's 4-self+1-cross pattern).  Parameters are stacked with a leading
+superblock axis, as in the reference's pytree, and the reference's
+``lax.scan`` over it is a Python loop here.  Decode caches are stacked the
+same way: (superblocks, B, ...), and decode writes them in place.
 Training rematerialises each superblock when ``cfg.parallel.remat``
 (`apply_stack`), as the reference checkpoints its scan body.
-
-Ported members: attention ("attn") with the SwiGLU MLP ("mlp").  Mamba2,
-mixture-of-experts and cross-attention members raise `NotImplementedError`
-(ROADMAP.md Queue 1: the rest of the model stack).
 """
 from __future__ import annotations
 
@@ -21,9 +19,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import (NOT_PORTED, _rowwise_positions,
-                                          apply_attention, init_attention)
+from repro_torch.models.attention import (_rowwise_positions, apply_attention,
+                                          init_attention)
 from repro_torch.models.common import apply_mlp, init_mlp, rmsnorm
+from repro_torch.models.mamba2 import apply_mamba, decode_mamba, init_mamba
+from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.tree import tree_map
 
 
 @dataclass(frozen=True)
@@ -55,18 +56,6 @@ def num_superblocks(cfg: ArchConfig) -> int:
     return cfg.num_layers // n
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise `NotImplementedError` unless every member of the config's
-    superblock is ported (attention with an MLP)."""
-    for m in superblock_spec(cfg):
-        if m.mixer != "attn":
-            raise NotImplementedError(f"{cfg.name}: {m.mixer} members "
-                                      f"{NOT_PORTED}")
-        if m.ffn != "mlp":
-            raise NotImplementedError(f"{cfg.name}: {m.ffn} feed-forward "
-                                      f"members {NOT_PORTED}")
-
-
 def tree_index(tree, i: int):
     """Superblock i of a stacked dict tree."""
     if isinstance(tree, dict):
@@ -84,33 +73,67 @@ def tree_stack(trees):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_member(gen: torch.Generator, cfg: ArchConfig):
+def _init_member(gen: torch.Generator, cfg: ArchConfig, spec: MemberSpec):
     D = cfg.d_model
     ones = lambda: torch.ones((D,), dtype=torch.float32, device=gen.device)  # noqa: E731
-    return {"ln1": ones(), "attn": init_attention(gen, cfg), "ln2": ones(),
-            "mlp": init_mlp(gen, cfg)}
+    p = {"ln1": ones()}
+    if spec.mixer in ("attn", "cross"):
+        p["attn"] = init_attention(gen, cfg, cross=spec.mixer == "cross")
+    else:
+        p["mamba"] = init_mamba(gen, cfg)
+    if spec.ffn != "none":
+        p["ln2"] = ones()
+        if spec.ffn == "moe":
+            p["moe"] = init_moe(gen, cfg)
+        else:
+            p["mlp"] = init_mlp(gen, cfg)
+    return p
 
 
 def init_stack(gen: torch.Generator, cfg: ArchConfig):
-    check_ported(cfg)
+    """Each superblock's parameters drawn in turn, written into stacked
+    leaves: the stack takes its own size and one superblock's, not twice
+    its size (the full-width configs fill most of a card)."""
     members = superblock_spec(cfg)
-    return tree_stack([{f"m{i}": _init_member(gen, cfg)
-                        for i in range(len(members))}
-                       for _ in range(num_superblocks(cfg))])
+    nsb = num_superblocks(cfg)
+
+    def draw():
+        return {f"m{i}": _init_member(gen, cfg, m)
+                for i, m in enumerate(members)}
+
+    stack = None
+    for i in range(nsb):
+        sb = draw()
+        if stack is None:
+            stack = tree_map(lambda t: t.new_empty((nsb, *t.shape)), sb)
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, sb)
+    return stack
 
 
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
-def _apply_member(p, x, *, cfg, positions, build_cache: bool, cache_len,
-                  flash: bool):
+def _apply_member(p, spec: MemberSpec, x, *, cfg, positions, img_embeds,
+                  build_cache: bool, cache_len, flash: bool):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    mix, cache = apply_attention(p["attn"], h, cfg=cfg, positions=positions,
-                                 build_cache=build_cache, cache_len=cache_len,
-                                 flash=flash)
+    if spec.mixer == "mamba":
+        mix, cache = apply_mamba(p["mamba"], h, cfg)
+    else:
+        cross = spec.mixer == "cross"
+        mix, cache = apply_attention(
+            p["attn"], h, cfg=cfg, positions=positions,
+            kv_src=img_embeds if cross else None, cross=cross,
+            build_cache=build_cache, cache_len=cache_len, flash=flash)
     x = x + mix
-    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg), cache
+    if spec.ffn != "none":
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if spec.ffn == "moe":
+            f, aux = apply_moe(p["moe"], h, cfg)
+        else:
+            f = apply_mlp(p["mlp"], h, cfg)
+        x = x + f
+    return x, cache, aux
 
 
 def tree_unbind(tree, n: int):
@@ -123,63 +146,86 @@ def tree_unbind(tree, n: int):
     return list(torch.unbind(tree))
 
 
-def apply_stack(stack, x, *, cfg: ArchConfig, positions=None,
+def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
                 build_cache: bool = False, cache_len=None, flash: bool = True):
-    """x: (B, S, D) -> (y, caches_or_None): the superblocks in turn;
-    caches stacked (superblocks, B, ...) when `build_cache`.
+    """x: (B, S, D) -> (y, caches_or_None, aux): the superblocks in turn;
+    caches stacked (superblocks, B, ...) when `build_cache`; aux the MoE
+    load-balance losses, summed over each superblock's members, then over
+    the superblocks, as the reference sums them.
 
     With ``cfg.parallel.remat`` and grad enabled (training), each
     superblock runs under `torch.utils.checkpoint`: only its input is kept
     for the backward pass, which runs the superblock's forward again --
     the reference's ``jax.checkpoint`` of the scan body."""
-    check_ported(cfg)
     members = superblock_spec(cfg)
     remat = (cfg.parallel.remat and torch.is_grad_enabled()
              and not build_cache)
 
     def superblock(sb, x):
         caches = {}
-        for j in range(len(members)):
-            x, caches[f"m{j}"] = _apply_member(
-                sb[f"m{j}"], x, cfg=cfg, positions=positions,
-                build_cache=build_cache, cache_len=cache_len, flash=flash)
-        return x, caches
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, m in enumerate(members):
+            x, caches[f"m{j}"], a = _apply_member(
+                sb[f"m{j}"], m, x, cfg=cfg, positions=positions,
+                img_embeds=img_embeds, build_cache=build_cache,
+                cache_len=cache_len, flash=flash)
+            aux = aux + a
+        return x, caches, aux
 
-    caches = []
+    caches, auxs = [], []
     for sb in tree_unbind(stack, num_superblocks(cfg)):
         if remat:
-            x = checkpoint(lambda sb, x: superblock(sb, x)[0], sb, x,
-                           use_reentrant=False)
+            x, aux = checkpoint(lambda sb, x: superblock(sb, x)[::2], sb, x,
+                                use_reentrant=False)
         else:
-            x, sb_caches = superblock(sb, x)
+            x, sb_caches, aux = superblock(sb, x)
             caches.append(sb_caches)
-    return x, (tree_stack(caches) if build_cache else None)
+        auxs.append(aux)
+    return (x, (tree_stack(caches) if build_cache else None),
+            torch.stack(auxs).sum())
 
 
 # ---------------------------------------------------------------------------
 # decode (Sq tokens per row, cache update)
 # ---------------------------------------------------------------------------
+def _decode_member(p, spec: MemberSpec, x, cache, pos, *, cfg,
+                   write_mask=None):
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if spec.mixer == "mamba":
+        if x.shape[1] != 1:
+            raise ValueError("mamba decode is strictly sequential: "
+                             f"one token per call, got {x.shape[1]}")
+        mix, _ = decode_mamba(p["mamba"], h, cache, cfg)
+    else:
+        mix, _ = apply_attention(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
+                                 cross=spec.mixer == "cross",
+                                 write_mask=write_mask)
+    x = x + mix
+    if spec.ffn != "none":
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if spec.ffn == "moe":
+            f, _ = apply_moe(p["moe"], h, cfg, group_size=x.shape[0])
+        else:
+            f = apply_mlp(p["mlp"], h, cfg)
+        x = x + f
+    return x
+
+
 def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None):
     """x: (B, S, D); caches: dict tree with a leading superblock axis.
 
     ``pos`` is a scalar, (B,) or (B, S) of absolute query positions
     (per-slot clocks); ``write_mask`` (B, S) bool gates cache commits.
-    Returns (x, caches): the caches are written in place, the bits the
-    reference's functional update gives.  The cache is donated
-    (`Locale.jit`): a caller that reads the old cache afterwards copies
-    it first."""
-    check_ported(cfg)
+    Returns (x, caches): the caches -- KV rings, SSM and conv states --
+    are written in place, the bits the reference's functional update
+    gives.  The cache is donated (`Locale.jit`): a caller that reads the
+    old cache afterwards copies it first."""
     members = superblock_spec(cfg)
     pos = _rowwise_positions(pos, x.shape[0], x.shape[1], x.device)
     for i in range(num_superblocks(cfg)):
         sb = tree_index(stack, i)
-        for j in range(len(members)):
-            p = sb[f"m{j}"]
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            mix, _ = apply_attention(p["attn"], h, cfg=cfg,
-                                     cache=tree_index(caches[f"m{j}"], i),
-                                     pos=pos, write_mask=write_mask)
-            x = x + mix
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + apply_mlp(p["mlp"], h, cfg)
+        for j, m in enumerate(members):
+            x = _decode_member(sb[f"m{j}"], m, x,
+                               tree_index(caches[f"m{j}"], i), pos, cfg=cfg,
+                               write_mask=write_mask)
     return x, caches

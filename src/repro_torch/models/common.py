@@ -1,4 +1,5 @@
-"""Shared model building blocks: init helpers, RMSNorm, RoPE, SwiGLU MLP.
+"""Shared model building blocks: init helpers, RMSNorm, RoPE, SwiGLU MLP,
+the causal depth-wise convolution of the Mamba2 block.
 
 The counterpart of `repro/models/common.py`.  Parameters are plain dicts
 of tensors, the reference's pytree: initialised from an explicit
@@ -47,6 +48,11 @@ def rmsnorm(x, scale, eps: float):
     return (y * scale.float()).to(x.dtype)
 
 
+def gated_rmsnorm(x, gate, scale, eps: float):
+    """Mamba2-style: norm(x * silu(gate))."""
+    return rmsnorm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -83,3 +89,21 @@ def apply_mlp(p, x, cfg: ArchConfig):
     u = x @ p["w_up"].to(x.dtype)
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ p["w_down"].to(x.dtype)
+
+
+def causal_conv1d(u, w, state=None):
+    """Depth-wise causal conv. u: (B, S, C); w: (K, C).
+
+    Returns (y, new_state) where state holds the trailing K-1 inputs,
+    (B, K-1, C).  The taps add in the reference's order, in u's dtype."""
+    K = w.shape[0]
+    S = u.shape[1]
+    if state is not None:
+        u_ext = torch.cat([state.to(u.dtype), u], dim=1)
+    else:
+        u_ext = F.pad(u, (0, 0, K - 1, 0))
+    y = 0
+    for j in range(K):
+        y = y + u_ext[:, j:j + S, :] * w[j].to(u.dtype)
+    new_state = u_ext[:, u_ext.shape[1] - (K - 1):, :] if K > 1 else u[:, :0]
+    return y, new_state

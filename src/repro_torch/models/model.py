@@ -1,7 +1,8 @@
-"""LM: embedding + superblock stack + head; prefill and decode.
+"""LM: embedding/frontend + superblock stack + head; train/prefill/decode.
 
-The counterpart of `repro/models/model.py`, for token LMs whose members are
-ported (dense attention + MLP stacks, `blocks.check_ported`).  Parameters
+The counterpart of `repro/models/model.py`, for every member kind of the
+reference (attention, sliding-window attention, cross attention, Mamba2,
+the SwiGLU MLP and mixture-of-experts).  Parameters
 are the reference's pytree as a dict of tensors (`init`, or
 `convert.lm_params_from_reference`); every method takes them explicitly,
 as the reference's do, and runs where they lie.
@@ -29,7 +30,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, flash: bool = True):
         super().__init__()
-        blocks.check_ported(cfg)
         self.cfg = cfg
         self.flash = flash
 
@@ -63,6 +63,7 @@ class LM(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         return blocks.apply_stack(params["stack"], x, cfg=self.cfg,
                                   positions=positions,
+                                  img_embeds=batch.get("image_embeds"),
                                   build_cache=build_cache,
                                   cache_len=cache_len, flash=self.flash)
 
@@ -70,16 +71,16 @@ class LM(nn.Module):
     def forward(self, params, batch, build_cache: bool = False,
                 cache_len=None):
         """Returns (logits (B, S, Vp), caches_or_None, aux); aux is the
-        MoE load-balancing loss, 0 for the ported members."""
-        x, caches = self._stack(params, batch, build_cache, cache_len)
-        return (self._head(params, x), caches,
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        MoE load-balancing loss summed over the layers (0 without MoE).
+        A vision config's batch carries ``image_embeds`` (B, n, D)."""
+        x, caches, aux = self._stack(params, batch, build_cache, cache_len)
+        return self._head(params, x), caches, aux
 
     def prefill(self, params, batch, max_len=None):
         """(last-position logits (B, Vp), caches sized for `max_len`).  The
         head runs on the last position only: the reference computes every
         position's logits and keeps the last, the same per-row product."""
-        x, caches = self._stack(params, batch, True, max_len)
+        x, caches, _ = self._stack(params, batch, True, max_len)
         return self._head(params, x[:, -1:])[:, 0], caches
 
     def decode_step(self, params, caches, batch, pos):
@@ -107,19 +108,40 @@ class LM(nn.Module):
         return self._head(params, x), new_caches
 
     # ----------------------------------------------------------------- cache
-    def init_cache(self, batch_size: int, max_len: int, device="cuda"):
-        """Empty decode cache (the structure prefill builds): zero K/V and
-        every slot's position -1, on `device`."""
+    def init_cache(self, batch_size: int, max_len: int, img_len: int = 0,
+                   device="cuda"):
+        """Empty decode cache (the structure prefill builds), on `device`:
+        zero K/V with every slot's position -1 (a ring of
+        ``min(window, max_len)`` slots under a sliding window), zero SSM
+        and conv states, and a cross layer's zero image K/V of `img_len`
+        tokens (default the config's) at position 0."""
         cfg = self.cfg
         nsb = blocks.num_superblocks(cfg)
+        Sc = min(cfg.sliding_window, max_len) if cfg.sliding_window \
+            else max_len
         KV, hd = cfg.num_kv_heads, cfg.head_dim
 
-        def member_cache():
-            kv = (nsb, batch_size, max_len, KV, hd)
-            return {"k": torch.zeros(kv, dtype=dt(cfg), device=device),
-                    "v": torch.zeros(kv, dtype=dt(cfg), device=device),
-                    "kpos": torch.full((nsb, batch_size, max_len), -1,
+        def zeros(*shape, dtype=dt(cfg)):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        def member_cache(spec):
+            if spec.mixer == "mamba":
+                return {"ssm": zeros(nsb, batch_size, cfg.ssm_nheads,
+                                     cfg.ssm_headdim, cfg.ssm_state,
+                                     dtype=torch.float32),
+                        "conv_x": zeros(nsb, batch_size, cfg.ssm_conv - 1,
+                                        cfg.d_inner),
+                        "conv_bc": zeros(nsb, batch_size, cfg.ssm_conv - 1,
+                                         2 * cfg.ssm_ngroups * cfg.ssm_state)}
+            if spec.mixer == "cross":
+                n = img_len or cfg.num_image_tokens
+                return {"k": zeros(nsb, batch_size, n, KV, hd),
+                        "v": zeros(nsb, batch_size, n, KV, hd),
+                        "kpos": zeros(nsb, n, dtype=torch.int32)}
+            return {"k": zeros(nsb, batch_size, Sc, KV, hd),
+                    "v": zeros(nsb, batch_size, Sc, KV, hd),
+                    "kpos": torch.full((nsb, batch_size, Sc), -1,
                                        dtype=torch.int32, device=device)}
 
-        return {f"m{i}": member_cache()
-                for i in range(len(blocks.superblock_spec(cfg)))}
+        return {f"m{i}": member_cache(m)
+                for i, m in enumerate(blocks.superblock_spec(cfg))}

@@ -16,7 +16,8 @@ routes/batches/evicts by the slot ownership map `Locale.owners`.
 Two serving modes, picked at construction, as in the reference:
 
 **paged / continuous** (``prompt_pad`` set, attention-only stack, no
-sliding window) -- prompts are *right*-padded into a fixed bucket, every
+sliding window; an MoE stack qualifies, though its capacity buckets make
+a row's tokens depend on its group-mates wherever one fills) -- prompts are *right*-padded into a fixed bucket, every
 row decodes at its own position clock, a freed slot refills mid-wave.
 Prefill runs page-stepped (``page_size`` tokens a call, through
 `LM.decode_pages` and `decode_attention`), so a prompt's leading pages
@@ -25,10 +26,12 @@ instead of recomputed.  Each row's numerics are a pure function of its
 own prompt, so decode outputs are bit-identical across scheduling
 policies for the same request set.
 
-**aligned waves** (everything else) -- a wave of slots is prefilled
-together (`LM.prefill`, left-padded to ``prompt_pad`` or the wave max;
-its attention is the `flash_attention` kernel on the card) and all active
-slots share one decode position clock.
+**aligned waves** (everything else: Mamba2 and hybrid stacks, sliding
+windows) -- a wave of slots is prefilled together (`LM.prefill`,
+left-padded to ``prompt_pad`` or the wave max; its attention is the
+`flash_attention` kernel on the card) and all active slots share one
+decode position clock; the decode step writes every cache leaf in place,
+KV rings and SSM/conv states alike.
 
 The pooled page content (`PageStore`) stays on the model's device here,
 where the reference copies it to the host.
@@ -79,6 +82,10 @@ class DecodeServer:
                  page_capacity: Optional[int] = None,
                  tracer=None):
         assert cfg.embed_input, "server serves token LMs"
+        if any(m.mixer == "cross" for m in superblock_spec(cfg)):
+            raise ValueError(f"{cfg.name}: the server has no image input (nor "
+                             f"has the reference's), so a cross-attention "
+                             f"config is not served")
         self.cfg, self.params, self.plan = cfg, params, plan
         self.B, self.max_len = batch_slots, max_len
         self.model = LM(cfg)

@@ -545,6 +545,101 @@ def test_decode_server_on_card_matches_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the rest of the model stack: windowed and cross prefill through the
+# kernel, every member on the card against the CPU
+# ---------------------------------------------------------------------------
+STACK_ARCHS = ["mixtral-8x7b", "deepseek-moe-16b", "mamba2-2.7b",
+               "jamba-1.5-large-398b", "llama-3.2-vision-90b"]
+
+
+def _stack_model(name: str, dtype: str = "float32"):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import LM
+    cfg = reduce_config(get_config(name)).replace(dtype=dtype,
+                                                  param_dtype=dtype)
+    return cfg, LM(cfg).init(torch.Generator().manual_seed(4))
+
+
+def _stack_batch(cfg, B: int, S: int, device):
+    rng = np.random.default_rng(5)
+    b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "vlm":
+        b["image_embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)).to(
+                getattr(torch, cfg.dtype))
+    return _to(b, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,S", [("mixtral-8x7b", 64),
+                                    ("mixtral-8x7b", 40),
+                                    ("llama-3.2-vision-90b", 33)])
+def test_windowed_and_cross_prefill_through_kernel_on_card(name, S, dtype):
+    """`LM.prefill` of a sliding-window config (S a multiple of the
+    window and not) and of the vision config launches `flash_attention`
+    once an attention layer -- windowed, and non-causal over the image
+    tokens (Sq != Skv) in the cross layers -- and its logits stay within
+    `LOGIT_TOL` of the plain chunked (banded) form's."""
+    _need_card()
+    from repro_torch.models import LM
+    cfg, params = _stack_model(name, dtype)
+    params = _to(params, "cuda")
+    b = _stack_batch(cfg, 3, S, "cuda")
+    ops.reset_launches()
+    with record() as launches:
+        got, caches = LM(cfg).prefill(params, b, max_len=S + 8)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    calls = {f.call[1][3:5] + f.call[1][8:10] for f in launches}
+    if cfg.sliding_window:
+        assert calls == {(S, S, True, cfg.sliding_window)}
+    else:
+        assert calls == {(S, S, True, 0),
+                         (S, cfg.num_image_tokens, False, 0)}
+    want, plain_caches = LM(cfg, flash=False).prefill(params, b,
+                                                      max_len=S + 8)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= LOGIT_TOL[dtype] * float(want.float().abs().max()), err
+    assert torch.equal(caches["m0"]["kpos"], plain_caches["m0"]["kpos"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", STACK_ARCHS)
+def test_stack_on_card_matches_cpu(name):
+    """A reduced float32 model of each new member kind on the card --
+    prefill through the kernel, MoE, Mamba2 state steps, ring and cross
+    caches -- against the same on the CPU: logits, aux and every cache
+    leaf within rtol 1e-4, atol 1e-5, positions exact."""
+    _need_card()
+    from repro_torch.models import LM
+    cfg, params = _stack_model(name)
+    m = LM(cfg)
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = _to(params, device)
+        b = _stack_batch(cfg, 2, 32, device)
+        first = {k: v if k == "image_embeds" else v[:, :16]
+                 for k, v in b.items()}
+        logits, _, aux = m.forward(p, b)
+        last, caches = m.prefill(p, first, max_len=32)
+        got = [logits, aux, last]
+        for pos in range(16, 20):
+            lg, caches = m.decode_step(p, caches,
+                                       {"tokens": b["tokens"][:, pos:pos + 1]},
+                                       pos)
+            got.append(lg)
+        out[device] = got + [leaf for sub in caches.values()
+                             for leaf in sub.values()]
+    for a, c in zip(out["cpu"], out["cuda"]):
+        if a.dtype == torch.int32:
+            assert torch.equal(a, c.cpu())
+        else:
+            np.testing.assert_allclose(c.cpu().float().numpy(),
+                                       a.float().numpy(), rtol=1e-4,
+                                       atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu

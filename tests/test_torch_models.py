@@ -221,7 +221,7 @@ def test_prefill_on_the_cpu_runs_the_plain_chunked_form():
 
 
 # ---------------------------------------------------------------------------
-# parameters, and what is not ported
+# parameters, and every member kind
 # ---------------------------------------------------------------------------
 def test_init_has_the_reference_structure_and_follows_the_seed():
     cfg = base.reduce_config(base.get_config("qwen3-0.6b"))
@@ -250,7 +250,32 @@ def test_params_from_reference_keep_bfloat16_bits():
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "deepseek-moe-16b",
                                   "mamba2-2.7b", "jamba-1.5-large-398b",
                                   "llama-3.2-vision-90b"])
-def test_members_not_ported_yet_raise(name):
+def test_every_member_kind_builds_with_the_reference_structure(name):
+    """The members that `tests/test_torch_stack.py` holds to the reference
+    (sliding windows, MoE, Mamba2, cross attention) build from a seed with
+    the reference's parameter tree -- keys, shapes, dtypes -- and run
+    forward, prefill and a decode step to finite logits."""
+    jcfg = jbase.reduce_config(jbase.get_config(name))
     cfg = base.reduce_config(base.get_config(name))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LM(cfg)
+    ref = jax.eval_shape(JLM(jcfg).init, jax.random.key(0))
+    m = LM(cfg)
+    got = m.init(torch.Generator().manual_seed(5))
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    flat_got = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t, got, is_leaf=torch.is_tensor))[0]
+    assert [(k, tuple(v.shape), str(v.dtype)) for k, v in flat_ref] == \
+        [(k, tuple(v.shape), str(v.dtype).replace("torch.", ""))
+         for k, v in flat_got]
+    b = {"tokens": torch.from_numpy(tokens(cfg, 2, 17)).long()}
+    if cfg.family == "vlm":
+        b["image_embeds"] = 0.1 * torch.randn(
+            2, cfg.num_image_tokens, cfg.d_model,
+            generator=torch.Generator().manual_seed(1))
+    logits, _, aux = m.forward(got, b)
+    assert logits.shape == (2, 17, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    last, caches = m.prefill(got, {**b, "tokens": b["tokens"][:, :16]},
+                             max_len=24)
+    lg, _ = m.decode_step(got, caches, {**b, "tokens": b["tokens"][:, 16:]},
+                          16)
+    assert bool(torch.isfinite(last).all()) and bool(torch.isfinite(lg).all())

@@ -219,7 +219,8 @@ def rank_extras(device, mesh_of):
     with pytest.raises(ValueError, match="granule 64"):
         fn(Locale(flat, "data", case_policy(7)).put(np.arange(8)))
     # pin_tree across ranks waits for serving across ranks
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError,
+                       match="waits for serving across ranks"):
         Locale(flat, "data", case_policy(8)).pin_tree({"x": torch.zeros(8)})
     # make_rank_mesh: its errors, and the meshes it builds
     errors = {}

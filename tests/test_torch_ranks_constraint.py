@@ -523,7 +523,7 @@ def test_rank_check_runs_r2_and_flags_a_planted_move(worlds):
 
 def test_pin_tree_raises_on_a_rank_mesh(worlds):
     """`pin_tree` waits for serving across ranks, its only user, and says
-    so, naming the queue item."""
+    so, naming the work it waits for and no queue item's number."""
     for res in worlds[8]:
         assert "serving across ranks" in res["pin_tree"]
-        assert "Queue 1 item 1" in res["pin_tree"]
+        assert "item" not in res["pin_tree"]

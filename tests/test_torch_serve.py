@@ -23,6 +23,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import base as jbase
 from repro.models.model import LM as JLM
@@ -37,6 +38,7 @@ from repro_torch.core import HomeMesh, Locale
 from repro_torch.obs import Tracer
 from repro_torch.runtime import ft, scheduler
 from repro_torch.runtime.server import DecodeServer, Request, schedule_replay
+from repro_torch.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
@@ -130,6 +132,32 @@ def test_server_decodes_the_reference_tokens(reduced, pad, policy):
     assert summary == js.scheduler.emit_summary()
     if pad:
         assert summary["pages_attached"] > 0        # the attach path ran
+
+
+@pytest.mark.parametrize("name,layers,pad", [
+    ("deepseek-moe-16b", 2, None), ("deepseek-moe-16b", 2, 16),
+    ("mixtral-8x7b", 2, 16), ("mamba2-2.7b", 2, 16),
+    ("jamba-1.5-large-398b", 8, 16)],
+    ids=["moe-waves", "moe-paged", "window", "ssm", "hybrid"])
+def test_server_decodes_the_reference_tokens_for_every_member(name, layers,
+                                                              pad):
+    """MoE, sliding-window, Mamba2 and hybrid stacks: the port's server
+    decodes the reference server's tokens from the same parameters, in
+    the mode the reference picks (paged only for the MoE: the others'
+    decode state is sequential or a ring), with equal summaries."""
+    jcfg = jbase.reduce_config(jbase.get_config(name), layers=layers)
+    cfg = base.reduce_config(base.get_config(name), layers=layers)
+    jp = jax.jit(JLM(jcfg).init)(jax.random.key(2))
+    p = lm_params_from_reference(jax.tree.map(np.asarray, jp), "cpu")
+    kw = dict(batch_slots=4, max_len=40, scheduler="homed", prompt_pad=pad,
+              page_size=4 if pad else None)
+    js, ts = JServer(jcfg, jp, **kw), DecodeServer(cfg, p, **kw)
+    assert ts.paged == js.paged == (pad is not None and name.startswith(
+        "deepseek"))
+    want = served_tokens(js, stream(JRequest, cfg))
+    got = served_tokens(ts, stream(Request, cfg))
+    assert got == want
+    assert ts.scheduler.emit_summary() == js.scheduler.emit_summary()
 
 
 def test_paged_tokens_are_bit_identical_across_policies(reduced):
@@ -309,7 +337,62 @@ def test_serve_launcher_prints_the_reference_summary():
     assert json.loads(got[-1])["served"] == 8
 
 
-def test_serve_launcher_refuses_a_checkpoint():
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_ARGS = ["--arch", SERVE_ARCH, "--smoke", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Two training steps of the reduced qwen3-0.6b (2 layers) through each
+    package's `launch.train`, in subprocesses: {package: checkpoint dir}."""
+    out = {}
+    for pkg in ("repro_torch", "repro"):
+        d = tmp_path_factory.mktemp(pkg) / "ckpt"
+        r = subprocess.run(
+            [sys.executable, "-m", f"{pkg}.launch.train", "--arch", SERVE_ARCH,
+             "--steps", "2", "--global-batch", "2", "--seq-len", "16",
+             "--ckpt", str(d)] + (["--device", "cpu"] if pkg == "repro_torch"
+                                  else []),
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(SRC), "JAX_PLATFORMS": "cpu"})
+        assert r.returncode == 0, r.stdout + r.stderr
+        out[pkg] = str(d)
+    return out
+
+
+
+
+@pytest.mark.parametrize("pkg", ["repro_torch", "repro"])
+def test_serve_from_ckpt(trained, pkg, capsys):
+    """``launch.serve --ckpt`` restores the latest step's parameters (of a
+    checkpoint the port's `launch.train` wrote, or the reference's) at
+    the depth they were trained at, and serves the tokens that serving
+    those parameters directly gives; they are the trained parameters, not
+    the seeded ones."""
+    from repro_torch.checkpoint import latest_step, restore
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="training slice"):
-        serve.main(["--smoke", "--device", "cpu", "--ckpt", "somewhere"])
+    d = trained[pkg]
+    assert latest_step(d) == 2
+    serve.main(SERVE_ARGS + ["--ckpt", d])
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("req ")]
+    cfg = serve.served_config(SERVE_ARCH, d)
+    assert cfg.num_layers == 2 and serve.served_config(
+        SERVE_ARCH).num_layers == 4
+    init = serve.load_params(cfg, "cpu")
+    params = restore(d, 2, {"params": init})["params"]
+    assert any(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(init)))
+    _, served = serve.serve(cfg, params, serve.parse_args(SERVE_ARGS), "cpu")
+    want = [f"req {r.rid} (session {r.session}, home {r.home}, "
+            f"wait {r.wait:.0f}): -> {r.out}" for r in served]
+    assert len(got) == 8 and got == want
+
+
+def test_serve_launcher_refuses_a_checkpoint(trained):
+    """A checkpoint of another config (qwen3-0.6b's served as mamba2-2.7b)
+    is refused, not half restored."""
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="does not fit mamba2-2.7b"):
+        serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+                    "--ckpt", trained["repro_torch"]])
