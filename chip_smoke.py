@@ -118,6 +118,31 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 with the attention phase's two planted faults in the
                 kernel's place (outside it), and the costs of a wave:
                 prefill, a decode step, the `pin_tree` copy of the cache;
+  8f. serve_ranks — `DecodeServer` across 8 gloo ranks sharing the card,
+                each serving its home's slots with its blocks of the
+                parameters: qwen3-0.6b at full width and depth (the serve
+                phase's stream, 16 slots) on {"data": 8} (8 homes) and on
+                {"pod": 2, "data": 2, "model": 2} (4 homes of 2 ranks, the
+                heads, KV heads, MLP and vocabulary split), both modes,
+                both policies: every rank's collectives equal to
+                `serve_schedule` (no cache bytes), the scheduler replicas'
+                digests equal, the summary equal to `schedule_replay`'s,
+                every request on its home's ranks, 28 `flash_attention`
+                launches a prefill wave on every rank, and the picks held
+                to the one-process runs on the same homes (`SERVE_RANK_TOL`;
+                a planted dropped partial sum outside it); tokens/s,
+                prefill and decode-step ms, wire, staged and peak bytes by
+                rank; then deepseek-moe-16b at full width, 14 of 28
+                layers, on {"data": 2, "model": 4} (16 experts a rank) in
+                aligned waves under homed, each wave replayed through the
+                one-process plain model (`STACK_REPLAY_TOL`); and
+                qwen3-0.6b at `reduce_config` in float32, card ranks
+                against CPU ranks (a paged run's tokens equal, a prefill's
+                and decode steps' logits within rtol 1e-4, atol 1e-5);
+                `flash_attention` at every call shape the ranks made
+                (their heads of both models, bf16 and float32) against its
+                plain version within `KERNEL_TOL`.  With several cards,
+                (a) again on an NCCL world of every card, untimed;
   8e. stack   — the rest of the model stack at full width in bf16:
                 deepseek-moe-16b (28 layers, 64 experts, top-6, 2 shared)
                 and mamba2-2.7b (64 layers) at full width and depth
@@ -172,7 +197,8 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 through both backends on {"data": 8} at n = 2^24 + 5:
                 equal to torch.sort's values, and bit for bit the CPU
                 port's result, computed after the analysis phase, so that
-                no timed phase shares the host with it;
+                no timed phase shares the host with it, in
+                `CPU_SORT_PROCS` processes sharing the host's cores;
   9. analysis — the analyser's path: the four mutant kernels of
                 `repro_torch.kernels.fixtures` against their plain versions
                 (bit for bit; the raced rows of `overlapping_index_map`
@@ -1613,14 +1639,44 @@ def dtype_inputs(seed: int) -> dict:
             for i, dt in enumerate(NARROW_SORT_DTYPES)}
 
 
-def cpu_reference(seed: int) -> dict:
-    """The CPU port's sorts of `dtype_inputs`, both backends (the plain
-    bitonic network over 2^21 + 1-key leaves takes ~30 s a sort)."""
+#: processes the CPU reference sorts run in, each on its share of the cores
+CPU_SORT_PROCS = 4
+
+
+def cpu_sort(dt: str, backend: str, seed: int, n: int, threads: int):
+    """One CPU port sort of `dtype_inputs`' `dt` input at `n` (a worker of
+    `cpu_reference`): ``(result, seconds)``."""
+    from repro_torch.convert import NARROW_SORT_DTYPES, make_sort_data
     from repro_torch.core import HomeMesh, Locale, LocalisationPolicy
-    return {f"{dt}_{backend}": Locale(
-        HomeMesh({"data": 8}, device="cpu"), "data", LocalisationPolicy()
-    ).workload("sort", backend=backend)(x)
-        for dt, x in dtype_inputs(seed).items() for backend in SORT_BACKENDS}
+    torch.set_num_threads(threads)
+    i = NARROW_SORT_DTYPES.index(dt)
+    x = torch.from_numpy(make_sort_data(n, dt, seed + 50 + i)).to(
+        getattr(torch, dt))
+    t0 = time.perf_counter()
+    y = Locale(HomeMesh({"data": 8}, device="cpu"), "data",
+               LocalisationPolicy()).workload("sort", backend=backend)(x)
+    return y, time.perf_counter() - t0
+
+
+def cpu_reference(seed: int, n: int = None) -> tuple:
+    """The CPU port's sorts of `dtype_inputs` (at `n`, default
+    ``N_ENGINE``), both backends, in `CPU_SORT_PROCS` processes of
+    ``os.cpu_count() // CPU_SORT_PROCS`` threads each (the plain bitonic
+    network over 2^21 + 1-key leaves is most of a sort).  Returns
+    ``({tag: result}, {tag: seconds})``."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.convert import NARROW_SORT_DTYPES
+    n = n or N_ENGINE
+    threads = max(1, (os.cpu_count() or 1) // CPU_SORT_PROCS)
+    tags = [(dt, b) for dt in NARROW_SORT_DTYPES for b in SORT_BACKENDS]
+    with cf.ProcessPoolExecutor(CPU_SORT_PROCS,
+                                mp_context=mp.get_context("spawn")) as pool:
+        futs = {f"{dt}_{b}": pool.submit(cpu_sort, dt, b, seed, n, threads)
+                for dt, b in tags}
+        done = {tag: f.result() for tag, f in futs.items()}
+    return ({tag: y for tag, (y, _) in done.items()},
+            {tag: s for tag, (_, s) in done.items()})
 
 
 def phase_dtypes(seed: int) -> dict:
@@ -1669,13 +1725,16 @@ def check_dtypes_on_cpu(dtypes: dict, seed: int) -> None:
     """Hold each card result of `phase_dtypes` bit for bit to the CPU
     port's for the same input.  Runs after every timed phase."""
     t0 = time.perf_counter()
-    cpu = cpu_reference(seed)
+    cpu, dtypes["cpu_sort_seconds"] = cpu_reference(seed)
     dtypes["mismatches_vs_cpu"] = {
         tag: mismatches(y, cpu[tag]) for tag, y in dtypes.pop("results").items()}
     dtypes["cpu_seconds"] = time.perf_counter() - t0
-    say(f"phase dtypes on the CPU: the CPU port's results in "
-        f"{dtypes['cpu_seconds']:.1f} s, mismatches "
-        + json.dumps(dtypes["mismatches_vs_cpu"]))
+    say(f"phase dtypes on the CPU: the CPU port's {len(cpu)} results in "
+        f"{dtypes['cpu_seconds']:.1f} s ({CPU_SORT_PROCS} processes of "
+        f"{max(1, (os.cpu_count() or 1) // CPU_SORT_PROCS)} threads; "
+        f"seconds by sort " + json.dumps(
+            {k: round(v, 2) for k, v in dtypes["cpu_sort_seconds"].items()})
+        + "), mismatches " + json.dumps(dtypes["mismatches_vs_cpu"]))
     need(not any(dtypes["mismatches_vs_cpu"].values()),
          "dtypes: card and CPU differ")
 
@@ -2169,12 +2228,14 @@ def phase_serve(seed: int) -> dict:
         return srv
 
     # the counted runs: both modes, both policies
-    recorded = []
+    recorded, picks = [], {}
     for mode in SERVE_MODES:
         for policy in ("fifo", "homed"):
             tag = f"{mode}-{policy}"
             tracer = Tracer()
             srv = server(mode, policy, tracer)
+            # the picks that the serve_ranks phase holds its runs to
+            picks[tag] = pick_recorder(srv)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -2418,6 +2479,7 @@ def phase_serve(seed: int) -> dict:
         f"{json.dumps(moved)}; profiler saw {json.dumps(seen)} launches, the "
         f"wrapper counted {counted}; phase {out['seconds']:.1f} s")
     out["recorded"] = recorded
+    out["picks"] = picks
     out["line_launches"] = out["runs"]["waves-fifo"]["launches"].get(
         "flash_attention", 0)
     return out
@@ -2615,8 +2677,8 @@ def recording(srv) -> list:
                           steps=[]))
         return serve_wave(placements)
 
-    def _prefill(params, batch, max_len=None):
-        last, caches = prefill(params, batch, max_len=max_len)
+    def _prefill(params, batch, max_len=None, plan=None):
+        last, caches = prefill(params, batch, max_len=max_len, plan=plan)
         waves[-1]["prefill"] = (batch["tokens"].clone(), last.clone())
         return last, caches
 
@@ -2646,7 +2708,8 @@ def replay_waves(cfg, params, waves, served, max_len: int) -> dict:
     def hold(lp, ls, rows, t):
         nonlocal agree, n
         lp = lp.float()
-        errs.append(rel_err(ls, lp))
+        if ls is not None:                   # the served logits, if kept
+            errs.append(rel_err(ls, lp))
         top, scale = lp.max(-1).values, lp.abs().max(-1).values
         for i, r in rows:
             if t >= len(r.out):
@@ -2678,7 +2741,8 @@ def replay_waves(cfg, params, waves, served, max_len: int) -> dict:
             hold(lp, logits, rows, t)
         del caches
     rec = dict(tokens=n, argmax_agree=agree / n, max_margin=max(margins),
-               fault_min_margin=min(faults), max_logit_rel=max(errs),
+               fault_min_margin=min(faults),
+               max_logit_rel=max(errs) if errs else None,
                tol=STACK_REPLAY_TOL)
     need(n == sum(len(r.out) for r in served),
          f"stack {cfg.name}: the replay held {n} tokens")
@@ -3170,6 +3234,743 @@ def phase_stack(seed: int, smi: str) -> dict:
     say(f"phase stack: {out['seconds']:.1f} s, flash_attention launches by "
         f"path " + json.dumps(out["launches"]) + f", {out['allocated_at_start']}"
         f" B allocated on the card when it began [{smi}]")
+    return out
+
+
+#: the serve_ranks phase: `DecodeServer` across 8 gloo ranks sharing the
+#: card (`launch.mesh.spawn`), each rank serving its home's slots with its
+#: blocks of the parameters (`convert.rank_params`, `rank_cut`).
+#: qwen3-0.6b at full width and depth (the serve phase's model, seed,
+#: stream, 16 slots and 1024-token cache) on 8 homes of one rank, and on 4
+#: homes of 2 ranks with the heads, KV heads, MLP and vocabulary split
+#: over "model"; both modes, both policies
+SERVE_RANKS = 8
+SERVE_RANK_MESHES = {"data8": {"data": 8, "model": 1},
+                     "pods222": {"pod": 2, "data": 2, "model": 2}}
+#: deepseek-moe-16b at full width on 2 homes of 4 ranks (16 of its 64
+#: experts a rank, 4 of its 16 heads and KV heads), the stack phase's
+#: mixed stream in aligned waves (8 slots), its depth cut from 28 to 14
+#: layers: 8.6 B parameters, ~4.3 GB of bf16 blocks a rank beside the 8
+#: contexts (28 layers would take ~8.5 GB a rank, 68 GB in all, on a card
+#: the qwen3 runs and the replay share)
+SERVE_RANK_MOE = dict(arch="deepseek-moe-16b", mesh={"data": 2, "model": 4},
+                      layers=14)
+#: its policy: the home-aware one (the stack phase serves both in one
+#: process; a second policy here would take the phase past its 240 s)
+SERVE_RANK_MOE_POLICIES = ("homed",)
+#: the bf16 picks and logits across ranks against one process's on the
+#: same homes (`compare_picks`), as a share of the row's largest |logit|.
+#: A rank computes 2 or 4 of the 16 rows and its share of the heads and
+#: MLP, so cuBLAS runs other shapes and the split sums add in another
+#: order: the readings sit at bf16's rounding through 28 layers, above
+#: `LOGIT_TOL` (H100 at 700 W, seed 0: the first prefill's logits 0.0176
+#: apart with "model" = 2, a decode step's 0.0136 with "model" = 1).  The
+#: bound lies between those and the planted fault's, one rank's partial
+#: sum dropped from the first attention all-reduce (`planted_psum`); a
+#: fault as small as the attention phase's 1 % scale reads 0.017 in bf16
+#: and is left to the float32 check below, card against CPU
+SERVE_RANK_TOL = 2.0 ** -5
+#: the float32 check at `reduce_config`: the card's ranks against the CPU
+#: port's ranks, tokens equal and logits within rtol 1e-4 / atol 1e-5
+SERVE_RANK_F32 = dict(requests=24, prompt_len=(2, 6), new=(3, 12),
+                      max_len=32, pad=6)
+
+
+def pick_recorder(srv) -> list:
+    """Keep, for every greedy pick `srv` makes (`DecodeServer._pick`), its
+    rows' two largest logits, first argmax (a global vocabulary id) and
+    largest |logit| over this rank's vocabulary block, which of them a
+    later step can read (a page step's last written position of each row;
+    every row of a prefill or decode step), and the logits themselves at
+    the first pick of a prefill or decode step."""
+    from repro_torch.sharding.partition import tp_of
+    calls, pick, page, wmask = [], srv._pick, getattr(srv, "_page", None), {}
+    i = tp_of(srv.plan)[1]
+
+    def _page(p, c, toks, positions, wm):
+        wmask["last"] = wm
+        return page(p, c, toks, positions, wm)
+
+    def _pick(logits):
+        lf = logits.float()
+        first = lf.dim() == 2 and not any(c[4] is not None for c in calls)
+        if lf.dim() == 3:               # a page step: its rows' last write
+            wm = wmask["last"].cpu()
+            last = wm.shape[1] - 1 - wm.flip(1).int().argmax(dim=1)
+            read = (torch.arange(wm.shape[1]) == last[:, None]) & wm
+        else:
+            read = torch.ones(lf.shape[0], dtype=torch.bool)
+        calls.append((lf.topk(2, dim=-1).values.cpu(),
+                      (lf.argmax(dim=-1) + i * lf.shape[-1]).cpu(),
+                      lf.abs().amax(dim=-1).cpu(), read,
+                      lf.cpu() if first else None))
+        return pick(logits)
+    srv._pick = _pick
+    if page is not None:
+        srv._page = _page
+    return calls
+
+
+def rank_recording(srv) -> list:
+    """The waves `srv` serves across ranks: each wave's placements (slot,
+    rid) and every pick's tokens of all slots (the prefill's, then each
+    decode step's), as `replay_waves` needs them."""
+    waves, serve_wave, pick = [], srv._serve_wave, srv._pick
+
+    def _serve_wave(placements):
+        waves.append(dict(placements=[(s, r.rid) for s, r in placements],
+                          picks=[]))
+        return serve_wave(placements)
+
+    def _pick(logits):
+        tok = pick(logits)
+        waves[-1]["picks"].append(tok.copy())
+        return tok
+    srv._serve_wave, srv._pick = _serve_wave, _pick
+    return waves
+
+
+def replay_form(waves, reqs) -> list:
+    """`rank_recording`'s waves in `replay_waves`' form: the prefill batch
+    rebuilt from the placements and prompts, each decode step fed the
+    previous pick's tokens of every slot (no served logits: each rank
+    holds only its rows' vocabulary block)."""
+    prompts = {d["rid"]: d["prompt"] for d in reqs}
+    out = []
+    for w in waves:
+        plen = max(len(prompts[rid]) for _, rid in w["placements"])
+        toks = torch.zeros(STACK_SLOTS, plen, dtype=torch.long)
+        for s, rid in w["placements"]:
+            toks[s, plen - len(prompts[rid]):] = torch.from_numpy(
+                prompts[rid])
+        steps = [(torch.from_numpy(w["picks"][t - 1].astype(np.int64))
+                  [:, None].cuda(), None, plen + t - 1)
+                 for t in range(1, len(w["picks"]))]
+        out.append(dict(placements=w["placements"], prefill=(toks, None),
+                        steps=steps))
+    return out
+
+
+def serve_streams(cfg, seed: int) -> dict:
+    """The serve phase's request streams, by mode."""
+    from repro_torch.convert import make_serve_stream
+    return {mode: make_serve_stream(
+        SERVE_REQUESTS, cfg.vocab_size, m["prompt_len"],
+        sessions=SERVE_SESSIONS, new_tokens=SERVE_NEW, slots=SERVE_SLOTS,
+        seed=seed, prefix=m["prefix"]) for mode, m in SERVE_MODES.items()}
+
+
+def rank_serve_run(cfg, params, plan, reqs, *, slots, max_len, pad,
+                   page_size, policy, waves=False) -> dict:
+    """One counted run of `DecodeServer` on this rank: its tokens, homes,
+    summary, event digest, collectives against `serve_schedule`, bytes,
+    launches, peak and time, and the picks (`pick_recorder`)."""
+    import torch.distributed as dist
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.schedule import log_against_serve, serve_schedule
+    from repro_torch.runtime.server import (DecodeServer, Request,
+                                            event_digest)
+    from repro_torch.sharding.partition import homes_of, tp_of
+
+    cuda = params["head"]["head_w"].is_cuda
+    tracer = Tracer()
+    srv = DecodeServer(cfg, params, batch_slots=slots, max_len=max_len,
+                       plan=plan, scheduler=policy, prompt_pad=pad,
+                       page_size=page_size, tracer=tracer)
+    for d in reqs:
+        srv.submit(Request(**d))
+    picks = pick_recorder(srv)
+    recorded = rank_recording(srv) if waves else None
+    sync(plan.mesh.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    ops.reset_launches()                      # the path's counted run
+    coll.reset_collectives()
+    dist.barrier()
+    t0 = time.perf_counter()
+    served = srv.run()
+    sync(plan.mesh.device)
+    wall = time.perf_counter() - t0
+    log = coll.collective_log()
+    owners = srv.locale.owners(slots)
+    places = [r["args"] for r in tracer.records()
+              if r["name"] == "sched.place"]
+    return dict(
+        wall_s=wall, home=homes_of(plan)[1], tp=tp_of(plan)[1],
+        tokens={r.rid: list(r.out) for r in served},
+        homes={r.rid: r.home for r in served},
+        summary=json.loads(json.dumps(srv.scheduler.summary())),
+        digest=event_digest(tracer),
+        schedule=log_against_serve(log, serve_schedule(cfg, plan,
+                                                       srv.calls)),
+        collectives=len(log), wire=sum(r["wire_bytes"] for r in log),
+        staged=coll.staged_bytes(),
+        kinds=sorted({r["kind"] for r in log}),
+        on_home=all(owners[p["slot"]] == p["home"] for p in places),
+        peak_bytes=(torch.cuda.max_memory_allocated() - base) if cuda
+        else None,
+        launches={k: v for k, v in ops.launch_counts().items() if v},
+        picks=picks, waves=recorded)
+
+
+class _FirstPick(Exception):
+    """Raised by `planted_psum` at the run's first pick: every rank stops
+    at the same point, so no collective is left waiting."""
+
+
+def planted_psum(cfg, params, plan, reqs) -> torch.Tensor:
+    """The first pick's logits (this rank's rows and vocabulary block) of
+    the aligned-wave fifo run with a planted fault: one rank's partial sum
+    dropped from the first attention all-reduce (each rank keeps its own
+    partial there).  Every rank makes the same calls."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.runtime.server import DecodeServer, Request
+    real, count, got = coll.psum, [0], {}
+
+    def psum(x, mesh, axes):
+        count[0] += 1
+        y = real(x, mesh, axes)
+        return x.clone() if count[0] == 2 else y   # 1: the embedding's
+
+    def _pick(logits):
+        got["logits"] = logits.float().cpu()
+        raise _FirstPick
+    m = SERVE_MODES["waves"]
+    srv = DecodeServer(cfg, params, batch_slots=SERVE_SLOTS,
+                       max_len=SERVE_MAX_LEN, plan=plan, scheduler="fifo",
+                       prompt_pad=m["prompt_pad"], page_size=m["page_size"])
+    for d in reqs:
+        srv.submit(Request(**d))
+    srv._pick = _pick
+    with mock.patch.object(coll, "psum", psum):
+        try:
+            srv.run()
+        except _FirstPick:
+            pass
+    return got["logits"]
+
+
+def rank_serve_costs(cfg, params, plan, reqs) -> dict:
+    """The first aligned wave's prefill on this rank's rows and a decode
+    step after it: CUDA events (every rank in lockstep: the model's
+    collectives), kernels busy from `torch.profiler` on rank 0."""
+    import torch.distributed as dist
+    from repro_torch.models import LM
+    from repro_torch.sharding.partition import homes_of
+    first = sorted(reqs, key=lambda d: d["t_arrive"])[:SERVE_SLOTS]
+    S = max(len(d["prompt"]) for d in first)
+    toks = torch.zeros(SERVE_SLOTS, S, dtype=torch.long)
+    for i, d in enumerate(first):
+        toks[i, S - len(d["prompt"]):] = torch.from_numpy(d["prompt"])
+    n, h = homes_of(plan)
+    b = SERVE_SLOTS // n
+    mine = toks[h * b:(h + 1) * b].to(plan.mesh.device)
+    model = LM(cfg)
+
+    def prefill():
+        return model.prefill(params, {"tokens": mine}, max_len=SERVE_MAX_LEN,
+                             plan=plan)
+    _, caches = prefill()
+    batch = {"tokens": mine[:, -1:].contiguous()}
+
+    def step():
+        return model.decode_step(params, caches, batch, S, plan=plan)
+    dist.barrier()
+    out = dict(shape=[b, S], prefill_ms=cuda_ms(prefill, reps=1),
+               decode_step_ms=cuda_ms(step, reps=3))
+    for name, fn in (("prefill", prefill), ("decode_step", step)):
+        dist.barrier()
+        if plan.mesh.rank == 0:
+            out[f"{name}_busy_ms"] = device_busy_ms(fn)
+        else:
+            fn()
+            torch.cuda.synchronize()
+    return out
+
+
+def rank_f32(seed: int, device) -> dict:
+    """qwen3-0.6b at `reduce_config` in float32 across the ranks, on each
+    mesh of `SERVE_RANK_MESHES`, on the card and on the CPU: a paged run
+    (fifo; its page steps and decode steps) and the logits of a prefill
+    and two decode steps of a fixed batch, this rank's rows and
+    vocabulary block."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import make_serve_stream, rank_params
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.models import LM
+    from repro_torch.sharding.partition import homes_of, make_plan
+    f = SERVE_RANK_F32
+    cfg = reduce_config(get_config(SERVE_ARCH))
+    whole = LM(cfg).init(torch.Generator().manual_seed(seed))
+    reqs = make_serve_stream(f["requests"], cfg.vocab_size, f["prompt_len"],
+                             sessions=4, new_tokens=f["new"],
+                             slots=SERVE_SLOTS, seed=seed)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 6))
+    fed = rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 2))
+    out = {}
+    for mname, shape in SERVE_RANK_MESHES.items():
+        for dev in (device, "cpu"):
+            mesh = RankMesh(shape, device=dev)
+            plan = make_plan(mesh, cfg, ShapeSpec(
+                "serve", f["max_len"], SERVE_SLOTS, "decode"))
+            params = tree_map(lambda t: t.to(mesh.device),
+                              rank_params(whole, plan, cfg))
+            runs = rank_serve_run(
+                cfg, params, plan, reqs, slots=SERVE_SLOTS,
+                max_len=f["max_len"], pad=f["pad"], page_size=None,
+                policy="fifo")["tokens"]
+            n, h = homes_of(plan)
+            b = SERVE_SLOTS // n
+            rows = lambda a: torch.from_numpy(a[h * b:(h + 1) * b]).to(  # noqa: E731
+                mesh.device)
+            m = LM(cfg)
+            last, caches = m.prefill(params, {"tokens": rows(toks)},
+                                     max_len=f["max_len"], plan=plan)
+            logits = [last]
+            for t in range(fed.shape[1]):
+                lg, caches = m.decode_step(
+                    params, caches, {"tokens": rows(fed[:, t:t + 1])},
+                    toks.shape[1] + t, plan=plan)
+                logits.append(lg)
+            out[mname, str(mesh.device.type)] = dict(
+                tokens=runs, logits=torch.stack(logits).cpu())
+    return out
+
+
+def serve_rank_child(device, seed: int, spec: dict) -> dict:
+    """One rank of the serve_ranks phase (see the module docstring, 8f):
+    `serve_rank_work`, and the distinct shapes of every `flash_attention`
+    call it made (``kernel_shapes``: the wrapper's call arguments), which
+    the parent holds to the plain version."""
+    from repro_torch.analysis import record
+    with record() as launches:
+        out = serve_rank_work(device, seed, spec)
+    out["kernel_shapes"] = sorted({f.call[1] for f in launches
+                                   if f.call[0].endswith("flash_attention")},
+                                  key=repr)
+    return out
+
+
+def serve_rank_work(device, seed: int, spec: dict) -> dict:
+    """qwen3-0.6b on each mesh of ``spec["meshes"]``, then (``spec
+    ["moe"]``) deepseek-moe-16b with its waves recorded on rank 0, then
+    (``spec["f32"]``) the float32 check; ``spec["costs"]`` (default on)
+    times a prefill and a decode step a mesh."""
+    need("jax" not in sys.modules, "a rank process imported JAX")
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import make_serve_stream, rank_cut, rank_params
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.models import LM
+    from repro_torch.sharding.partition import make_plan
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "meshes": {}}
+    cfg = get_config(SERVE_ARCH)
+    streams = serve_streams(cfg, seed)
+    for mname, shape in spec["meshes"].items():
+        t0 = time.perf_counter()
+        mesh = RankMesh(shape, device=device)
+        plan = make_plan(mesh, cfg, ShapeSpec("serve", SERVE_MAX_LEN,
+                                              SERVE_SLOTS, "decode"))
+        params = rank_params(LM(cfg).init(torch.Generator(
+            device=mesh.device).manual_seed(seed)), plan, cfg)
+        sync(device)
+        res = out["meshes"][mname] = {
+            "init_s": time.perf_counter() - t0, "runs": {},
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params))}
+        for mode, m in SERVE_MODES.items():
+            for policy in ("fifo", "homed"):
+                res["runs"][f"{mode}-{policy}"] = rank_serve_run(
+                    cfg, params, plan, streams[mode], slots=SERVE_SLOTS,
+                    max_len=SERVE_MAX_LEN, pad=m["prompt_pad"],
+                    page_size=m["page_size"], policy=policy)
+        if shape.get("model", 1) > 1:
+            res["planted"] = planted_psum(cfg, params, plan,
+                                          streams["waves"])
+        if spec.get("costs", True):
+            res["costs"] = rank_serve_costs(cfg, params, plan,
+                                            streams["waves"])
+        del params
+        torch.cuda.empty_cache()
+    moe = spec.get("moe")
+    if moe:
+        mcfg = get_config(moe["arch"]).replace(num_layers=moe["layers"])
+        st = STACK_SERVE[moe["arch"]]
+        mesh = RankMesh(moe["mesh"], device=device)
+        plan = make_plan(mesh, mcfg, ShapeSpec("serve", st["max_len"],
+                                               STACK_SLOTS, "decode"))
+        t0 = time.perf_counter()
+        params = LM(mcfg).init(torch.Generator(
+            device=mesh.device).manual_seed(seed), cut=rank_cut(plan, mcfg))
+        sync(device)
+        reqs = make_serve_stream(STACK_REQUESTS, mcfg.vocab_size,
+                                 st["prompt_len"], sessions=st["sessions"],
+                                 new_tokens=st["new"], slots=STACK_SLOTS,
+                                 seed=seed)
+        out["moe"] = {"init_s": time.perf_counter() - t0, "runs": {},
+                      "param_bytes": sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(params))}
+        for policy in SERVE_RANK_MOE_POLICIES:
+            run = rank_serve_run(mcfg, params, plan, reqs, slots=STACK_SLOTS,
+                                 max_len=st["max_len"], pad=st["pad"],
+                                 page_size=None, policy=policy, waves=True)
+            run.pop("picks")
+            if rank:
+                run.pop("waves")
+            out["moe"]["runs"][policy] = run
+        del params
+        torch.cuda.empty_cache()
+    if spec.get("f32"):
+        out["f32"] = rank_f32(seed, device)
+    out["jax_free"] = "jax" not in sys.modules
+    return out
+
+
+def combine_picks(ranks: list, run: str, mname: str, M: int) -> list:
+    """Each pick of a run across ranks as one process's: per call, the
+    rows' (top two logits, argmax, largest |logit|) over the whole
+    vocabulary, rows in slot order, and the first step's logits."""
+    rs = [r["meshes"][mname]["runs"][run] for r in ranks]
+    n = len({r["home"] for r in rs})
+    calls = []
+    for c in range(len(rs[0]["picks"])):
+        vals, idx, scale, read, full = [], [], [], [], []
+        for h in range(n):
+            blocks = sorted(((r["tp"], r["picks"][c]) for r in rs
+                             if r["home"] == h), key=lambda b: b[0])
+            v = torch.cat([b[0] for _, b in blocks], dim=-1)
+            a = torch.stack([b[1] for _, b in blocks], dim=-1)
+            top = torch.stack([b[0][..., 0] for _, b in blocks], dim=-1)
+            vals.append(v.topk(2, dim=-1).values)
+            # the first block holding the largest logit: its first argmax
+            idx.append(a.gather(-1, top.argmax(dim=-1, keepdim=True))[..., 0])
+            scale.append(torch.stack([b[2] for _, b in blocks], -1).amax(-1))
+            read.append(blocks[0][1][3])
+            if blocks[0][1][4] is not None:
+                full.append(torch.cat([b[4] for _, b in blocks], dim=-1))
+        calls.append((torch.cat(vals), torch.cat(idx), torch.cat(scale),
+                      torch.cat(read), torch.cat(full) if full else None))
+    return calls
+
+
+def compare_picks(one: list, ranks: list, tol: float) -> dict:
+    """A run across ranks against the same run in one process, pick for
+    pick: each row's largest logit within `tol` of the one-process row's
+    (as a share of its largest |logit|), its token equal wherever the
+    one-process top-2 margin exceeds `tol`, and the first prefill or
+    decode step's logits within `tol` on the slots still compared.  A slot
+    whose token legitimately differs (a near-tie) where a later step reads
+    it is not compared again in that run: its inputs differ from then
+    on."""
+    need(len(one) == len(ranks), f"serve_ranks: {len(ranks)} picks across "
+                                 f"ranks, {len(one)} in one process")
+    live = torch.ones(SERVE_SLOTS, dtype=torch.bool)
+    compared = equal = near_ties = 0
+    top_rel, logits_rel, first_rows = 0.0, None, 0
+    for (v1, i1, s1, read, f1), (v2, i2, s2, _, f2) in zip(one, ranks):
+        B = i1.shape[0]
+        if f1 is not None and f2 is not None and logits_rel is None:
+            logits_rel = rel_err(f2[live[:B]], f1[live[:B]])
+            first_rows = int(live[:B].sum())
+        rows = live[:B].reshape(B, *([1] * (i1.dim() - 1))).expand(
+            i1.shape)
+        margin = (v1[..., 0] - v1[..., 1]) / s1
+        rel = (v1[..., 0] - v2[..., 0]).abs() / s1
+        if rows.any():
+            top_rel = max(top_rel, float(rel[rows].max()))
+        same = i1 == i2
+        bad = ~same & rows & (margin > tol)
+        if bad.any():
+            need(False, f"serve_ranks: a token differs where the one-process "
+                        f"margin {float(margin[bad].max())} exceeds {tol}")
+        flips = ~same & rows
+        compared += int(rows.sum())
+        equal += int((same & rows).sum())
+        near_ties += int(flips.sum())
+        live[:B] &= ~(flips & read).reshape(B, -1).any(dim=1)
+    return dict(compared=compared, equal=equal, near_ties=near_ties,
+                top_logit_rel=top_rel, first_logits_rel=logits_rel,
+                first_rows=first_rows, tol=tol)
+
+
+def phase_serve_ranks(seed: int, smi: str, serve: dict) -> dict:
+    """The server across ranks (see the module docstring, 8f).  `serve`
+    holds the serve phase's one-process picks on {"data": 8} homes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HomeMesh, Locale
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import LM
+    from repro_torch.runtime.server import DecodeServer, Request
+
+    t_phase = time.perf_counter()
+    device = "cuda"
+    spec = {"meshes": SERVE_RANK_MESHES, "moe": SERVE_RANK_MOE, "f32": True}
+    cfg = get_config(SERVE_ARCH)
+    L = cfg.num_layers
+    streams = serve_streams(cfg, seed)
+    tol = SERVE_RANK_TOL
+    # the one-process runs on the pod mesh's homes (the data8 ones are the
+    # serve phase's), before the ranks start: nothing else on the card
+    one = {f"data8/{k}": v for k, v in serve["picks"].items()}
+    params = LM(cfg).init(torch.Generator(device=device).manual_seed(seed))
+    pods = SERVE_RANK_MESHES["pods222"]
+    locale = Locale(HomeMesh(pods, device=device), ("pod", "data"))
+    for mode, m in SERVE_MODES.items():
+        for policy in ("fifo", "homed"):
+            srv = DecodeServer(cfg, params, batch_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN, locale=locale,
+                               scheduler=policy, prompt_pad=m["prompt_pad"],
+                               page_size=m["page_size"])
+            for d in streams[mode]:
+                srv.submit(Request(**d))
+            picks = pick_recorder(srv)
+            srv.run()
+            one[f"pods222/{mode}-{policy}"] = picks
+    del params, srv
+    release()
+    t0 = time.perf_counter()
+    ranks = spawn(serve_rank_child, SERVE_RANKS, "gloo", device, seed, spec)
+    spawn_s = time.perf_counter() - t0
+    need(all(r["jax_free"] for r in ranks), "serve_ranks: a rank imported "
+                                            "JAX")
+    out = {"spawn_s": spawn_s, "meshes": {}, "rank_launches": {},
+           "kernel_checks": rank_kernel_checks(ranks, seed)}
+    say("phase serve_ranks flash_attention at every shape the ranks "
+        "launched it with, against its plain version: "
+        + json.dumps(out["kernel_checks"]))
+    for mname, shape in spec["meshes"].items():
+        M = shape.get("model", 1)
+        res = out["meshes"][mname] = {"runs": {}}
+        for run in ranks[0]["meshes"][mname]["runs"]:
+            rs = [r["meshes"][mname]["runs"][run] for r in ranks]
+            what = f"serve_ranks {mname} {run}"
+            need(len({r["digest"] for r in rs}) == 1,
+                 f"{what}: the scheduler replicas diverged")
+            for r in rs:
+                need(not r["schedule"], f"{what}: rank collectives differ "
+                                        f"from serve_schedule: "
+                                        f"{r['schedule'][:3]}")
+                need(r["on_home"], f"{what}: a request decoded off its home")
+                need(r["tokens"] == rs[0]["tokens"]
+                     and r["summary"] == rs[0]["summary"],
+                     f"{what}: the ranks' tokens or summaries differ")
+            summary = rs[0]["summary"]
+            mode, policy = run.split("-")
+            replay = schedule_replay_summary(cfg, streams[mode], mode,
+                                             policy, shape)
+            need(summary == replay, f"{what}: the summary differs from "
+                                    f"schedule_replay's: {summary} vs "
+                                    f"{replay}")
+            waves = summary["waves"] if mode == "waves" else 0
+            launches = [r["launches"].get("flash_attention", 0) for r in rs]
+            need(launches == [L * waves] * len(rs),
+                 f"{what}: flash_attention launches by rank {launches}, "
+                 f"want {L} a prefill wave x {waves}")
+            cmp = compare_picks(one[f"{mname}/{run}"],
+                                combine_picks(ranks, run, mname, M), tol)
+            if cmp["first_logits_rel"] is not None:
+                need(cmp["first_logits_rel"] <= tol,
+                     f"{what}: the first step's logits differ from one "
+                     f"process's by {cmp['first_logits_rel']}")
+            toks = rs[0]["tokens"]
+            n_tok = sum(len(v) for v in toks.values())
+            wall = max(r["wall_s"] for r in rs)
+            res["runs"][run] = dict(
+                wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                waves=summary["waves"], steps=summary["steps"],
+                relayout_bytes=summary["relayout_bytes"],
+                inter_pod_bytes=summary["inter_pod_bytes"],
+                launches=launches, collectives=[r["collectives"] for r in rs],
+                wire=[r["wire"] for r in rs], staged=[r["staged"] for r in rs],
+                peak_bytes=[r["peak_bytes"] for r in rs],
+                kinds=rs[0]["kinds"], vs_one_process=cmp)
+            out["rank_launches"][f"serve_{mname}_{run}"] = launches
+            if run == "waves-fifo" and "planted" in ranks[0]["meshes"][mname]:
+                n = len({r["home"] for r in rs})
+                full = [torch.cat([b for _, b in sorted(
+                    (r["tp"], x["meshes"][mname]["planted"])
+                    for r, x in zip(rs, ranks) if r["home"] == h)], dim=-1)
+                    for h in range(n)]
+                first = next(c[4] for c in one[f"{mname}/{run}"]
+                             if c[4] is not None)
+                cmp["planted_psum_rel"] = rel_err(torch.cat(full), first)
+                need(cmp["planted_psum_rel"] > tol,
+                     f"{what}: the planted dropped partial sum passes: "
+                     f"{cmp['planted_psum_rel']} <= {tol}")
+            say(f"phase serve_ranks {mname} {run}: {len(toks)} requests, "
+                f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} "
+                f"tokens/s), {summary['waves']} waves, {summary['steps']} "
+                f"steps; flash_attention by rank {launches}; collectives "
+                f"by rank {res['runs'][run]['collectives']} "
+                f"({rs[0]['kinds']}), each == serve_schedule, no cache "
+                f"bytes; wire B by rank {res['runs'][run]['wire']}, staged "
+                f"{res['runs'][run]['staged']}, peak "
+                f"{res['runs'][run]['peak_bytes']}; digests equal; against "
+                f"one process " + json.dumps(cmp))
+        c = ranks[0]["meshes"][mname]["costs"]
+        res["costs"] = dict(c, rank_prefill_ms=[
+            r["meshes"][mname]["costs"]["prefill_ms"] for r in ranks],
+            rank_decode_step_ms=[r["meshes"][mname]["costs"][
+                "decode_step_ms"] for r in ranks])
+        say(f"phase serve_ranks {mname} costs (rank 0, 8 ranks at once): "
+            f"prefill of {c['shape']} {c['prefill_ms']:.2f} ms (busy "
+            f"{c['prefill_busy_ms']:.2f}), decode step "
+            f"{c['decode_step_ms']:.2f} ms (busy "
+            f"{c['decode_step_busy_ms']:.2f}); param bytes a rank "
+            f"{ranks[0]['meshes'][mname]['param_bytes']} [{smi}]")
+    out["moe"] = serve_ranks_moe(ranks, spec["moe"], seed, device, smi)
+    out["f32"] = serve_ranks_f32(ranks, device)
+    # the NCCL world of every card, one rank each: (a) once more, untimed
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        nccl = spawn(serve_rank_child, cards, "nccl", device, seed,
+                     {"meshes": {"nccl": {"data": cards, "model": 1}},
+                      "costs": False})
+        for run in nccl[0]["meshes"]["nccl"]["runs"]:
+            rs = [r["meshes"]["nccl"]["runs"][run] for r in nccl]
+            need(all(not r["schedule"] and r["on_home"] for r in rs)
+                 and len({r["digest"] for r in rs}) == 1,
+                 f"serve_ranks nccl {run}: schedule or digests differ")
+        out["nccl"] = cards
+        say(f"phase serve_ranks nccl: {cards} cards, one rank each, (a)'s "
+            f"runs served with collectives == serve_schedule")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase serve_ranks: {out['seconds']:.1f} s ({spawn_s:.1f} s for "
+        f"the {SERVE_RANKS} ranks) [{smi}]")
+    return out
+
+
+def rank_kernel_checks(ranks, seed: int) -> dict:
+    """`flash_attention` at every distinct call the ranks made (their
+    ``kernel_shapes``: each rank's heads of qwen3-0.6b on both meshes and
+    of deepseek-moe-16b, bf16 and the float32 check's), on seeded inputs
+    of that shape against its plain version within `KERNEL_TOL`."""
+    from repro_torch.convert import make_attention_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (KERNEL_TOL,
+                                                     flash_attention_reference)
+    calls = sorted({tuple(c) for r in ranks for c in r["kernel_shapes"]},
+                   key=repr)
+    need(calls, "serve_ranks: the ranks made no flash_attention call")
+    out = {}
+    for call in calls:
+        B, H, KV, Sq, Skv, hd, bq, bk, causal, window, dtype = call[:11]
+        kw = dict(causal=causal, window=window, block_q=bq, block_k=bk,
+                  scale=call[11] if len(call) > 11 else None)
+        dt_ = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(a).to(dt_).cuda() for a in
+                   make_attention_inputs(B, H, KV, Sq, Skv, hd, dtype, seed))
+        with untimed():
+            got = ops.flash_attention(q, k, v, **kw)
+        plain = flash_attention_reference(q, k, v, **kw)
+        rtol, atol = KERNEL_TOL[dt_]
+        out[f"{B}x{H}x{KV}x{Sq}x{Skv}x{hd}/{dtype}"] = dict(
+            beyond=beyond(got, plain, rtol, atol),
+            max_abs_err=float((got.float() - plain.float()).abs().max()))
+        del q, k, v, got, plain
+    bad = {k: c for k, c in out.items() if c["beyond"]}
+    need(not bad, f"serve_ranks: flash_attention outside KERNEL_TOL at the "
+                  f"ranks' shapes: {bad}")
+    return out
+
+
+def schedule_replay_summary(cfg, reqs, mode: str, policy: str,
+                            shape: dict) -> dict:
+    """`schedule_replay`'s summary of a serve stream on `shape`'s homes."""
+    from repro_torch.core import HomeMesh, Locale
+    from repro_torch.runtime.server import Request, schedule_replay
+    dp = tuple(a for a in shape if a != "model")
+    m = SERVE_MODES[mode]
+    sch = schedule_replay(cfg, [Request(**d) for d in reqs],
+                          batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                          locale=Locale(HomeMesh(shape, device="cpu"), dp),
+                          scheduler=policy, prompt_pad=m["prompt_pad"],
+                          page_size=m["page_size"])
+    return json.loads(json.dumps(sch.summary()))
+
+
+def serve_ranks_moe(ranks, moe: dict, seed: int, device, smi: str) -> dict:
+    """(c): deepseek-moe-16b's runs across ranks, each policy's waves
+    replayed through the one-process plain model at the same depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import make_serve_stream
+    from repro_torch.models import LM
+    from repro_torch.runtime.server import Request
+    cfg = get_config(moe["arch"]).replace(num_layers=moe["layers"])
+    st = STACK_SERVE[moe["arch"]]
+    reqs = make_serve_stream(STACK_REQUESTS, cfg.vocab_size, st["prompt_len"],
+                             sessions=st["sessions"], new_tokens=st["new"],
+                             slots=STACK_SLOTS, seed=seed)
+    params = LM(cfg).init(torch.Generator(device=device).manual_seed(seed))
+    out = {"layers": cfg.num_layers, "param_bytes_rank": [
+        r["moe"]["param_bytes"] for r in ranks], "runs": {}}
+    for policy in SERVE_RANK_MOE_POLICIES:
+        rs = [r["moe"]["runs"][policy] for r in ranks]
+        what = f"serve_ranks moe {policy}"
+        need(len({r["digest"] for r in rs}) == 1
+             and all(not r["schedule"] and r["on_home"] for r in rs)
+             and all(r["tokens"] == rs[0]["tokens"] for r in rs),
+             f"{what}: digests, schedule, homes or tokens differ")
+        served = []
+        for d in reqs:
+            r = Request(**d)
+            r.out = list(rs[0]["tokens"][d["rid"]])
+            served.append(r)
+        waves = replay_form(rs[0]["waves"], reqs)
+        rec = replay_waves(cfg, params, waves, served, st["max_len"])
+        summary = rs[0]["summary"]
+        launches = [r["launches"].get("flash_attention", 0) for r in rs]
+        need(launches == [cfg.num_layers * summary["waves"]] * len(rs),
+             f"{what}: flash_attention launches by rank {launches}")
+        n_tok = sum(len(v) for v in rs[0]["tokens"].values())
+        wall = max(r["wall_s"] for r in rs)
+        out["runs"][policy] = dict(
+            wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+            waves=summary["waves"], launches=launches,
+            collectives=[r["collectives"] for r in rs],
+            wire=[r["wire"] for r in rs], staged=[r["staged"] for r in rs],
+            peak_bytes=[r["peak_bytes"] for r in rs], replay=rec)
+        say(f"phase serve_ranks moe {policy}: {cfg.name} at "
+            f"{cfg.num_layers} layers on {moe['mesh']}, {n_tok} tokens in "
+            f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s), "
+            f"{summary['waves']} waves, flash_attention by rank {launches}, "
+            f"collectives by rank {out['runs'][policy]['collectives']} == "
+            f"serve_schedule, wire B {out['runs'][policy]['wire']}, peak "
+            f"{out['runs'][policy]['peak_bytes']}; replay through the plain "
+            f"model " + json.dumps(rec) + f" [{smi}]")
+    del params
+    release()
+    return out
+
+
+def serve_ranks_f32(ranks, device) -> dict:
+    """The float32 check: each rank's card tokens equal to its CPU tokens,
+    the card's logits within rtol 1e-4 / atol 1e-5 of the CPU's."""
+    out = {}
+    dev = torch.device(device).type
+    for mname in SERVE_RANK_MESHES:
+        errs = []
+        for r in ranks:
+            card, cpu = r["f32"][mname, dev], r["f32"][mname, "cpu"]
+            need(card["tokens"] == cpu["tokens"],
+                 f"serve_ranks f32 {mname}: rank {r['rank']}'s card tokens "
+                 f"differ from its CPU tokens")
+            need(torch.allclose(card["logits"], cpu["logits"],
+                                rtol=STACK_RTOL, atol=STACK_ATOL),
+                 f"serve_ranks f32 {mname}: rank {r['rank']}'s logits "
+                 f"outside rtol {STACK_RTOL} atol {STACK_ATOL}")
+            errs.append(float((card["logits"] - cpu["logits"]).abs().max()))
+        out[mname] = dict(max_abs_err=max(errs), ranks=len(ranks))
+    say("phase serve_ranks float32 (reduce_config, card ranks against CPU "
+        "ranks): tokens equal, logits " + json.dumps(out))
     return out
 
 
@@ -3749,6 +4550,8 @@ def main(argv=None) -> int:
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
     serve = phase_serve(args.seed)
+    serve_ranks = phase_serve_ranks(args.seed, smi, {"picks": serve.pop(
+        "picks")})
     stack = phase_stack(args.seed, smi)
     train = phase_train(args.seed, smi)
     dtypes = phase_dtypes(args.seed)
@@ -3797,6 +4600,12 @@ def main(argv=None) -> int:
     # case 8 flagship and Fig 1's localised run at n = 100 M, R = 8
     for row in rows:
         row["rank_launches"] = ranks["rank_launches"][row["name"]]
+    # flash_attention's serving launches by rank: the serve_ranks phase's
+    # counted runs, {run: [launches of rank 0..7]}
+    attention["line"]["rank_launches"] = dict(
+        attention["line"]["rank_launches"], **serve_ranks["rank_launches"],
+        **{f"serve_moe_{p}": r["launches"]
+           for p, r in serve_ranks["moe"]["runs"].items()})
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
              "floor_ms", "rank_launches", "stack_launches", "stack_cells",
@@ -3808,7 +4617,8 @@ def main(argv=None) -> int:
             {"device": kind, "smi": smi, "build_s": secs, "kernels": kernels,
              "engine": engine, "flat": flat, "hier": hier, "ranks": ranks,
              "constraint": constraint, "fig1": fig1, "attention": attention,
-             "serve": serve, "stack": stack, "train": train,
+             "serve": serve, "serve_ranks": serve_ranks, "stack": stack,
+             "train": train,
              "dtypes": dtypes,
              "analysis": analysis},
             indent=1))

@@ -7,7 +7,8 @@ has to import the other; the tests hand the reference's numpy outputs in.
 and `make_serve_stream` make the inputs that the tests and
 ``chip_smoke.py`` feed to both sides; `lm_params_from_reference` carries a
 reference `LM`'s parameters over, `opt_state_from_reference` its
-trainer's optimiser state.
+trainer's optimiser state, and `rank_params` cuts either package's whole
+parameters down to one rank's blocks for serving across ranks.
 """
 from __future__ import annotations
 
@@ -227,3 +228,27 @@ def make_serve_stream(n: int, vocab: int, prompt_len, *, sessions: int,
                         session=f"s{sess}",
                         t_arrive=float(rid // (2 * slots)) * (hi + short)))
     return out
+
+
+def rank_cut(plan, cfg):
+    """The function that cuts a parameter tree -- the whole one, or an
+    unstacked part such as one superblock -- to `plan`'s rank's blocks:
+    `sharding.partition.param_specs` of the serving plan (`serving_plan`:
+    no FSDP over the data axes) cut by `shard_for_rank`.  The identity
+    off ranks (no `RankMesh`).  ``LM(cfg).init(gen, cut=rank_cut(plan,
+    cfg))`` draws a rank's blocks a superblock at a time, so that a rank
+    holds at most one superblock beyond its own blocks."""
+    from repro_torch.sharding.partition import (param_specs, serving_plan,
+                                                shard_for_rank)
+    if not isinstance(plan.mesh, RankMesh):
+        return lambda tree: tree
+    plan = serving_plan(plan)
+    return lambda tree: shard_for_rank(tree, param_specs(tree, plan, cfg),
+                                       plan.mesh)
+
+
+def rank_params(params, plan, cfg):
+    """The blocks of the whole parameters `params` (the port's, or the
+    reference's through `lm_params_from_reference`) that `plan`'s rank
+    serves with (`rank_cut`); off ranks the parameters themselves."""
+    return rank_cut(plan, cfg)(params)

@@ -6,8 +6,8 @@ holding its own elements: `put` gives the rank its shard, `pin` and
 `localise` move this rank's elements by counted collectives, `make`
 builds its chunk, every workload runs per rank, and each workload's
 ``fn.place(x)`` gives the rank its share of the whole input; `check` adds
-R2 on the collectives, and R1 for the engine; `pin_tree` waits for
-serving across ranks and raises `NotImplementedError`):
+R2 on the collectives, and R1 for the engine; `pin_tree` keeps the rank's
+home's slot rows, which never leave it):
 
 `Locale`
     A frozen bundle of ``(mesh, axis, LocalisationPolicy)``:
@@ -54,8 +54,7 @@ from repro_torch.core.homing import (Axis, Homing, Layout, axis_size,
                                      to_layout)
 from repro_torch.core.localisation import (LocalisationPolicy, chunk_bounds,
                                            donate_buffers, localise, place)
-from repro_torch.core.mesh import (HomeMesh, RankMesh, entry_device,
-                                   one_process)
+from repro_torch.core.mesh import HomeMesh, RankMesh, entry_device
 
 
 @dataclass(frozen=True)
@@ -219,11 +218,24 @@ class Locale:
         `dim` does not exist, does not match `size` or does not divide over
         the homes are left alone.  No-op without a mesh or under
         ``static_mapping=False``.
+
+        On a `RankMesh` (the server across ranks) a rank holds its home's
+        rows only, home h of the locale's axes owning rows ``[h*size/N,
+        (h+1)*size/N)`` of `dim` (`size`, the whole count, is required):
+        a leaf of ``size / N`` rows is those rows and stays as it is, so
+        in steady state nothing moves; a leaf of all `size` rows (every
+        rank passing the whole) is cut to its home's rows on the rank.
+        No collective runs.
         """
-        one_process(self.mesh, "Locale.pin_tree")
         if self.mesh is None or not self.policy.static_mapping:
             return tree
         N = self.axis_size
+        ranks = isinstance(self.mesh, RankMesh)
+        if ranks:
+            if size is None:
+                raise ValueError("pin_tree on a RankMesh needs size=, the "
+                                 "whole count of the homed dim")
+            h = self.mesh.index(axis_tuple(self.axis))
 
         def leaf(x):
             if not isinstance(x, torch.Tensor) or x.dim() <= dim:
@@ -232,6 +244,8 @@ class Locale:
                 return x
             if x.shape[dim] % N != 0:
                 return x
+            if ranks:                   # this home's rows, on this rank
+                return x.narrow(dim, h * size // N, size // N)
             runs = math.prod(x.shape[:dim])
             return relayout(x, self.mesh, Layout("runs", N, runs))
 

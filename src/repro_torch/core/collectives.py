@@ -15,7 +15,11 @@ ones over the mesh's axis subgroups:
                                       ``dist.batch_isend_irecv`` with the
                                       partner on `axis` that `perm` names;
   ``all_gather(x, mesh, axes)``       ``jax.lax.all_gather(..., axis=0)``
-                                      over the subgroup of `axes`.
+                                      over the subgroup of `axes`;
+  ``psum(x, mesh, axes)``             ``jax.lax.psum``: an all-gather of
+                                      the summands, summed in home
+                                      order (the same bits on every
+                                      rank).
 
 Every call appends one record to this process's log (`collective_log`,
 `reset_collectives`), the counterpart of the HLO collective list that the
@@ -216,6 +220,36 @@ def all_gather(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     return _view(recv, x, (g,))
 
 
+def psum(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
+    """The sum of every home's `x` over `axes` (``jax.lax.psum``, the
+    all-reduce a sharding constraint over a contracted axis implies), on
+    every home alike: one all-gather of the summands, then their sum in
+    the homes' linear order (floats in float32, cast back to `x`'s
+    dtype), so that every rank gets the same bits.  Logged as one
+    ``"all-reduce"`` record with the all-gather's byte convention (as
+    `optim.compressed_psum`'s wire): this rank sends its `x` to each of
+    the other g - 1 homes, ``(g - 1) * x.nbytes`` wire bytes."""
+    axes = axis_tuple(axes)
+    group, ranks = mesh.group(axes)
+    g = len(ranks)
+    if g == 1:
+        _record("all-reduce", mesh, axes, mesh.partition(axes), {}, 0)
+        return x.clone()
+    send = _bytes(x)
+    recv, staged = _transport(
+        lambda r, s: dist.all_gather_into_tensor(r, s, group=group), send,
+        g * send.numel(), dist.get_backend(group))
+    _record("all-reduce", mesh, axes, mesh.partition(axes),
+            {r: send.numel() for r in ranks if r != mesh.rank}, staged)
+    parts = _view(recv, x, (g,))
+    if not x.is_floating_point():
+        return parts.sum(dim=0).to(x.dtype)
+    total = parts[0].float()
+    for i in range(1, g):
+        total = total + parts[i].float()
+    return total.to(x.dtype)
+
+
 def log_against_schedule(log: Sequence[Dict], schedule: Sequence[Dict],
                          m: int) -> List[str]:
     """Where a rank's collective log differs from `exchange_schedule`'s
@@ -280,6 +314,6 @@ def census(log: Sequence[Dict]) -> Dict[str, Dict]:
     return out
 
 
-__all__ = ["all_to_all", "all_to_all_v", "ppermute", "all_gather",
+__all__ = ["all_to_all", "all_to_all_v", "ppermute", "all_gather", "psum",
            "collective_log", "reset_collectives", "staged_bytes",
            "log_against_schedule", "log_against_moves", "census"]

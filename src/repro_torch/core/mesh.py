@@ -94,16 +94,6 @@ class HomeMesh:
         return f"HomeMesh({self._shape!r}, device={str(self.device)!r})"
 
 
-def one_process(mesh, what: str) -> None:
-    """Raise for what runs on one process's mesh only, given a
-    `RankMesh`: `Locale.pin_tree`, whose only user is the serving stack,
-    waits for serving across ranks."""
-    if isinstance(mesh, RankMesh):
-        raise NotImplementedError(
-            f"{what} on a RankMesh waits for serving across ranks, its only "
-            f"user (ROADMAP.md Queue 1)")
-
-
 #: the mesh axis that stands for the slow cross-pod link (the reference's
 #: DCN ``pod`` axis): a collective's bytes to a rank whose coordinate on it
 #: differs from the sender's are inter-pod bytes

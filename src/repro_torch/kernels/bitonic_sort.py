@@ -83,19 +83,28 @@ def from_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _network(k: torch.Tensor) -> torch.Tensor:
-    """Sort each row of int32 keys (R, L), L a power of two."""
+    """Sort each row of int32 keys (R, L), L a power of two, into a copy.
+
+    Stage (s, j) compares the pairs j apart inside blocks of 2j; the
+    blocks of a run of s keys go ascending, those of the next run
+    descending (one run at the last stage).  Each side is done in place:
+    its low half takes the min and its high half the max (reversed when
+    descending)."""
     R, L = k.shape
+    k = k.clone()
     s = 2
     while s <= L:
+        runs, sides = (L // (2 * s), 2) if s < L else (1, 1)
         j = s // 2
         while j >= 1:
-            pairs = k.view(R, L // (2 * j), 2, j)
-            lo = torch.minimum(pairs[:, :, 0], pairs[:, :, 1])
-            hi = torch.maximum(pairs[:, :, 0], pairs[:, :, 1])
-            start = torch.arange(L // (2 * j), device=k.device) * (2 * j)
-            desc = ((start & s) != 0).view(1, -1, 1)
-            k = torch.stack([torch.where(desc, hi, lo),
-                             torch.where(desc, lo, hi)], dim=2).view(R, L)
+            v = k.view(R, runs, sides, L // (runs * sides * 2 * j), 2, j)
+            for side in range(sides):
+                a, b = v[:, :, side, :, 0], v[:, :, side, :, 1]
+                first, second = ((torch.minimum, torch.maximum) if side == 0
+                                 else (torch.maximum, torch.minimum))
+                t = first(a, b)
+                second(a, b, out=b)
+                a.copy_(t)
             j //= 2
         s *= 2
     return k

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import needs_grad
 from repro_torch.models.common import ninit, out_scale, pdt, rmsnorm, rope
+from repro_torch.sharding.partition import psum_model, tp_of
 
 NEG_INF = -1e30
 
@@ -290,11 +291,40 @@ def _build_cache(k, v, positions, *, window: int, cache_len) -> dict:
     return {"k": ck, "v": cv, "kpos": kp}
 
 
+def rank_heads(cfg: ArchConfig, plan=None):
+    """``(q heads, KV heads, KV selector, split)`` of this rank's attention.
+
+    Unsplit: ``(H, KV, slice(None), False)``.  Across the ranks of a
+    "model" axis where the plan sets ``head_axis``, rank i holds the q
+    heads ``[i * H/M, (i + 1) * H/M)`` and attends over the KV heads
+    they read, ``h // (H / KV)``: with ``kv_axis`` set its own block of
+    KV heads (the whole selector), else the contiguous range of the
+    whole (replicated) KV heads those q heads read.  A plan that homes
+    the decode cache's sequence over ranks (``cache_seq_axis``, caches
+    of 8192 positions or more) is not served across ranks yet."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    M, i = tp_of(plan)
+    if M == 1:
+        return H, KV, slice(None), False
+    if plan.cache_seq_axis is not None:
+        raise NotImplementedError(
+            f"a decode cache homed over {plan.cache_seq_axis!r} by sequence "
+            f"(cache_seq_axis) is not served across ranks yet (ROADMAP.md "
+            f"Queue 1)")
+    if plan.head_axis is None:
+        return H, KV, slice(None), False
+    Hl, Gq = H // M, H // KV
+    if plan.kv_axis is not None:
+        return Hl, KV // M, slice(None), True
+    lo, hi = i * Hl // Gq, ((i + 1) * Hl - 1) // Gq + 1
+    return Hl, hi - lo, slice(lo, hi), True
+
+
 def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
                     cache: Optional[dict] = None, pos=None, kv_src=None,
                     build_cache: bool = False, cross: bool = False,
                     kv_chunk: int = 1024, cache_len: Optional[int] = None,
-                    write_mask=None, flash: bool = True):
+                    write_mask=None, flash: bool = True, plan=None):
     """Full attention block body (no residual/norm -- the block adds those).
 
     Returns (y, new_cache).  Decode (`cache` given, {k, v, kpos} of this
@@ -307,11 +337,19 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
     (`_build_cache`, sized for ``cache_len``; a cross layer's is the image
     K/V of `kv_src`, with no RoPE).  `flash`: prefill attention through
     the kernel on a CUDA tensor (`prefill_attention`).
+
+    Across the ranks of a "model" axis (`plan` on a `RankMesh`, see
+    `rank_heads`) the rank runs its own q heads over the KV heads they
+    read: its ``wq``/``wo`` blocks, its ``wk``/``wv`` (and cache) block
+    where the KV heads are split too, else the KV heads' contiguous
+    range of the whole ones; ``wo``'s partial products are summed by one
+    `psum`.
     """
     B, Sq, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    Gq = H // KV
     W = 0 if cross else cfg.sliding_window
+    H, KV, kv_sel, split = rank_heads(cfg, plan)
+    Gq = H // KV
 
     q = _project(x, p["wq"])
     if "q_norm" in p:
@@ -320,8 +358,10 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
     new_cache = None
     if cache is not None and cross:
         # ---- decode through a cross layer: static image KV
-        out = decode_attention(q.reshape(B, Sq, KV, Gq, hd), cache["k"],
-                               cache["v"], cache["kpos"], 2 ** 30)
+        out = decode_attention(q.reshape(B, Sq, KV, Gq, hd),
+                               cache["k"][:, :, kv_sel],
+                               cache["v"][:, :, kv_sel], cache["kpos"],
+                               2 ** 30)
         new_cache = cache
     elif cache is not None:
         # ---- decode / page-step: Sq new tokens per row, masked write
@@ -334,8 +374,10 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
         k = rope(k, pos, cfg.rope_theta)
         write_cache(cache, k, v, pos, write_mask)
         new_cache = cache
-        out = decode_attention(q.reshape(B, Sq, KV, Gq, hd), cache["k"],
-                               cache["v"], cache["kpos"], pos, window=W)
+        out = decode_attention(q.reshape(B, Sq, KV, Gq, hd),
+                               cache["k"][:, :, kv_sel],
+                               cache["v"][:, :, kv_sel], cache["kpos"], pos,
+                               window=W)
     else:
         # ---- train / prefill
         if positions is None:
@@ -355,7 +397,8 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
             kv_positions = positions
-        out = prefill_attention(q.reshape(B, Sq, KV, Gq, hd), k, v,
+        out = prefill_attention(q.reshape(B, Sq, KV, Gq, hd),
+                                k[:, :, kv_sel], v[:, :, kv_sel],
                                 positions=positions,
                                 kv_positions=kv_positions, causal=not cross,
                                 window=W, kv_chunk=kv_chunk, flash=flash)
@@ -368,5 +411,7 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
             new_cache = _build_cache(k, v, positions, window=W,
                                      cache_len=cache_len)
 
-    y = out.reshape(B, Sq, H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, D)
+    y = psum_model(out.reshape(B, Sq, H * hd)
+                   @ p["wo"].to(x.dtype).reshape(H * hd, D),
+                   plan if split else None)
     return y, new_cache

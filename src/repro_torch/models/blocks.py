@@ -9,6 +9,16 @@ superblock axis, as in the reference's pytree, and the reference's
 same way: (superblocks, B, ...), and decode writes them in place.
 Training rematerialises each superblock when ``cfg.parallel.remat``
 (`apply_stack`), as the reference checkpoints its scan body.
+
+Every function takes the serving ``plan`` and hands it to the members
+(`attention.apply_attention`, `common.apply_mlp`, `moe.apply_moe`).
+Across ranks the reference's only constraint here, the residual stream
+sequence-sharded over "model" (``seq_axis``, `repro/models/blocks.py:131`),
+moves no value: every rank of a home holds its whole residual, and that
+layout is left to training across ranks.  Mamba2 and cross-attention
+members are not split over "model" yet and raise with "model" > 1
+(`partition.no_split`); with "model" = 1 every member serves
+data-parallel, each home running the whole model on its own rows.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from repro_torch.models.attention import (_rowwise_positions, apply_attention,
 from repro_torch.models.common import apply_mlp, init_mlp, rmsnorm
 from repro_torch.models.mamba2 import apply_mamba, decode_mamba, init_mamba
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.sharding.partition import homes_of, no_split
 from repro_torch.tree import tree_map
 
 
@@ -90,10 +101,12 @@ def _init_member(gen: torch.Generator, cfg: ArchConfig, spec: MemberSpec):
     return p
 
 
-def init_stack(gen: torch.Generator, cfg: ArchConfig):
+def init_stack(gen: torch.Generator, cfg: ArchConfig, cut=None):
     """Each superblock's parameters drawn in turn, written into stacked
     leaves: the stack takes its own size and one superblock's, not twice
-    its size (the full-width configs fill most of a card)."""
+    its size (the full-width configs fill most of a card).  `cut`, where
+    given, maps each drawn superblock to what is kept of it (a rank's
+    blocks, `convert.rank_cut`) before it is stacked."""
     members = superblock_spec(cfg)
     nsb = num_superblocks(cfg)
 
@@ -103,7 +116,7 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig):
 
     stack = None
     for i in range(nsb):
-        sb = draw()
+        sb = draw() if cut is None else cut(draw())
         if stack is None:
             stack = tree_map(lambda t: t.new_empty((nsb, *t.shape)), sb)
         tree_map(lambda dst, src: dst[i].copy_(src), stack, sb)
@@ -113,9 +126,17 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
+def _check_split(spec: MemberSpec, plan) -> None:
+    if spec.mixer == "mamba":
+        no_split(plan, "a Mamba2 member")
+    elif spec.mixer == "cross":
+        no_split(plan, "a cross-attention member")
+
+
 def _apply_member(p, spec: MemberSpec, x, *, cfg, positions, img_embeds,
-                  build_cache: bool, cache_len, flash: bool):
+                  build_cache: bool, cache_len, flash: bool, plan=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    _check_split(spec, plan)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
         mix, cache = apply_mamba(p["mamba"], h, cfg)
@@ -124,14 +145,15 @@ def _apply_member(p, spec: MemberSpec, x, *, cfg, positions, img_embeds,
         mix, cache = apply_attention(
             p["attn"], h, cfg=cfg, positions=positions,
             kv_src=img_embeds if cross else None, cross=cross,
-            build_cache=build_cache, cache_len=cache_len, flash=flash)
+            build_cache=build_cache, cache_len=cache_len, flash=flash,
+            plan=plan)
     x = x + mix
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
-            f, aux = apply_moe(p["moe"], h, cfg)
+            f, aux = apply_moe(p["moe"], h, cfg, plan)
         else:
-            f = apply_mlp(p["mlp"], h, cfg)
+            f = apply_mlp(p["mlp"], h, cfg, plan)
         x = x + f
     return x, cache, aux
 
@@ -147,7 +169,8 @@ def tree_unbind(tree, n: int):
 
 
 def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
-                build_cache: bool = False, cache_len=None, flash: bool = True):
+                build_cache: bool = False, cache_len=None, flash: bool = True,
+                plan=None):
     """x: (B, S, D) -> (y, caches_or_None, aux): the superblocks in turn;
     caches stacked (superblocks, B, ...) when `build_cache`; aux the MoE
     load-balance losses, summed over each superblock's members, then over
@@ -168,7 +191,7 @@ def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
             x, caches[f"m{j}"], a = _apply_member(
                 sb[f"m{j}"], m, x, cfg=cfg, positions=positions,
                 img_embeds=img_embeds, build_cache=build_cache,
-                cache_len=cache_len, flash=flash)
+                cache_len=cache_len, flash=flash, plan=plan)
             aux = aux + a
         return x, caches, aux
 
@@ -189,7 +212,8 @@ def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
 # decode (Sq tokens per row, cache update)
 # ---------------------------------------------------------------------------
 def _decode_member(p, spec: MemberSpec, x, cache, pos, *, cfg,
-                   write_mask=None):
+                   write_mask=None, plan=None):
+    _check_split(spec, plan)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
         if x.shape[1] != 1:
@@ -199,19 +223,22 @@ def _decode_member(p, spec: MemberSpec, x, cache, pos, *, cfg,
     else:
         mix, _ = apply_attention(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
                                  cross=spec.mixer == "cross",
-                                 write_mask=write_mask)
+                                 write_mask=write_mask, plan=plan)
     x = x + mix
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
-            f, _ = apply_moe(p["moe"], h, cfg, group_size=x.shape[0])
+            # one group of the whole batch's rows, every home's
+            f, _ = apply_moe(p["moe"], h, cfg, plan,
+                             group_size=x.shape[0] * homes_of(plan)[0])
         else:
-            f = apply_mlp(p["mlp"], h, cfg)
+            f = apply_mlp(p["mlp"], h, cfg, plan)
         x = x + f
     return x
 
 
-def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None):
+def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None,
+                 plan=None):
     """x: (B, S, D); caches: dict tree with a leading superblock axis.
 
     ``pos`` is a scalar, (B,) or (B, S) of absolute query positions
@@ -227,5 +254,5 @@ def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None):
         for j, m in enumerate(members):
             x = _decode_member(sb[f"m{j}"], m, x,
                                tree_index(caches[f"m{j}"], i), pos, cfg=cfg,
-                               write_mask=write_mask)
+                               write_mask=write_mask, plan=plan)
     return x, caches

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.partition import psum_model
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -84,11 +85,15 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff=None):
             "w_down": ninit(gen, (Fd, D), pdt(cfg), out_scale(cfg))}
 
 
-def apply_mlp(p, x, cfg: ArchConfig):
+def apply_mlp(p, x, cfg: ArchConfig, plan=None):
+    """The SwiGLU MLP.  Across the ranks of a "model" axis (`plan` on a
+    `RankMesh`) ``w_gate``/``w_up`` hold this rank's F columns and
+    ``w_down`` its F rows: the partial products, in `x`'s dtype as the
+    whole product is, are summed by one `psum`."""
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"].to(x.dtype)
+    return psum_model(h @ p["w_down"].to(x.dtype), plan)
 
 
 def causal_conv1d(u, w, state=None):

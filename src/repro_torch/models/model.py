@@ -6,6 +6,15 @@ the SwiGLU MLP and mixture-of-experts).  Parameters
 are the reference's pytree as a dict of tensors (`init`, or
 `convert.lm_params_from_reference`); every method takes them explicitly,
 as the reference's do, and runs where they lie.
+
+Across ``torch.distributed`` ranks every method takes the serving
+``plan`` (`sharding.partition.make_plan` on a `RankMesh`) and the rank's
+blocks of the parameters (`convert.rank_params`): the rows it is given
+are its home's, and over the "model" axis ``tok_embed`` holds the rank's
+vocabulary rows (a lookup of its range, zeros elsewhere, then one exact
+`psum`) and ``head_w`` its vocabulary columns, so the logits the methods
+return are the rank's vocabulary block (`runtime.server.greedy` picks
+across them).
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
 from repro_torch.models.common import dt, ninit, pdt, rmsnorm
+from repro_torch.sharding.partition import psum_model, tp_of
 
 
 class LM(nn.Module):
@@ -34,10 +44,13 @@ class LM(nn.Module):
         self.flash = flash
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator):
-        """Parameters drawn from `gen`, on the generator's device."""
+    def init(self, gen: torch.Generator, cut=None):
+        """Parameters drawn from `gen`, on the generator's device.  `cut`,
+        where given, maps a part of the tree (each superblock as it is
+        drawn, then the rest) to what is kept of it: a rank's blocks
+        (`convert.rank_cut`) without the whole parameters at once."""
         cfg = self.cfg
-        params = {"stack": blocks.init_stack(gen, cfg),
+        params = {"stack": blocks.init_stack(gen, cfg, cut),
                   "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                            device=gen.device),
                   "head": {"head_w": ninit(gen, (cfg.d_model,
@@ -45,27 +58,39 @@ class LM(nn.Module):
         if cfg.embed_input:
             params["embed"] = {"tok_embed": ninit(
                 gen, (cfg.vocab_padded, cfg.d_model), pdt(cfg))}
+        if cut is not None:
+            stack = params.pop("stack")
+            params = {"stack": stack, **cut(params)}
         return params
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, params, batch):
-        if self.cfg.embed_input:
-            return params["embed"]["tok_embed"][batch["tokens"]].to(
-                dt(self.cfg))
-        return batch["embeds"].to(dt(self.cfg))
+    def _embed(self, params, batch, plan=None):
+        if not self.cfg.embed_input:
+            return batch["embeds"].to(dt(self.cfg))
+        table, tokens = params["embed"]["tok_embed"], batch["tokens"]
+        M, i = tp_of(plan)
+        if M == 1:
+            return table[tokens].to(dt(self.cfg))
+        rows = table.shape[0]
+        local = tokens - i * rows
+        inside = (local >= 0) & (local < rows)
+        x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)],
+                        table.new_zeros(()))
+        return psum_model(x, plan).to(dt(self.cfg))
 
     def _head(self, params, x):
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x @ params["head"]["head_w"].to(x.dtype)
 
-    def _stack(self, params, batch, build_cache: bool, cache_len):
-        x = self._embed(params, batch)
+    def _stack(self, params, batch, build_cache: bool, cache_len, plan=None):
+        x = self._embed(params, batch, plan)
         positions = torch.arange(x.shape[1], device=x.device)
         return blocks.apply_stack(params["stack"], x, cfg=self.cfg,
                                   positions=positions,
                                   img_embeds=batch.get("image_embeds"),
                                   build_cache=build_cache,
-                                  cache_len=cache_len, flash=self.flash)
+                                  cache_len=cache_len, flash=self.flash,
+                                  plan=plan)
 
     # --------------------------------------------------------------- forward
     def forward(self, params, batch, build_cache: bool = False,
@@ -76,24 +101,25 @@ class LM(nn.Module):
         x, caches, aux = self._stack(params, batch, build_cache, cache_len)
         return self._head(params, x), caches, aux
 
-    def prefill(self, params, batch, max_len=None):
+    def prefill(self, params, batch, max_len=None, plan=None):
         """(last-position logits (B, Vp), caches sized for `max_len`).  The
         head runs on the last position only: the reference computes every
         position's logits and keeps the last, the same per-row product."""
-        x, caches, _ = self._stack(params, batch, True, max_len)
+        x, caches, _ = self._stack(params, batch, True, max_len, plan)
         return self._head(params, x[:, -1:])[:, 0], caches
 
-    def decode_step(self, params, caches, batch, pos):
+    def decode_step(self, params, caches, batch, pos, plan=None):
         """One token per row; ``pos`` is a scalar (one shared clock) or a
         (B,) vector of per-slot position clocks (continuous batching: each
         row decodes at its own position).  Returns (logits (B, Vp),
         caches'): `caches` written in place (`blocks.decode_stack`)."""
-        x = self._embed(params, batch)
+        x = self._embed(params, batch, plan)
         x, new_caches = blocks.decode_stack(params["stack"], caches, x, pos,
-                                            cfg=self.cfg)
+                                            cfg=self.cfg, plan=plan)
         return self._head(params, x)[:, 0], new_caches
 
-    def decode_pages(self, params, caches, batch, positions, write_mask):
+    def decode_pages(self, params, caches, batch, positions, write_mask,
+                     plan=None):
         """Page-stepped prefill: S new tokens per row written into the
         decode cache at ``positions`` (B, S), cache commits gated by
         ``write_mask`` (B, S) -- pad positions and non-refilling rows
@@ -101,25 +127,29 @@ class LM(nn.Module):
         entries at positions < its own, so a page's K/V content is a pure
         function of the row's earlier pages.  Returns (logits (B, S, Vp),
         caches'): `caches` written in place."""
-        x = self._embed(params, batch)
+        x = self._embed(params, batch, plan)
         x, new_caches = blocks.decode_stack(params["stack"], caches, x,
                                             positions, cfg=self.cfg,
-                                            write_mask=write_mask)
+                                            write_mask=write_mask, plan=plan)
         return self._head(params, x), new_caches
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int, img_len: int = 0,
-                   device="cuda"):
+                   device="cuda", plan=None):
         """Empty decode cache (the structure prefill builds), on `device`:
         zero K/V with every slot's position -1 (a ring of
         ``min(window, max_len)`` slots under a sliding window), zero SSM
         and conv states, and a cross layer's zero image K/V of `img_len`
-        tokens (default the config's) at position 0."""
+        tokens (default the config's) at position 0.  Across a "model" axis
+        that splits the KV heads (`plan`) each attention cache holds the
+        rank's block of them."""
         cfg = self.cfg
         nsb = blocks.num_superblocks(cfg)
         Sc = min(cfg.sliding_window, max_len) if cfg.sliding_window \
             else max_len
         KV, hd = cfg.num_kv_heads, cfg.head_dim
+        if tp_of(plan)[0] > 1 and plan.kv_axis is not None:
+            KV //= tp_of(plan)[0]
 
         def zeros(*shape, dtype=dt(cfg)):
             return torch.zeros(shape, dtype=dtype, device=device)

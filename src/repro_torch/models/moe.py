@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (apply_mlp, init_mlp, ninit, out_scale,
                                        pdt)
+from repro_torch.sharding.partition import homes_of, psum_model, tp_of
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig):
@@ -44,54 +45,99 @@ def top_k(gates: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(p, x, cfg: ArchConfig, group_size: int = 2048):
+def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048):
     """x: (B, S, D) -> (y, aux_loss). Token-choice top-k with capacity drop.
 
     The B*S tokens, in row order, form groups of ``min(group_size, B*S)``,
-    which must divide them; decode passes ``group_size = B``."""
+    which must divide them; decode passes ``group_size = B``.
+
+    Across ranks (`plan` on a `RankMesh`) `x` holds this home's rows,
+    home h of n over the batch axes, and the groups are those of all n
+    homes' ``n*B*S`` tokens in row order, as in the reference, where a
+    decode step's group is every slot.  A token's place in its expert's
+    bucket counts the tokens before it in its group, so where a group
+    spans homes each home gathers the others' per-group counts of each
+    (choice, expert) pair (one counted all-gather of (groups, K, E)
+    integers) and starts its own tokens after the earlier homes'; no
+    home sees another's tokens.  Over "model" each rank runs its own
+    experts (``expert_axis``) or its F columns of every expert, then one
+    `psum` sums the combine.  ``aux`` is this home's share of the
+    load-balance loss (serving reads none).
+    """
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
-    T = B * S
+    n, home = homes_of(plan)
+    M, rank = tp_of(plan)
+    Th = B * S                                   # this home's tokens
+    T = Th * n
     gs = min(group_size, T)
     assert T % gs == 0, f"token count {T} not divisible by group size {gs}"
     Gn = T // gs
     C = _capacity(gs, cfg)
+    t0 = home * Th
+    g0 = t0 // gs                                # first group it touches
+    Gl = (t0 + Th - 1) // gs + 1 - g0
 
-    xg = x.reshape(Gn, gs, D)
-    logits = xg.float() @ p["router"].float()                  # (Gn, gs, E)
+    xf = x.reshape(Th, D)
+    logits = xf.float() @ p["router"].float()                   # (Th, E)
     gates = torch.softmax(logits, dim=-1)
     topv, topi = top_k(gates, K)
-    topv = topv / topv.sum(dim=-1, keepdim=True)               # renormalise
+    topv = topv / topv.sum(dim=-1, keepdim=True)                # renormalise
+
+    # ---- capacity slots: the place of each (token, choice) in its bucket
+    mk = F.one_hot(topi, E).float()                             # (Th, K, E)
+    gid = torch.div(t0 + torch.arange(Th, device=x.device), gs,
+                    rounding_mode="floor") - g0                 # local group
+    starts = [max((g0 + g) * gs - t0, 0) for g in range(Gl)]
+    before = torch.cumsum(mk, dim=0) - mk       # this home's earlier tokens
+    mine = torch.zeros((Gn, K, E), dtype=torch.float32, device=x.device)
+    mine[g0:g0 + Gl] = torch.stack(
+        [mk[a:b].sum(dim=0) for a, b in zip(starts, starts[1:] + [Th])])
+    if n > 1 and Th % gs:                        # groups span homes
+        from repro_torch.core import collectives
+        counts = collectives.all_gather(mine.to(torch.int32), plan.mesh,
+                                        plan.batch_axes).float()
+        earlier = counts[:home].sum(dim=0)                      # (Gn, K, E)
+        total = counts.sum(dim=0)
+    else:
+        earlier, total = torch.zeros_like(mine), mine
+    # the reference's ``prev``: the whole group's tokens of earlier choices
+    prev = torch.cumsum(total, dim=1) - total                   # (Gn, K, E)
+    first = before[torch.tensor(starts, device=x.device)]       # (Gl, K, E)
+    posk = (before - first[gid] + earlier[g0:g0 + Gl][gid]
+            + prev[g0:g0 + Gl][gid])                            # (Th, K, E)
+    keep = mk * (posk < C)
 
     # ---- capacity-bucketed dispatch/combine (GShard) ----
     slots = torch.arange(C, device=x.device)
-    combine = torch.zeros((Gn, gs, E, C), dtype=torch.float32,
-                          device=x.device)
-    prev = torch.zeros((Gn, 1, E), dtype=torch.float32, device=x.device)
+    combine = torch.zeros((Th, E, C), dtype=torch.float32, device=x.device)
     for kk in range(K):
-        mk = F.one_hot(topi[..., kk], E).float()                # (Gn, gs, E)
-        posk = torch.cumsum(mk, dim=1) - mk + prev              # slot per token
-        prev = prev + mk.sum(dim=1, keepdim=True)
-        keep = mk * (posk < C)
         # one-hot of the slot; a slot past capacity is all zeros
-        oh = (posk.long()[..., None] == slots).float()
-        combine = combine + oh * (keep * topv[..., kk:kk + 1])[..., None]
+        oh = (posk[:, kk].long()[..., None] == slots).float()   # (Th, E, C)
+        combine = combine + oh * (keep[:, kk] * topv[:, kk:kk + 1])[..., None]
+    El = E // M if (M > 1 and plan.expert_axis is not None) else E
+    ex = slice(rank * El, (rank + 1) * El) if El < E else slice(None)
+    combine = combine[:, ex]
     dispatch = (combine > 0).to(x.dtype)
 
     # ---- send tokens to their experts, run them, bring them back ----
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
-    g = torch.einsum("gecd,edf->gecf", xe, p["we_gate"].to(x.dtype))
-    u = torch.einsum("gecd,edf->gecf", xe, p["we_up"].to(x.dtype))
-    h = F.silu(g.float()).to(x.dtype) * u
-    ye = torch.einsum("gecf,efd->gecd", h, p["we_down"].to(x.dtype))
-    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
-    y = y.reshape(B, S, D)
+    wg, wu, wd = (p[k].to(x.dtype) for k in ("we_gate", "we_up", "we_down"))
+    parts = []
+    for a, b in zip(starts, starts[1:] + [Th]):
+        xe = torch.einsum("sec,sd->ecd", dispatch[a:b], xf[a:b])
+        g = torch.einsum("ecd,edf->ecf", xe, wg)
+        u = torch.einsum("ecd,edf->ecf", xe, wu)
+        h = F.silu(g.float()).to(x.dtype) * u
+        ye = torch.einsum("ecf,efd->ecd", h, wd)
+        parts.append(torch.einsum("sec,ecd->sd", combine[a:b].to(x.dtype),
+                                  ye))
+    y = psum_model(torch.cat(parts), plan).to(x.dtype).reshape(B, S, D)
 
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], x, cfg)
+        y = y + apply_mlp(p["shared"], x, cfg, plan)
 
     # ---- switch-style load-balance aux ----
-    frac_tokens = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
-    frac_gates = gates.mean(dim=(0, 1))
+    frac_tokens = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    frac_gates = gates.mean(dim=0)
     aux = E * (frac_tokens * frac_gates).sum()
     return y, aux

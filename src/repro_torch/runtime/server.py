@@ -35,9 +35,28 @@ KV rings and SSM/conv states alike.
 
 The pooled page content (`PageStore`) stays on the model's device here,
 where the reference copies it to the host.
+
+**Across ranks** (a `plan` on a `RankMesh`): every rank runs a replica of
+the scheduler, in lockstep (each sees the same requests and the same
+tokens, so each makes the same decisions: `event_digest`), and computes
+only its home's slot rows -- home h of the plan's batch axes owns slots
+``[h*B/n, (h+1)*B/n)``, the slots `Locale.owners` gives it, with their KV
+cache on its ranks alone -- through the model split over "model" as the
+plan says (the rank's parameter blocks, `convert.rank_params`).  After
+every model call the rows' greedy tokens (`greedy`, across vocabulary
+blocks) are all-gathered over the home axes, so every replica appends
+the same tokens.  A page is attached only from its own home's pool, as
+in the reference; a rank holds the content of its home's pages and the
+keys of every home's (`HomePageStore`), so no KV cache crosses ranks.
+The model calls are listed in ``calls`` (`obs.schedule.serve_schedule`
+gives the collectives they imply).  With no batch axes (the slots do
+not divide over the homes) every rank computes every row, the
+reference's replicated batch.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -46,12 +65,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.api import Locale
-from repro_torch.core.mesh import HomeMesh
+from repro_torch.core.mesh import HomeMesh, RankMesh
 from repro_torch.models.blocks import superblock_spec
 from repro_torch.models.model import LM
 from repro_torch.runtime.kvpool import PageStore
 from repro_torch.runtime.scheduler import Scheduler, make_scheduler
-from repro_torch.sharding.partition import MeshPlan, NULL_PLAN
+from repro_torch.sharding.partition import (MeshPlan, NULL_PLAN, homes_of,
+                                           tp_of)
 
 
 @dataclass
@@ -67,9 +87,49 @@ class Request:
     wait: Optional[float] = None # admission wait in wave-step units
 
 
-def _argmax(logits: torch.Tensor) -> np.ndarray:
-    """Greedy tokens (the first maximum, as ``jnp.argmax``), on the host."""
-    return logits.argmax(dim=-1).cpu().numpy().astype(np.int32)
+def greedy(logits: torch.Tensor, plan: Optional[MeshPlan] = None
+           ) -> torch.Tensor:
+    """Greedy token ids (the first maximum, as ``jnp.argmax``) of the last
+    axis, as int64 on the logits' device.  Across the ranks of a "model"
+    axis `logits` is this rank's vocabulary block: each rank's (largest
+    logit, its first global id) pair is all-gathered over "model" (one
+    counted collective of float64 pairs, exact for every logit dtype)
+    and the first block holding the largest logit wins, which is the
+    first maximum of the whole row."""
+    M, i = tp_of(plan)
+    if M == 1:
+        return logits.argmax(dim=-1)
+    val = logits.max(dim=-1).values
+    idx = logits.argmax(dim=-1)
+    from repro_torch.core import collectives
+    pair = torch.stack([val.double(), (idx + i * logits.shape[-1]).double()],
+                       dim=-1)
+    every = collectives.all_gather(pair, plan.mesh, (plan.tp,))
+    best = every[..., 0].argmax(dim=0, keepdim=True)
+    return every[..., 1].gather(0, best)[0].long()
+
+
+def event_digest(tracer) -> str:
+    """SHA-256 of a trace's scheduler, pool and serving records, clocks
+    dropped: equal on every rank whose scheduler replica runs in
+    lockstep with the others'."""
+    recs = [{k: v for k, v in r.items() if k not in ("ts", "dur", "tid")}
+            for r in tracer.records() if r["cat"] in ("sched", "pool", "serve")]
+    return hashlib.sha256(json.dumps(recs, sort_keys=True, default=str)
+                          .encode()).hexdigest()
+
+
+class HomePageStore(PageStore):
+    """The page store of one home's rank: the keys of every home's pages,
+    as every scheduler replica publishes them, with the content of its
+    own home's only (a key of another home holds None)."""
+
+    def __init__(self, home: int, tracer=None):
+        super().__init__(tracer=tracer)
+        self.home = home
+
+    def put(self, home: int, key: object, content) -> None:
+        super().put(home, key, content if home == self.home else None)
 
 
 class DecodeServer:
@@ -91,6 +151,15 @@ class DecodeServer:
         self.model = LM(cfg)
         self.device = params["head"]["head_w"].device
         self.prompt_pad = prompt_pad
+        # this rank's home and slot rows (every row off ranks)
+        self.ranks = isinstance(plan.mesh, RankMesh)
+        self.n_homes, self.home = homes_of(plan)
+        if batch_slots % self.n_homes:
+            raise ValueError(f"{batch_slots} slots do not divide over "
+                             f"{self.n_homes} homes")
+        b = batch_slots // self.n_homes
+        self.rows = slice(self.home * b, (self.home + 1) * b)
+        self.calls: List[Dict] = []
         if locale is None:
             # home cache slots over the plan's batch axes (a tuple of mesh
             # axis names); a mesh-less locale when the plan has no mesh
@@ -134,13 +203,14 @@ class DecodeServer:
         self.tracer = scheduler.tracer
         self.page_size = (scheduler.page_size if scheduler.page_size
                           else (min(4, prompt_pad) if self.paged else 0))
-        self.store = PageStore(tracer=self.tracer)
+        self.store = (HomePageStore(self.home, tracer=self.tracer)
+                      if self.ranks else PageStore(tracer=self.tracer))
 
         def _step(p, c, b, pos):
-            logits, c2 = self.model.decode_step(p, c, b, pos)
+            logits, c2 = self.model.decode_step(p, c, b, pos, plan=self.plan)
             # re-home each slot's cache on its decode home (slot dim = 1:
             # cache leaves are (layers, slot, ...))
-            c2 = self.locale.pin_tree(c2, dim=1, size=b["tokens"].shape[0])
+            c2 = self.locale.pin_tree(c2, dim=1, size=self.B)
             return logits, c2
 
         self._decode = self.locale.jit(_step, donate=(1,))
@@ -150,14 +220,38 @@ class DecodeServer:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _mine(self, a: np.ndarray) -> torch.Tensor:
+        """This home's rows of a (B, ...) array, on the model's device."""
+        return self._tensor(a[self.rows])
+
+    def _call(self, kind: str, tokens: torch.Tensor) -> None:
+        if self.ranks:
+            self.calls.append({"call": kind, "rows": tokens.shape[0],
+                               "seq": tokens.shape[1]})
+
+    def _pick(self, logits: torch.Tensor) -> np.ndarray:
+        """The greedy tokens of every slot row (B, ...) on the host: this
+        home's picks (`greedy`), all-gathered over the home axes."""
+        tok = greedy(logits, self.plan)
+        if self.ranks:
+            self.calls.append({"call": "pick",
+                               "rows": tok.shape[0],
+                               "seq": tok[0].numel()})
+            if self.n_homes > 1:
+                from repro_torch.core import collectives
+                tok = collectives.all_gather(tok, self.plan.mesh,
+                                             self.plan.batch_axes)
+                tok = tok.reshape(self.B, *tok.shape[2:])
+        return tok.cpu().numpy().astype(np.int32)
+
     # ------------------------------------------------------------ paged steps
     def _build_paged_steps(self):
         ps = self.page_size
 
         def _page(p, c, toks, positions, wmask):
             logits, c2 = self.model.decode_pages(
-                p, c, {"tokens": toks}, positions, wmask)
-            c2 = self.locale.pin_tree(c2, dim=1, size=toks.shape[0])
+                p, c, {"tokens": toks}, positions, wmask, plan=self.plan)
+            c2 = self.locale.pin_tree(c2, dim=1, size=self.B)
             return logits, c2
 
         def _reset(c, mask):
@@ -170,8 +264,8 @@ class DecodeServer:
 
         def _attach(c, content, p0):
             # splice one pooled page level into the refilled rows' caches:
-            # row s takes content[s][m] = (k, v) at cache slots
-            # [p0, p0 + ps), and positions p0 .. p0 + ps - 1
+            # row s (of this home's rows) takes content[s][m] = (k, v) at
+            # cache slots [p0, p0 + ps), and positions p0 .. p0 + ps - 1
             for s, pages in content.items():
                 for m, (kb, vb) in pages.items():
                     c[m]["k"][:, s, p0:p0 + ps] = kb
@@ -213,19 +307,23 @@ class DecodeServer:
         for i, r in enumerate(reqs):             # left-pad with token 0
             if r is not None:
                 toks[i, plen - len(r.prompt):] = r.prompt
+        mine = self._mine(toks)
+        self._call("prefill", mine)
         last, caches = self.model.prefill(
-            self.params, {"tokens": self._tensor(toks)}, max_len=self.max_len)
+            self.params, {"tokens": mine}, max_len=self.max_len,
+            plan=self.plan)
         pos = plen
-        cur = _argmax(last)
+        cur = self._pick(last)
         for i, r in enumerate(reqs):
             if r is not None:
                 r.out.append(int(cur[i]))
         steps = 1
         max_new = max(r.max_new for r in active)
         for _ in range(max_new - 1):
-            batch = {"tokens": self._tensor(cur[:, None].astype(np.int64))}
+            batch = {"tokens": self._mine(cur[:, None].astype(np.int64))}
+            self._call("decode", batch["tokens"])
             logits, caches = self._decode(self.params, caches, batch, pos)
-            cur = _argmax(logits)
+            cur = self._pick(logits)
             pos += 1
             steps += 1
             for i, r in enumerate(reqs):
@@ -276,7 +374,8 @@ class DecodeServer:
             slots[slot] = r
         rmask = np.zeros((B,), bool)
         rmask[rows] = True
-        caches = self._reset(caches, self._tensor(rmask))
+        caches = self._reset(caches, self._mine(rmask))
+        lo, hi = self.rows.start, self.rows.stop
 
         plen = {s: len(r.prompt) for s, r in wave}
         blocks = {s: getattr(r, "_sched_blocks", ()) for s, r in wave}
@@ -298,8 +397,8 @@ class DecodeServer:
 
         # 1. attach pooled page levels (no compute, no cost)
         for p in range(max(att.values(), default=0)):
-            content = {s: self.store.get(slots[s].home, blocks[s][p])
-                       for s, _ in wave if att[s] > p}
+            content = {s - lo: self.store.get(slots[s].home, blocks[s][p])
+                       for s, _ in wave if att[s] > p and lo <= s < hi}
             if content:
                 caches = self._attach(caches, content, p * ps)
 
@@ -319,12 +418,14 @@ class DecodeServer:
                 wm[s, :len(chunk)] = True
             positions = np.broadcast_to(
                 p * ps + np.arange(ps, dtype=np.int64), (B, ps))
+            mine = self._mine(toks)
+            self._call("pages", mine)
             logits, caches = self._page(
-                self.params, caches, self._tensor(toks),
-                self._tensor(positions), self._tensor(wm))
+                self.params, caches, mine, self._mine(positions),
+                self._mine(wm))
             cost += float(ps)
             if any(lastlv[s] == p for s in lv):
-                level_tokens[p] = _argmax(logits)
+                level_tokens[p] = self._pick(logits)
 
         # 3. first sampled token + per-slot clock start
         for s, r in wave:
@@ -345,8 +446,9 @@ class DecodeServer:
                     continue
                 sl = slice(i * ps, (i + 1) * ps)
                 self.store.put(r.home, key, {
-                    m: (caches[m]["k"][:, s, sl].clone(),
-                        caches[m]["v"][:, s, sl].clone()) for m in members})
+                    m: (caches[m]["k"][:, s - lo, sl].clone(),
+                        caches[m]["v"][:, s - lo, sl].clone())
+                    for m in members} if lo <= s < hi else None)
         return caches, cost
 
     def _run_paged(self) -> List[Request]:
@@ -374,9 +476,10 @@ class DecodeServer:
                 if wave:
                     if caches is None:
                         caches = self.locale.pin_tree(
-                            self.model.init_cache(B, self.max_len,
-                                                  device=self.device),
-                            dim=1, size=B)
+                            self.model.init_cache(
+                                self.rows.stop - self.rows.start,
+                                self.max_len, device=self.device,
+                                plan=self.plan), dim=1, size=B)
                     with self.tracer.span("serve.refill", cat="serve",
                                           now=now, placed=len(wave)) as sp:
                         caches, cost = self._refill(wave, slots, caches,
@@ -388,7 +491,8 @@ class DecodeServer:
                     continue                 # future arrivals only -- retry
             if not any(r is not None for r in slots):
                 continue
-            batch = {"tokens": self._tensor(cur_np[:, None])}
+            batch = {"tokens": self._mine(cur_np[:, None])}
+            self._call("decode", batch["tokens"])
             if self.tracer.enabled:
                 act = [s for s, r in enumerate(slots) if r is not None]
                 dspan = self.tracer.span(
@@ -399,8 +503,8 @@ class DecodeServer:
                 dspan = self.tracer.span("serve.decode")
             with dspan:
                 logits, caches = self._decode(self.params, caches, batch,
-                                              self._tensor(pos_np))
-            cur_np = _argmax(logits).astype(np.int64)
+                                              self._mine(pos_np))
+            cur_np = self._pick(logits).astype(np.int64)
             pos_np = pos_np + 1
             sch.tick(1.0)
             now += 1.0
@@ -445,21 +549,23 @@ class _NullLM:
     def __init__(self, n_members: int):
         self.members = [f"m{i}" for i in range(n_members)]
 
-    def init_cache(self, batch_size: int, max_len: int, device="cpu"):
+    def init_cache(self, batch_size: int, max_len: int, device="cpu",
+                   plan=None):
         shape = (1, batch_size, max_len)
         return {m: {"k": torch.zeros(shape + (1, 1)),
                     "v": torch.zeros(shape + (1, 1)),
                     "kpos": torch.full(shape, -1, dtype=torch.int32)}
                 for m in self.members}
 
-    def prefill(self, params, batch, max_len=None):
+    def prefill(self, params, batch, max_len=None, plan=None):
         B = batch["tokens"].shape[0]
         return torch.zeros(B, 1), self.init_cache(B, max_len)
 
-    def decode_step(self, params, caches, batch, pos):
+    def decode_step(self, params, caches, batch, pos, plan=None):
         return torch.zeros(batch["tokens"].shape[0], 1), caches
 
-    def decode_pages(self, params, caches, batch, positions, write_mask):
+    def decode_pages(self, params, caches, batch, positions, write_mask,
+                     plan=None):
         return torch.zeros(*batch["tokens"].shape, 1), caches
 
 

@@ -901,3 +901,93 @@ def test_rank_microbench_on_card_matches_home_mesh(tree_ranks_on_card):
                 == home_bytes
             assert len(got["log"]) == (2 * reps if name == "nonlocalised"
                                        else 0)
+
+
+# ---------------------------------------------------------------------------
+# serving across ranks: the kernel at a rank's heads, two ranks on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,kv", [(8, 4), (16, 8)])
+def test_flash_attention_at_head_split_shapes_on_card(heads, kv):
+    """`flash_attention` at a rank's share of qwen3-0.6b's 16 heads / 8 KV
+    heads (bf16, hd 128): the q heads and the KV heads they read sliced
+    out of the whole projections (strided views) and made contiguous, as
+    `models.attention.flash_prefill_attention` hands them over, against
+    the plain version within `KERNEL_TOL`."""
+    _need_card()
+    from repro_torch.models.attention import flash_prefill_attention
+    B, S, hd = 2, 753, 128
+    rng = np.random.default_rng(heads)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd)).astype(
+        np.float32)).to(torch.bfloat16).cuda() for n in (16, 8, 8))
+    lo = 16 - heads                              # the last rank's heads
+    qs = q[:, :, lo:]
+    ks, vs = k[:, :, lo // 2:], v[:, :, lo // 2:]
+    assert not qs.is_contiguous() or heads == 16
+    ops.reset_launches()
+    got = flash_prefill_attention(qs.reshape(B, S, kv, 2, hd), ks, vs)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_reference(
+        qs.transpose(1, 2).contiguous(), ks.transpose(1, 2).contiguous(),
+        vs.transpose(1, 2).contiguous(), causal=True).transpose(1, 2)
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _two_rank_serve(device):
+    """A rank of the card test below: reduced float32 qwen3-0.6b served on
+    {"data": 1, "model": 2} (heads, KV heads, MLP and vocabulary split)
+    on `device`, then on the CPU; tokens, logits and launches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import make_serve_stream, rank_params
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.runtime.server import DecodeServer, Request
+    from repro_torch.sharding.partition import make_plan
+    from repro_torch.models import LM
+    cfg, whole = _serving_model("float32")
+    reqs = make_serve_stream(12, cfg.vocab_size, (3, 30), sessions=3,
+                             new_tokens=(2, 6), slots=4, seed=1, prefix=8)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 19)))
+    out = {}
+    for dev in (device, "cpu"):
+        mesh = RankMesh({"data": 1, "model": 2}, device=dev)
+        plan = make_plan(mesh, cfg, ShapeSpec("s", 48, 4, "decode"))
+        params = _to(rank_params(whole, plan, cfg), mesh.device)
+        res = {}
+        for pad in (None, 32):
+            srv = DecodeServer(cfg, params, batch_slots=4, max_len=48,
+                               plan=plan, prompt_pad=pad,
+                               page_size=8 if pad else None)
+            for d in reqs:
+                srv.submit(Request(**d))
+            ops.reset_launches()
+            res[pad] = ({r.rid: r.out for r in srv.run()},
+                        ops.launch_counts()["flash_attention"],
+                        srv.scheduler.stats.waves)
+        last, _ = LM(cfg).prefill(params, {"tokens": toks.to(mesh.device)},
+                                  max_len=48, plan=plan)
+        out[mesh.device.type] = (res, last.cpu())
+    return out
+
+
+@pytest.mark.gpu
+def test_two_rank_serve_on_card_matches_cpu():
+    """Two gloo ranks sharing the card serve reduced float32 qwen3-0.6b
+    with the model split over "model": in both modes the CPU ranks'
+    tokens, each rank's logit block within rtol 1e-4 / atol 1e-5 of its
+    CPU block, and one `flash_attention` launch a layer on each rank for
+    each aligned prefill wave."""
+    _need_card()
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn
+    _build.build(("flash_attention",))
+    layers = 2
+    for res in spawn(_two_rank_serve, 2, "gloo", "cuda"):
+        (card, card_last), (cpu, cpu_last) = res["cuda"], res["cpu"]
+        for pad in (None, 32):
+            assert card[pad][0] == cpu[pad][0]
+            assert card[pad][1] == (0 if pad else layers * card[pad][2])
+        torch.testing.assert_close(card_last, cpu_last, rtol=1e-4,
+                                   atol=1e-5)

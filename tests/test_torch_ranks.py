@@ -131,8 +131,8 @@ def rank_battery(device, tasks, extras):
 
 def rank_extras(device, mesh_of):
     """The 8-rank world's other cases: compressed_psum, Locale.check,
-    planted R1/R2 faults, a traced run, pin_tree's refusal and
-    make_rank_mesh's errors."""
+    planted R1/R2 faults, a traced run, pin_tree without the slot count
+    and make_rank_mesh's errors."""
     import torch.distributed as dist
 
     from repro_torch.core import collectives as coll
@@ -218,9 +218,8 @@ def rank_extras(device, mesh_of):
         fn(torch.arange(64))
     with pytest.raises(ValueError, match="granule 64"):
         fn(Locale(flat, "data", case_policy(7)).put(np.arange(8)))
-    # pin_tree across ranks waits for serving across ranks
-    with pytest.raises(NotImplementedError,
-                       match="waits for serving across ranks"):
+    # pin_tree across ranks homes the slots' rows: it needs their count
+    with pytest.raises(ValueError, match="size="):
         Locale(flat, "data", case_policy(8)).pin_tree({"x": torch.zeros(8)})
     # make_rank_mesh: its errors, and the meshes it builds
     errors = {}

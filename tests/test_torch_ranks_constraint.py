@@ -8,8 +8,8 @@ spawn per world size: the default ``workload("sort")`` for the 8 Table-1
 cases in int32, float32 and bfloat16 with ``num_workers`` N and 2N, on
 ``{"data": w}`` and (8 ranks) on ``{"pod": 2, "data": 4}``; the
 ``"microbench"`` workload under the localised, static non-localised and
-auto policies; and (8 ranks) `Locale.pin`, `localise`, `make`, `check`,
-a planted cross-axis move and `pin_tree`'s refusal.  Each rank returns
+auto policies; `Locale.pin_tree` (every world); and (8 ranks)
+`Locale.pin`, `localise`, `make`, `check` and a planted cross-axis move.  Each rank returns
 its elements, their layout and its collective log; the tests compare
 them here with the one-process `HomeMesh` port, `constraint_schedule`,
 `relayout_counts` and, through one subprocess with 8 emulated host
@@ -136,15 +136,48 @@ def rank_battery(device, world):
             out["fig1"][name, reps] = {
                 "chunk": y.numpy(), "log": coll.collective_log(),
                 "relayouts": relayout_counts()}
+    out["pin_tree"] = {tag: rank_pin_tree(mesh, axis)
+                       for tag, (mesh, axis) in meshes.items()}
     if world == 8:
         out.update(rank_extras(device, flat, meshes["pods"][0]))
     assert "jax" not in sys.modules, "a rank process imported JAX"
     return out
 
 
+def pin_tree_input(world: int) -> dict:
+    """A cache-like tree: (layers, slots, ...) leaves of 4 slots a home,
+    and a leaf whose dim 1 is not the slots."""
+    S = 4 * world
+    return {"k": torch.arange(2 * S * 3, dtype=torch.float32).view(2, S, 3),
+            "kpos": torch.arange(2 * S, dtype=torch.int32).view(2, S),
+            "other": torch.zeros(2, 5)}
+
+
+def rank_pin_tree(mesh, axis):
+    """`Locale.pin_tree` on a `RankMesh`: the whole tree pinned (each rank
+    keeps its home's rows), then pinned again (steady state), with the
+    collectives each made."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.mesh import axis_tuple
+    locale = Locale(mesh, axis)
+    whole = pin_tree_input(mesh.size)
+    S = whole["k"].shape[1]
+    coll.reset_collectives()
+    mine = locale.pin_tree(whole, dim=1, size=S)
+    first = coll.collective_log()
+    again = locale.pin_tree(mine, dim=1, size=S)
+    with pytest.raises(ValueError) as e:
+        locale.pin_tree(whole, dim=1)
+    return {"home": mesh.index(axis_tuple(axis)), "refusal": str(e.value),
+            "rows": {k: v.numpy() for k, v in mine.items()},
+            "same": all(again[k] is mine[k] for k in mine),
+            "other_kept": mine["other"] is whole["other"],
+            "log": first + coll.collective_log()}
+
+
 def rank_extras(device, flat, pods):
     """The 8-rank world's other cases: `Locale.pin`, `localise`, `make`
-    and `check`, a planted cross-axis move, and `pin_tree`'s refusal."""
+    and `check`, and a planted cross-axis move."""
     from repro_torch.analysis import check_artifacts
     from repro_torch.core import collectives as coll
     from repro_torch.core.homing import Layout, relayout
@@ -197,9 +230,6 @@ def rank_extras(device, flat, pods):
             "ranks", [], collectives=log, mesh=pods, allowed_axes=("data",),
             rules=("R2",)).findings]
         for tag, log in (("clean", clean), ("leak", leak))}
-    with pytest.raises(NotImplementedError) as e:
-        Locale(flat, "data", case_policy(8)).pin_tree({"k": x})
-    out["pin_tree"] = str(e.value)
     return out
 
 
@@ -522,8 +552,24 @@ def test_rank_check_runs_r2_and_flags_a_planted_move(worlds):
 
 
 def test_pin_tree_raises_on_a_rank_mesh(worlds):
-    """`pin_tree` waits for serving across ranks, its only user, and says
-    so, naming the work it waits for and no queue item's number."""
-    for res in worlds[8]:
-        assert "serving across ranks" in res["pin_tree"]
-        assert "item" not in res["pin_tree"]
+    """`pin_tree` on a `RankMesh` of 2, 4 and 8 ranks (and the pod mesh):
+    each rank keeps exactly its home's 4 slots of every slot leaf, a leaf
+    of another size stays as it was, pinning the rank's rows again
+    returns them as they are, and no collective runs.  (It raised until
+    serving ran across ranks; it raises now only for a call without the
+    whole slot count, ``size``.)"""
+    for world, ranks in worlds.items():
+        whole = pin_tree_input(world)
+        for res in ranks:
+            for tag, got in res["pin_tree"].items():
+                h = got["home"]
+                rows = slice(h * 4, (h + 1) * 4)
+                np.testing.assert_array_equal(got["rows"]["k"],
+                                              whole["k"][:, rows].numpy())
+                np.testing.assert_array_equal(got["rows"]["kpos"],
+                                              whole["kpos"][:, rows].numpy())
+                assert got["other_kept"] and got["same"], (world, tag)
+                assert got["log"] == [], (world, tag)
+                assert "size=" in got["refusal"]
+    mesh_free = Locale(None, "data")
+    assert mesh_free.pin_tree(whole, dim=1, size=4) is whole
