@@ -120,19 +120,20 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 prefill, a decode step, the `pin_tree` copy of the cache;
   8f. serve_ranks — `DecodeServer` across 8 gloo ranks sharing the card,
                 each serving its home's slots with its blocks of the
-                parameters: qwen3-0.6b at full width and depth (the serve
-                phase's stream, 16 slots) on {"data": 8} (8 homes) and on
+                parameters: qwen3-0.6b at full width, 7 of 28 layers (the
+                serve phase's stream, 16 slots) on {"data": 8} (8 homes) and on
                 {"pod": 2, "data": 2, "model": 2} (4 homes of 2 ranks, the
                 heads, KV heads, MLP and vocabulary split), both modes,
                 both policies: every rank's collectives equal to
                 `serve_schedule` (no cache bytes), the scheduler replicas'
                 digests equal, the summary equal to `schedule_replay`'s,
-                every request on its home's ranks, 28 `flash_attention`
+                every request on its home's ranks, 7 `flash_attention`
                 launches a prefill wave on every rank, and the picks held
-                to the one-process runs on the same homes (`SERVE_RANK_TOL`;
+                to the one-process runs on the same homes and depth
+                (`SERVE_RANK_TOL`;
                 a planted dropped partial sum outside it); tokens/s,
                 prefill and decode-step ms, wire, staged and peak bytes by
-                rank; then deepseek-moe-16b at full width, 14 of 28
+                rank; then deepseek-moe-16b at full width, 7 of 28
                 layers, on {"data": 2, "model": 4} (16 experts a rank) in
                 aligned waves under homed, each wave replayed through the
                 one-process plain model (`STACK_REPLAY_TOL`); and
@@ -192,13 +193,35 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 must raise under autograd); step time (CUDA events and the
                 host clock), tokens/s, the model-FLOPs share of the bf16
                 peak, peak memory, one step's busy time by part
-                (`torch.profiler`), the checkpoint's bytes and seconds;
+                (`torch.profiler`), the checkpoint's bytes and seconds
+                (the host shared with the dtypes check's CPU sorts);
+  8g. train_ranks — training across 8 gloo ranks sharing the card, in
+                bf16 with each config's own parallel knobs: (a) qwen3-0.6b
+                at full width and depth on {"data": 2, "model": 4} (the
+                sequence-sharded residual, remat), the train phase's rows
+                and schedule through `Trainer`, with a checkpoint from
+                which a second trainer replays the last step bit for bit;
+                (b) granite-20b at full width, 2 of 52 layers, on {"pod":
+                2, "data": 2, "model": 2} with FSDP over ("pod", "data")
+                and 4 microbatches; (c) both at `reduce_config` in float32,
+                card ranks against CPU ranks.  Every rank's collectives
+                of every step equal to `train_schedule`, every replicated
+                block equal by SHA-256 after every step, the losses and
+                step 1's norm within `TRAIN_RANK_LOSS_RTOL` /
+                `TRAIN_RANK_NORM_RTOL` of one process's on the same rows
+                ((a) the train phase, (b) a child process), planted faults
+                outside (rank 0's dp sums skipped, in a step; a gathered
+                block from the wrong home, in the loss of a forward), no
+                `flash_attention` launch; step time,
+                tokens/s, rank 0's busy ms, collectives, wire, inter-pod,
+                staged and peak bytes by rank, checkpoint bytes and
+                seconds;
   8d. dtypes  — int8, int16, uint8, uint16, uint32, float16 and bfloat16
                 through both backends on {"data": 8} at n = 2^24 + 5:
                 equal to torch.sort's values, and bit for bit the CPU
-                port's result, computed after the analysis phase, so that
-                no timed phase shares the host with it, in
-                `CPU_SORT_PROCS` processes sharing the host's cores;
+                port's result, computed beside the train phase (whose
+                child keeps the card busy while the host mostly waits)
+                in `CPU_SORT_PROCS` processes sharing the host's cores;
   9. analysis — the analyser's path: the four mutant kernels of
                 `repro_torch.kernels.fixtures` against their plain versions
                 (bit for bit; the raced rows of `overlapping_index_map`
@@ -226,11 +249,14 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import copy
 import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1663,20 +1689,22 @@ def cpu_reference(seed: int, n: int = None) -> tuple:
     ``N_ENGINE``), both backends, in `CPU_SORT_PROCS` processes of
     ``os.cpu_count() // CPU_SORT_PROCS`` threads each (the plain bitonic
     network over 2^21 + 1-key leaves is most of a sort).  Returns
-    ``({tag: result}, {tag: seconds})``."""
+    ``({tag: result}, {tag: seconds}, wall seconds)``."""
     import concurrent.futures as cf
     import multiprocessing as mp
     from repro_torch.convert import NARROW_SORT_DTYPES
     n = n or N_ENGINE
     threads = max(1, (os.cpu_count() or 1) // CPU_SORT_PROCS)
     tags = [(dt, b) for dt in NARROW_SORT_DTYPES for b in SORT_BACKENDS]
+    t0 = time.perf_counter()
     with cf.ProcessPoolExecutor(CPU_SORT_PROCS,
                                 mp_context=mp.get_context("spawn")) as pool:
         futs = {f"{dt}_{b}": pool.submit(cpu_sort, dt, b, seed, n, threads)
                 for dt, b in tags}
         done = {tag: f.result() for tag, f in futs.items()}
     return ({tag: y for tag, (y, _) in done.items()},
-            {tag: s for tag, (_, s) in done.items()})
+            {tag: s for tag, (_, s) in done.items()},
+            time.perf_counter() - t0)
 
 
 def phase_dtypes(seed: int) -> dict:
@@ -1721,16 +1749,16 @@ def phase_dtypes(seed: int) -> dict:
     return out
 
 
-def check_dtypes_on_cpu(dtypes: dict, seed: int) -> None:
+def check_dtypes_on_cpu(dtypes: dict, cpu: tuple) -> None:
     """Hold each card result of `phase_dtypes` bit for bit to the CPU
-    port's for the same input.  Runs after every timed phase."""
-    t0 = time.perf_counter()
-    cpu, dtypes["cpu_sort_seconds"] = cpu_reference(seed)
+    port's for the same input (`cpu`, what `cpu_reference` returned: it
+    runs beside the train phase)."""
+    cpu, dtypes["cpu_sort_seconds"], dtypes["cpu_seconds"] = cpu
     dtypes["mismatches_vs_cpu"] = {
         tag: mismatches(y, cpu[tag]) for tag, y in dtypes.pop("results").items()}
-    dtypes["cpu_seconds"] = time.perf_counter() - t0
     say(f"phase dtypes on the CPU: the CPU port's {len(cpu)} results in "
-        f"{dtypes['cpu_seconds']:.1f} s ({CPU_SORT_PROCS} processes of "
+        f"{dtypes['cpu_seconds']:.1f} s beside the train phase "
+        f"({CPU_SORT_PROCS} processes of "
         f"{max(1, (os.cpu_count() or 1) // CPU_SORT_PROCS)} threads; "
         f"seconds by sort " + json.dumps(
             {k: round(v, 2) for k, v in dtypes["cpu_sort_seconds"].items()})
@@ -2161,22 +2189,30 @@ SERVE_LINE_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
 LOGIT_ROWS_F32 = 4
 
 
+def device_events(prof) -> list:
+    """``(name, microseconds)`` of every activity the card ran in a
+    `profile_call` session (kernels, copies, fills), read from the trace
+    as recorded: `key_averages()` first builds the profiler's event lists,
+    which took 8.5 s for 100k events of a CPU trace where this takes 0.4 s
+    (an 8-core Xeon), and tens of seconds over a whole serve run (H100)."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def profiled_kernels(fn, names) -> dict:
-    """{name: launches} of the kernels whose profiler key holds a name of
-    `names`, seen by `torch.profiler` over one call of fn()."""
-    seen = dict.fromkeys(names, 0)
-    for ev in profile_call(fn).key_averages():
-        for name in names:
-            if name in ev.key:
-                seen[name] += ev.count
-    return seen
+    """{name: launches} of the kernels whose name holds a name of `names`,
+    seen by `torch.profiler` over one call of fn()."""
+    events = device_events(profile_call(fn))
+    return {name: sum(name in ev for ev, _ in events) for name in names}
 
 
 def device_busy_ms(fn) -> float:
     """Milliseconds of kernel time on the card over one call of fn(), from
     `torch.profiler`."""
-    return sum(getattr(ev, "device_time_total", 0) or 0
-               for ev in profile_call(fn).key_averages()) / 1e3
+    return sum(us for _, us in device_events(profile_call(fn))) / 1e3
 
 
 def phase_serve(seed: int) -> dict:
@@ -2228,14 +2264,12 @@ def phase_serve(seed: int) -> dict:
         return srv
 
     # the counted runs: both modes, both policies
-    recorded, picks = [], {}
+    recorded = []
     for mode in SERVE_MODES:
         for policy in ("fifo", "homed"):
             tag = f"{mode}-{policy}"
             tracer = Tracer()
             srv = server(mode, policy, tracer)
-            # the picks that the serve_ranks phase holds its runs to
-            picks[tag] = pick_recorder(srv)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -2479,7 +2513,6 @@ def phase_serve(seed: int) -> dict:
         f"{json.dumps(moved)}; profiler saw {json.dumps(seen)} launches, the "
         f"wrapper counted {counted}; phase {out['seconds']:.1f} s")
     out["recorded"] = recorded
-    out["picks"] = picks
     out["line_launches"] = out["runs"]["waves-fifo"]["launches"].get(
         "flash_attention", 0)
     return out
@@ -3240,11 +3273,14 @@ def phase_stack(seed: int, smi: str) -> dict:
 #: the serve_ranks phase: `DecodeServer` across 8 gloo ranks sharing the
 #: card (`launch.mesh.spawn`), each rank serving its home's slots with its
 #: blocks of the parameters (`convert.rank_params`, `rank_cut`).
-#: qwen3-0.6b at full width and depth (the serve phase's model, seed,
-#: stream, 16 slots and 1024-token cache) on 8 homes of one rank, and on 4
-#: homes of 2 ranks with the heads, KV heads, MLP and vocabulary split
-#: over "model"; both modes, both policies
+#: qwen3-0.6b at full width (the serve phase's model, seed, stream, 16
+#: slots and 1024-token cache) on 8 homes of one rank, and on 4 homes of
+#: 2 ranks with the heads, KV heads, MLP and vocabulary split over
+#: "model"; both modes, both policies.  Its depth is cut from 28 to
+#: `SERVE_RANK_LAYERS` for the script's time: on an H100 a pods222 run at
+#: 28 layers took 22-26 s (3,776 collectives), the phase 206 s of 1073
 SERVE_RANKS = 8
+SERVE_RANK_LAYERS = 7
 SERVE_RANK_MESHES = {"data8": {"data": 8, "model": 1},
                      "pods222": {"pod": 2, "data": 2, "model": 2}}
 #: deepseek-moe-16b at full width on 2 homes of 4 ranks (16 of its 64
@@ -3254,7 +3290,7 @@ SERVE_RANK_MESHES = {"data8": {"data": 8, "model": 1},
 #: contexts (28 layers would take ~8.5 GB a rank, 68 GB in all, on a card
 #: the qwen3 runs and the replay share)
 SERVE_RANK_MOE = dict(arch="deepseek-moe-16b", mesh={"data": 2, "model": 4},
-                      layers=14)
+                      layers=7)
 #: its policy: the home-aware one (the stack phase serves both in one
 #: process; a second policy here would take the phase past its 240 s)
 SERVE_RANK_MOE_POLICIES = ("homed",)
@@ -3262,9 +3298,9 @@ SERVE_RANK_MOE_POLICIES = ("homed",)
 #: same homes (`compare_picks`), as a share of the row's largest |logit|.
 #: A rank computes 2 or 4 of the 16 rows and its share of the heads and
 #: MLP, so cuBLAS runs other shapes and the split sums add in another
-#: order: the readings sit at bf16's rounding through 28 layers, above
-#: `LOGIT_TOL` (H100 at 700 W, seed 0: the first prefill's logits 0.0176
-#: apart with "model" = 2, a decode step's 0.0136 with "model" = 1).  The
+#: order: the readings sit at bf16's rounding, above `LOGIT_TOL` (H100 at
+#: 700 W, seed 0, 28 layers: the first prefill's logits 0.0176 apart with
+#: "model" = 2, a decode step's 0.0136 with "model" = 1).  The
 #: bound lies between those and the planted fault's, one rank's partial
 #: sum dropped from the first attention all-reduce (`planted_psum`); a
 #: fault as small as the attention phase's 1 % scale reads 0.017 in bf16
@@ -3572,7 +3608,7 @@ def serve_rank_work(device, seed: int, spec: dict) -> dict:
 
     rank = dist.get_rank()
     out = {"rank": rank, "meshes": {}}
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(SERVE_ARCH).replace(num_layers=SERVE_RANK_LAYERS)
     streams = serve_streams(cfg, seed)
     for mname, shape in spec["meshes"].items():
         t0 = time.perf_counter()
@@ -3701,9 +3737,8 @@ def compare_picks(one: list, ranks: list, tol: float) -> dict:
                 first_rows=first_rows, tol=tol)
 
 
-def phase_serve_ranks(seed: int, smi: str, serve: dict) -> dict:
-    """The server across ranks (see the module docstring, 8f).  `serve`
-    holds the serve phase's one-process picks on {"data": 8} homes."""
+def phase_serve_ranks(seed: int, smi: str) -> dict:
+    """The server across ranks (see the module docstring, 8f)."""
     from repro_torch.configs import get_config
     from repro_torch.core import HomeMesh, Locale
     from repro_torch.launch.mesh import spawn
@@ -3713,27 +3748,31 @@ def phase_serve_ranks(seed: int, smi: str, serve: dict) -> dict:
     t_phase = time.perf_counter()
     device = "cuda"
     spec = {"meshes": SERVE_RANK_MESHES, "moe": SERVE_RANK_MOE, "f32": True}
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(SERVE_ARCH).replace(num_layers=SERVE_RANK_LAYERS)
     L = cfg.num_layers
     streams = serve_streams(cfg, seed)
     tol = SERVE_RANK_TOL
-    # the one-process runs on the pod mesh's homes (the data8 ones are the
-    # serve phase's), before the ranks start: nothing else on the card
-    one = {f"data8/{k}": v for k, v in serve["picks"].items()}
+    # the one-process runs on each mesh's homes at the ranks' depth, before
+    # the ranks start: nothing else on the card
+    one = {}
     params = LM(cfg).init(torch.Generator(device=device).manual_seed(seed))
     pods = SERVE_RANK_MESHES["pods222"]
-    locale = Locale(HomeMesh(pods, device=device), ("pod", "data"))
-    for mode, m in SERVE_MODES.items():
-        for policy in ("fifo", "homed"):
-            srv = DecodeServer(cfg, params, batch_slots=SERVE_SLOTS,
-                               max_len=SERVE_MAX_LEN, locale=locale,
-                               scheduler=policy, prompt_pad=m["prompt_pad"],
-                               page_size=m["page_size"])
-            for d in streams[mode]:
-                srv.submit(Request(**d))
-            picks = pick_recorder(srv)
-            srv.run()
-            one[f"pods222/{mode}-{policy}"] = picks
+    homes = {"data8": Locale(HomeMesh({"data": 8}, device=device), "data"),
+             "pods222": Locale(HomeMesh(pods, device=device),
+                               ("pod", "data"))}
+    for mname, locale in homes.items():
+        for mode, m in SERVE_MODES.items():
+            for policy in ("fifo", "homed"):
+                srv = DecodeServer(cfg, params, batch_slots=SERVE_SLOTS,
+                                   max_len=SERVE_MAX_LEN, locale=locale,
+                                   scheduler=policy,
+                                   prompt_pad=m["prompt_pad"],
+                                   page_size=m["page_size"])
+                for d in streams[mode]:
+                    srv.submit(Request(**d))
+                picks = pick_recorder(srv)
+                srv.run()
+                one[f"{mname}/{mode}-{policy}"] = picks
     del params, srv
     release()
     t0 = time.perf_counter()
@@ -4063,9 +4102,13 @@ def train_child(seed: int) -> dict:
         tr.step_fn = step_fn
         maybe_save = tr.ckpt.maybe_save
 
-        def timed_save(*a, **kw):       # the blocking part: the host copy
+        def timed_save(step, *a, **kw):  # the blocking part: the host copy
+            # only the checkpoint the resumed run reads is written: the
+            # two runs' saves at step 12 (7.5 GB each) nothing reads
+            if step != TRAIN_CKPT_AT:
+                return False
             t0 = time.perf_counter()
-            saved = maybe_save(*a, **kw)
+            saved = maybe_save(step, *a, **kw)
             if saved:
                 copies.append(time.perf_counter() - t0)
             return saved
@@ -4098,7 +4141,7 @@ def train_child(seed: int) -> dict:
             out["params"] = sum(t.numel() for t in leaves)
             out["param_bytes"] = sum(t.numel() * t.element_size()
                                      for t in leaves)
-            last = os.path.join(tmp, f"step_{TRAIN_STEPS:08d}")
+            last = os.path.join(tmp, f"step_{TRAIN_CKPT_AT:08d}")
             out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(last, f))
                                     for f in os.listdir(last))
             out["ckpt_files"] = len(os.listdir(last))
@@ -4119,8 +4162,8 @@ def train_child(seed: int) -> dict:
             out["save_host_copy_s"] = list(copies)
             del res, tr, leaves
             torch.cuda.empty_cache()
-            shutil.rmtree(last)          # the second trainer resumes at 6
-            tr, times, _ = trainer("resumed")
+            tr, times, _ = trainer("resumed")   # it resumes at step 6
+
             t0 = time.perf_counter()
             res = tr.run()
             out["resumed_s"] = time.perf_counter() - t0
@@ -4251,6 +4294,697 @@ def phase_train(seed: int, smi: str) -> dict:
                               f"port's kernels {out['launches']}")
     need("no backward pass" in out["guard"] and out["guard_launches"] == 0,
          f"train: LM(cfg) with flash under autograd: {out['guard']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_ranks: training across torch.distributed ranks sharing the card
+# ---------------------------------------------------------------------------
+TRAIN_RANKS = 8
+#: (a) qwen3-0.6b at full width and depth on 8 ranks, the train phase's
+#: rows (one a home) and learning-rate schedule, 2 steps with a checkpoint
+#: at step 1 from which a second trainer replays step 2 (cut from 4 steps
+#: and a replay of 2 for the phase's time: a step takes ~13 s)
+TRAIN_RANK_QWEN = dict(mesh={"data": 2, "model": 4}, steps=2, ckpt_at=1)
+#: (a)'s planted fault on a fresh step 1 (another costs a step, ~16 s)
+TRAIN_RANK_PLANTED = ("dp_skip",)
+#: (b) granite-20b at full width, 2 of its 52 layers (52 layers' float32
+#: AdamW state alone is 160 GB), FSDP over ("pod", "data"), its own
+#: knobs (SP, remat, 4 microbatches); global batch 16 (one row a home a
+#: microbatch), S cut from 4096 to 1024 and 1 step (cut from 2) for the
+#: phase's time: a step takes 40-60 s, the FSDP gathers' 13.9 GB a rank
+#: through gloo; before it, the planted wrong-home gather's forward (the
+#: loss alone: a whole step read 8.7e-4 in the loss, 2.9e-3 in the norm,
+#: and took another 54 s on an H100)
+TRAIN_RANK_GRANITE = dict(arch="granite-20b", layers=2, batch=16, seq=1024,
+                          mesh={"pod": 2, "data": 2, "model": 2}, steps=1)
+#: the ranks' bf16 losses (each step) and step 1's gradient norm against
+#: one process's on the same rows, relative.  The split products' partial
+#: sums round to bfloat16 once per rank before they are added where one
+#: process rounds the whole product once, and gloo's float32 sums add in
+#: another order; the first readings on the card (H100) were 2.0e-6 to
+#: 4.8e-6 for the losses and 1.1e-5 to 9.4e-5 for the norms.  A block
+#: gathered from the wrong home read 8.7e-4 (loss) and 2.9e-3 (norm) at
+#: full width, rank 0's skipped dp sums 6.2e-2 (norm): the bounds lie
+#: between the two, ~50x and ~10x above the sound readings and ~3x below
+#: the smallest fault's
+TRAIN_RANK_LOSS_RTOL = 2.0 ** -12
+TRAIN_RANK_NORM_RTOL = 2.0 ** -10
+#: (c) float32 at reduce_config (the archs' parallel knobs kept), card
+#: ranks against CPU ranks, 2 steps: losses, norms, m and v, and the
+#: updated parameters (`held_f32`); on the card, granite's planted
+#: wrong-home gather must move step 1's loss or norm beyond it
+TRAIN_RANK_F32_TOL = 1e-5
+TRAIN_RANK_F32 = {"qwen3-0.6b": ({"data": 2, "model": 4}, 4),
+                  "granite-20b": ({"pod": 2, "data": 2, "model": 2}, 16)}
+TRAIN_RANK_TIMEOUT_S = 900
+
+
+def step_digests(params, state, specs, mesh, last: bool) -> dict:
+    """`rank_digests` of the parameters after a step, and of the
+    optimiser state too after a run's `last` step (hashing the float32
+    state every step costs ~3 s a step a rank)."""
+    if last:
+        return rank_digests({"params": params, "opt": state}, specs, mesh)
+    return rank_digests({"params": params}, {"params": specs["params"]},
+                        mesh)
+
+
+def rank_digests(tree, specs, mesh) -> dict:
+    """``{path: [the rank's coordinates on the axes its spec cuts by,
+    SHA-256 of the block]}``: ranks with equal coordinates hold the same
+    block, so their digests must be equal."""
+    import hashlib
+    from repro_torch.tree import tree_items
+    spec_of = dict(tree_items(specs))
+    out = {}
+    for path, t in tree_items(tree):
+        used = {a for d in spec_of[path]
+                for a in ((d,) if isinstance(d, str) else (d or ()))}
+        where = sorted((a, mesh.coords[a]) for a in used if a in mesh.shape)
+        data = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+        out["/".join(path)] = [where, hashlib.sha256(
+            data.numpy().tobytes()).hexdigest()]
+    return out
+
+
+def replica_mismatches(ranks: list, key) -> list:
+    """The blocks whose holders' digests differ, over `key(rank result)`
+    (a `rank_digests` dict)."""
+    held = {}
+    for r in ranks:
+        for path, (where, digest) in key(r).items():
+            held.setdefault((path, json.dumps(where)), set()).add(digest)
+    return sorted(k for k, v in held.items() if len(v) > 1)
+
+
+def train_rank_state(cfg, plan, seed: int, device, lr, gen_device=None):
+    """A rank's parameter blocks drawn from `seed` (`LM.init` cut a
+    superblock at a time), AdamW over them and its state, the step."""
+    from repro_torch.convert import rank_cut
+    from repro_torch.models import LM, steps
+    from repro_torch.optim import AdamW
+    gen = torch.Generator(device=gen_device or device).manual_seed(seed)
+    params = LM(cfg).init(gen, cut=rank_cut(plan, cfg, train=True))
+    params = {k: v for k, v in params.items()}
+    if gen_device is not None:
+        from repro_torch.tree import tree_map
+        params = tree_map(lambda t: t.to(device), params)
+    opt = AdamW(lr=lr)
+    state = steps.init_opt_state(cfg, opt, params, plan)
+    return params, opt, state, steps.make_train_step(
+        LM(cfg, flash=False), cfg, plan, opt)
+
+
+@contextlib.contextmanager
+def planted_train_fault(kind: str, mesh):
+    """A planted fault of the train step across ranks: ``"dp_skip"``,
+    rank 0 keeps its own gradients (their sums over the dp axes and
+    "model" skipped, the collectives still made); ``"wrong_home"``, every
+    superblock's gathered ``w_down`` rolled by one FSDP block (blocks
+    from the wrong home)."""
+    from repro_torch.models import blocks, steps
+    with contextlib.ExitStack() as stack:
+        if kind == "dp_skip":
+            real = steps.RankGrads.reduce
+
+            def reduce(self, grads):
+                out = real(self, grads)        # rank 0 still takes part
+                return list(grads) if mesh.rank == 0 else out
+            stack.enter_context(mock.patch.object(steps.RankGrads, "reduce",
+                                                  reduce))
+        elif kind == "wrong_home":
+            real = blocks.fsdp_gather
+
+            def gather(tree, plan, cfg):
+                out = real(tree, plan, cfg)
+                w = out["m0"]["mlp"]["w_down"]
+                k = plan.axis_size(plan.fsdp_axes)
+                out["m0"]["mlp"]["w_down"] = torch.roll(
+                    w, w.shape[1] // k, dims=1)
+                return out
+            stack.enter_context(mock.patch.object(blocks, "fsdp_gather",
+                                                  gather))
+        yield
+
+
+def timed_step(fn, params, state, batch, device, sched=None, accept=None):
+    """One train step on this rank: its host ms (between synchronises),
+    metrics, collective log against `sched` and peak memory."""
+    from repro_torch.core import collectives
+    from repro_torch.obs.schedule import log_against_train
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_collectives()
+    t0 = time.perf_counter()
+    params, state, m = fn(params, state, batch, accept=accept)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    log = collectives.collective_log()
+    return params, state, {
+        "ms": ms, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        "step": float(m["step"]),
+        "schedule": log_against_train(log, sched)[:3] if sched else None,
+        "collectives": len(log),
+        "wire": sum(r["wire_bytes"] for r in log),
+        "inter_pod": sum(r["inter_pod_bytes"] for r in log),
+        "staged": sum(r["staged_bytes"] for r in log),
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def progress(mesh, line: str) -> None:
+    """Rank 0's progress line, with the seconds since the rank started
+    (the ranks' results come back only at the end of the spawn)."""
+    if mesh.rank == 0:
+        say(f"train_ranks progress: {time.perf_counter() - T0_RANK:.1f} s: "
+            f"{line}")
+
+
+#: when this rank process started its phase work (`train_rank_child`)
+T0_RANK = 0.0
+
+
+def train_rank_qwen(mesh, seed: int, ckpt_dir: str) -> dict:
+    """(a): the planted fault on step 1, the straight `Trainer` run, the
+    resumed one (its step rank 0's under `torch.profiler`)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.schedule import train_schedule
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime import trainer as trainer_mod
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.sharding import partition
+    cfg = get_config(TRAIN_ARCH)
+    spec = TRAIN_RANK_QWEN
+    device = mesh.device
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = partition.make_plan(mesh, cfg, shape)
+    sched = train_schedule(cfg, plan, shape)
+    lr = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, mesh)
+    out = {"planted": {}}
+    for kind in TRAIN_RANK_PLANTED:
+        params, opt, state, fn = train_rank_state(cfg, plan, seed, device, lr)
+        with planted_train_fault(kind, mesh):
+            params, state, rec = timed_step(fn, params, state, data.batch(0),
+                                            device)
+        rec["digests"] = rank_digests(
+            {"params": params},
+            {"params": partition.param_specs(params, plan, cfg)}, mesh)
+        out["planted"][kind] = rec
+        progress(mesh, f"qwen planted {kind} {rec['ms']:.1f} ms")
+        del params, state, fn, opt
+        release()
+
+    def trainer(profiled: bool):
+        tr = Trainer(cfg, TrainerConfig(
+            steps=spec["steps"], global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            ckpt_dir=ckpt_dir, ckpt_every=spec["ckpt_at"], log_every=1,
+            seed=seed, warmup=TRAIN_WARMUP, lr=TRAIN_LR,
+            schedule_total=TRAIN_STEPS, device=device), plan, mesh)
+        inner, recs, saves = tr.step_fn, [], []
+
+        def step_fn(params, state, batch, accept=None):
+            if profiled and mesh.rank == 0:
+                got = {}
+
+                def one():
+                    got["r"] = timed_step(inner, params, state, batch,
+                                          device, sched, accept)
+                busy = device_busy_ms(one)
+                params, state, rec = got["r"]
+                rec["busy_ms"] = busy
+            else:
+                params, state, rec = timed_step(inner, params, state, batch,
+                                                device, sched, accept)
+            t0 = time.perf_counter()
+            rec["digests"] = step_digests(
+                params, state, tr.specs(params, state), mesh,
+                float(rec["step"]) == spec["steps"])
+            rec["digest_s"] = time.perf_counter() - t0
+            recs.append(rec)
+            progress(mesh, f"qwen step {rec['step']:.0f} {rec['ms']:.1f} ms "
+                           f"(digests {rec['digest_s']:.1f} s)")
+            return params, state, {k: torch.tensor(rec[k]) for k in
+                                   ("loss", "grad_norm", "step")}
+        tr.step_fn = step_fn
+        real_save = tr.ckpt.maybe_save
+
+        def maybe_save(step, *a, **kw):
+            # only the checkpoint the resume reads is written: the
+            # trainer's final saves take 12-16 s each on 8 ranks
+            if step != spec["ckpt_at"]:
+                return False
+            t0 = time.perf_counter()
+            saved = real_save(step, *a, **kw)
+            if saved:
+                saves.append(time.perf_counter() - t0)
+                progress(mesh, f"qwen save {saves[-1]:.1f} s")
+            return saved
+        tr.ckpt.maybe_save = maybe_save
+        return tr, recs, saves
+
+    tr, recs, saves = trainer(False)
+    t0 = time.perf_counter()
+    tr.run()
+    out["straight_s"] = time.perf_counter() - t0
+    out["straight"], out["save_s"] = recs, saves
+    saved = os.path.join(ckpt_dir, f"step_{spec['ckpt_at']:08d}")
+    out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(saved, f))
+                            for f in os.listdir(saved))
+    del tr
+    release()
+    dist.barrier()
+    tr, recs, saves = trainer(True)
+    reads = []
+    real_restore = ckpt_mod.restore
+
+    def restore(*a, **kw):
+        t0 = time.perf_counter()
+        r = real_restore(*a, **kw)
+        reads.append(time.perf_counter() - t0)
+        return r
+    with mock.patch.object(trainer_mod, "restore", restore):
+        tr.run()
+    out["resumed"], out["restore_s"] = recs, reads
+    if mesh.rank == 0:
+        out["busy_ms"] = recs[-1]["busy_ms"]
+    del tr
+    release()
+    return out
+
+
+def forward_loss(cfg, plan, params, batch) -> float:
+    """The train step's loss metric from its forward alone: the nll of
+    each microbatch (`steps._micro_split`, homed as the step homes them),
+    averaged over the homes as the step does.  Grad stays enabled, so the
+    model takes its training layout (FSDP gathers, the sequence split,
+    the MoE's training route); no backward runs and nothing is written."""
+    from repro_torch.core import collectives
+    from repro_torch.models import LM, steps
+    from repro_torch.sharding.partition import homes_of
+    loss_fn = steps.make_loss_fn(LM(cfg, flash=False), cfg, plan)
+    n = homes_of(plan)[0]
+    with torch.enable_grad():
+        nll = torch.stack([loss_fn(params, one)[1].detach() for one in
+                           steps._micro_split(
+                               batch, max(cfg.parallel.microbatches, 1),
+                               plan)])
+        if n > 1:
+            nll = collectives.psum(nll, plan.mesh, plan.batch_axes) / n
+    return float(nll.mean())
+
+
+def train_rank_granite(mesh, seed: int) -> dict:
+    """(b): the loss of step 1's batch under the planted wrong-home gather
+    (a forward only, nothing written), then the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.schedule import train_schedule
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.sharding import partition
+    g = TRAIN_RANK_GRANITE
+    cfg = get_config(g["arch"]).replace(num_layers=g["layers"])
+    device = mesh.device
+    shape = ShapeSpec("train", g["seq"], g["batch"], "train")
+    plan = partition.make_plan(mesh, cfg, shape)
+    sched = train_schedule(cfg, plan, shape)
+    lr = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    params, opt, state, fn = train_rank_state(cfg, plan, seed, device, lr)
+    data = SyntheticLM(cfg, g["batch"], g["seq"], seed, mesh)
+    out = {"steps": [], "param_bytes": sum(
+        t.numel() * t.element_size() for t in tree_leaves(params))}
+    specs = {"params": partition.param_specs(params, plan, cfg),
+             "opt": partition.full_opt_specs(state, params, plan, cfg)}
+    with planted_train_fault("wrong_home", mesh):
+        sync(device)
+        t0 = time.perf_counter()
+        loss = forward_loss(cfg, plan, params, data.batch(0))
+        out["planted"] = {"loss": loss,
+                          "ms": (time.perf_counter() - t0) * 1e3}
+    progress(mesh, f"granite planted wrong_home {out['planted']['ms']:.1f} "
+                   f"ms (forward)")
+    for i in range(g["steps"]):
+        params, state, rec = timed_step(fn, params, state, data.batch(i),
+                                        device, sched)
+        rec["digests"] = step_digests(params, state, specs, mesh, False)
+        out["steps"].append(rec)
+        progress(mesh, f"granite step {i + 1} {rec['ms']:.1f} ms")
+    del params, state, fn, opt
+    release()
+    return out
+
+
+def cpu_twin(mesh):
+    """`mesh` (its process groups) with its tensors on the CPU: gloo takes
+    both, and a second `RankMesh` would connect every subgroup again."""
+    twin = copy.copy(mesh)
+    twin.device = torch.device("cpu")
+    return twin
+
+
+def train_rank_f32(seed: int, meshes: dict) -> dict:
+    """(c): each arch of `TRAIN_RANK_F32` at `reduce_config` in float32
+    (its parallel knobs kept), 2 steps on the card and on the CPU from the
+    same draw, on `meshes` (by arch) and their CPU twins: losses, norms and
+    this rank's blocks of the parameters and of AdamW's m and v."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.sharding import partition
+    from repro_torch.tree import tree_items
+    out = {}
+    for arch, (shape, GB) in TRAIN_RANK_F32.items():
+        full = get_config(arch)
+        cfg = reduce_config(full).replace(parallel=full.parallel)
+        for mesh in (meshes[arch], cpu_twin(meshes[arch])):
+            need(mesh.shape == shape, f"train_ranks f32: {mesh!r}")
+            dev = mesh.device
+            sh = ShapeSpec("train", 32, GB, "train")
+            plan = partition.make_plan(mesh, cfg, sh)
+            params, _, state, fn = train_rank_state(
+                cfg, plan, seed, dev, cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                      TRAIN_STEPS),
+                gen_device="cpu")
+            data = SyntheticLM(cfg, GB, 32, seed, mesh)
+            if plan.fsdp_axes and dev.type != "cpu":
+                with planted_train_fault("wrong_home", mesh):
+                    _, _, m = fn(params, state, data.batch(0),
+                                 accept=lambda m: False)
+                out[arch, "planted"] = [float(m["loss"]),
+                                        float(m["grad_norm"])]
+            metrics = []
+            for i in range(2):
+                params, state, m = fn(params, state, data.batch(i))
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            adam = state["adam"]
+            out[arch, dev.type] = {
+                "metrics": metrics,
+                "params": {"/".join(p): t.detach().cpu().clone()
+                           for p, t in tree_items(params)},
+                "moments": {"/".join(p): t.detach().cpu().clone()
+                            for p, t in tree_items({"m": adam["m"],
+                                                    "v": adam["v"]})}}
+    return out
+
+
+def train_rank_child(device, seed: int, ckpt_dir: str) -> dict:
+    """One rank of the train_ranks phase (see the module docstring, 8g)."""
+    need("jax" not in sys.modules, "a rank process imported JAX")
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    global T0_RANK
+    T0_RANK = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    ops.reset_launches()
+    from repro_torch.core.mesh import RankMesh
+    out = {"rank": dist.get_rank()}
+    meshes = {TRAIN_ARCH: RankMesh(TRAIN_RANK_QWEN["mesh"], device=device),
+              TRAIN_RANK_GRANITE["arch"]: RankMesh(TRAIN_RANK_GRANITE["mesh"],
+                                                   device=device)}
+    out["qwen"] = train_rank_qwen(meshes[TRAIN_ARCH], seed, ckpt_dir)
+    out["granite"] = train_rank_granite(meshes[TRAIN_RANK_GRANITE["arch"]],
+                                        seed)
+    out["f32"] = train_rank_f32(seed, meshes)
+    if out["rank"] == 0:
+        say("train_ranks progress: float32 done")
+    out["flash_launches"] = ops.launch_counts()["flash_attention"]
+    out["jax_free"] = "jax" not in sys.modules
+    return out
+
+
+def train_ranks_one(seed: int) -> dict:
+    """(b)'s yardstick in its own process (`--train-ranks-child`): the
+    same 2-layer granite-20b in one process on the same rows, step 1's
+    loss and gradient norm (nothing written)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM, steps
+    from repro_torch.optim import AdamW, cosine_schedule
+    g = TRAIN_RANK_GRANITE
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(g["arch"]).replace(num_layers=g["layers"])
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    fn = steps.make_train_step(LM(cfg, flash=False), cfg, steps.NULL_PLAN,
+                               opt)
+    batch = SyntheticLM(cfg, g["batch"], g["seq"], seed,
+                        device="cuda").batch(0)
+    state = {"adam": {"step": torch.zeros((), dtype=torch.int32,
+                                          device="cuda")}}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, m = fn(params, state, batch, accept=lambda m: False)
+    torch.cuda.synchronize()
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "s": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def held_f32(got: torch.Tensor, want: torch.Tensor, far: float) -> int:
+    """Elements of `got` outside `TRAIN_RANK_F32_TOL` of `want` (absolute
+    and relative); each must lie within `far` and they may be at most
+    0.1 %.  A parameter's `far` is the learning rate a step: AdamW's step
+    ``m / (sqrt(v) + eps)`` turns on the rounding where a gradient element
+    is near zero, though its m and v agree (they are held with `far` 0,
+    no element outside)."""
+    d = (got - want).abs()
+    off = d > TRAIN_RANK_F32_TOL * (1 + want.abs())
+    need(off.float().mean() <= 1e-3 and (d[off] <= far).all(),
+         f"train_ranks f32: {int(off.sum())} of {off.numel()} elements "
+         f"outside {TRAIN_RANK_F32_TOL}, largest {float(d.max())}")
+    return int(off.sum())
+
+
+def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
+    """Training across ranks (see the module docstring, 8g).  `train`
+    holds the train phase's one-process run, whose rows (a) trains."""
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    release()
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_ranks_")
+    path, ckpt_dir = os.path.join(tmp, "one.json"), os.path.join(tmp, "ck")
+    # (b)'s yardstick runs beside the ranks (18.5 GB beside their ~48 GB)
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              "--train-ranks-child", path, "--seed",
+                              str(seed)], env=env)
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(train_rank_child, TRAIN_RANKS, "gloo", "cuda", seed,
+                      ckpt_dir, timeout_s=TRAIN_RANK_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        rc = child.wait(timeout=TRAIN_TIMEOUT_S)
+        need(rc == 0, f"train_ranks: the one-process granite child exited "
+                      f"{rc}")
+        with open(path) as f:
+            one = json.load(f)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if old is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+    one_s = one["s"]
+    need(all(r["jax_free"] for r in ranks), "train_ranks: a rank imported "
+                                            "JAX")
+    out = {"one_s": one_s, "spawn_s": spawn_s, "one": one,
+           "flash_launches": [r["flash_launches"] for r in ranks]}
+    need(not any(out["flash_launches"]), f"train_ranks: flash_attention "
+         f"launched in training: {out['flash_launches']}")
+
+    def per_rank(recs, key):
+        return [r[key] for r in recs]
+
+    # ---- (a) qwen3-0.6b ----
+    a = {}
+    straight = {rec["step"]: rec for rec in train["straight"]}
+    qs = [r["qwen"] for r in ranks]
+    for run in ("straight", "resumed"):
+        for i in range(len(qs[0][run])):
+            recs = [q[run][i] for q in qs]
+            for rec in recs:
+                need(rec["schedule"] == [], f"train_ranks qwen {run} step "
+                     f"{i}: rank collectives differ from train_schedule: "
+                     f"{rec['schedule']}")
+            need(len({(rec["loss"], rec["grad_norm"]) for rec in recs}) == 1,
+                 f"train_ranks qwen {run}: the ranks' metrics differ")
+        bad = replica_mismatches(qs, lambda q: q[run][-1]["digests"])
+        need(not bad, f"train_ranks qwen {run}: replicas differ {bad[:3]}")
+        for i in range(len(qs[0][run])):
+            bad = replica_mismatches(qs, lambda q: q[run][i]["digests"])
+            need(not bad, f"train_ranks qwen {run} step {i + 1}: replicas "
+                          f"differ {bad[:3]}")
+    losses = [rec["loss"] for rec in qs[0]["straight"]]
+    a["losses"] = losses
+    a["loss_rel"] = [rel(l, straight[s + 1]["loss"])
+                     for s, l in enumerate(losses)]
+    a["norm_rel"] = rel(qs[0]["straight"][0]["grad_norm"],
+                        straight[1]["grad_norm"])
+    need(max(a["loss_rel"]) <= TRAIN_RANK_LOSS_RTOL,
+         f"train_ranks qwen: losses {losses} against the one-process "
+         f"{[straight[s + 1]['loss'] for s in range(len(losses))]}: "
+         f"{a['loss_rel']}")
+    need(a["norm_rel"] <= TRAIN_RANK_NORM_RTOL,
+         f"train_ranks qwen: step 1's norm {a['norm_rel']} apart")
+    at = TRAIN_RANK_QWEN["ckpt_at"]
+    resumed = [(rec["loss"], rec["grad_norm"]) for rec in qs[0]["resumed"]]
+    need(resumed == [(rec["loss"], rec["grad_norm"])
+                     for rec in qs[0]["straight"][at:]],
+         f"train_ranks qwen: the resumed run's steps {resumed} differ")
+    for q in qs:
+        need(q["resumed"][-1]["digests"] == q["straight"][-1]["digests"],
+             f"train_ranks qwen: rank {ranks[qs.index(q)]['rank']}'s "
+             f"resumed parameters differ from the straight run's")
+    a["planted"] = {}
+    for kind, rec in qs[0]["planted"].items():
+        caught = bool(replica_mismatches(
+            qs, lambda q: q["planted"][kind]["digests"]))
+        a["planted"][kind] = dict(
+            norm_rel=rel(rec["grad_norm"], straight[1]["grad_norm"]),
+            loss_rel=rel(rec["loss"], straight[1]["loss"]),
+            digests_caught=caught)
+        need(caught, f"train_ranks qwen: the planted {kind} fault passes "
+                     f"the replica digests")
+    need(a["planted"]["dp_skip"]["norm_rel"] > TRAIN_RANK_NORM_RTOL,
+         f"train_ranks qwen: the planted dp_skip fault passes the norm "
+         f"bound: {a['planted']['dp_skip']}")
+    a["step_ms"] = [max(q["straight"][i]["ms"] for q in qs)
+                    for i in range(len(qs[0]["straight"]))]
+    a["step_ms_median"] = statistics.median(a["step_ms"][1:])
+    a["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (a["step_ms_median"] / 1e3)
+    a["busy_ms"] = qs[0]["busy_ms"]
+    last = [q["straight"][-1] for q in qs]
+    for key in ("collectives", "wire", "inter_pod", "staged", "peak_bytes"):
+        a[key] = per_rank(last, key)
+    a["ckpt_bytes"] = qs[0]["ckpt_bytes"]
+    a["save_s"], a["restore_s"] = qs[0]["save_s"], qs[0]["restore_s"]
+    out["qwen"] = a
+
+    # ---- (b) granite-20b, 2 layers ----
+    g = TRAIN_RANK_GRANITE
+    b = {}
+    gs = [r["granite"] for r in ranks]
+    for i in range(g["steps"]):
+        for rec in (x["steps"][i] for x in gs):
+            need(rec["schedule"] == [], f"train_ranks granite step {i + 1}: "
+                 f"rank collectives differ from train_schedule: "
+                 f"{rec['schedule']}")
+        bad = replica_mismatches(gs, lambda x: x["steps"][i]["digests"])
+        need(not bad, f"train_ranks granite step {i + 1}: replicas differ "
+                      f"{bad[:3]}")
+    first = gs[0]["steps"][0]
+    b["loss_rel"] = rel(first["loss"], one["loss"])
+    b["norm_rel"] = rel(first["grad_norm"], one["grad_norm"])
+    need(b["loss_rel"] <= TRAIN_RANK_LOSS_RTOL
+         and b["norm_rel"] <= TRAIN_RANK_NORM_RTOL,
+         f"train_ranks granite: step 1 {first['loss']}, {first['grad_norm']}"
+         f" against one process's {one['loss']}, {one['grad_norm']}")
+    planted = [x["planted"]["loss"] for x in gs]
+    need(len(set(planted)) == 1, f"train_ranks granite: the ranks' planted "
+                                 f"losses differ: {planted}")
+    b["planted"] = {"wrong_home": dict(
+        loss_rel=rel(planted[0], one["loss"]),
+        forward_ms=max(x["planted"]["ms"] for x in gs))}
+    p = b["planted"]["wrong_home"]
+    need(p["loss_rel"] > TRAIN_RANK_LOSS_RTOL,
+         f"train_ranks granite: the planted wrong-home gather passes the "
+         f"loss bound: {p}")
+    b["losses"] = [x["loss"] for x in gs[0]["steps"]]
+    b["step_ms"] = [max(x["steps"][i]["ms"] for x in gs)
+                    for i in range(g["steps"])]
+    b["step_ms_median"] = statistics.median(b["step_ms"][1:]
+                                            or b["step_ms"])
+    b["tokens_per_s"] = g["batch"] * g["seq"] / (b["step_ms_median"] / 1e3)
+    last = [x["steps"][-1] for x in gs]
+    for key in ("collectives", "wire", "inter_pod", "staged", "peak_bytes"):
+        b[key] = per_rank(last, key)
+    b["param_bytes"] = per_rank(gs, "param_bytes")
+    out["granite"] = b
+
+    # ---- (c) float32, card ranks against CPU ranks ----
+    c = {}
+    for arch in TRAIN_RANK_F32:
+        errs, moment_errs, outliers = [], [], 0
+        for r in ranks:
+            card, cpu = r["f32"][arch, "cuda"], r["f32"][arch, "cpu"]
+            for (lc, nc), (lp, np_) in zip(card["metrics"], cpu["metrics"]):
+                need(abs(lc - lp) <= TRAIN_RANK_F32_TOL * (1 + abs(lp)),
+                     f"train_ranks f32 {arch}: losses {lc} and {lp}")
+                need(abs(nc - np_) <= TRAIN_RANK_F32_TOL * (1 + abs(np_)),
+                     f"train_ranks f32 {arch}: norms {nc} and {np_}")
+            for k, t in card["params"].items():
+                outliers += held_f32(t, cpu["params"][k], 2 * TRAIN_LR * 2)
+                errs.append(float((t - cpu["params"][k]).abs().max()))
+            for k, t in card["moments"].items():
+                held_f32(t, cpu["moments"][k], 0.0)
+                moment_errs.append(float((t - cpu["moments"][k]).abs().max()))
+        planted = ranks[0]["f32"].get((arch, "planted"))
+        if planted is not None:
+            step1 = ranks[0]["f32"][arch, "cuda"]["metrics"][0]
+            moved = max(rel(planted[0], step1[0]), rel(planted[1], step1[1]))
+            need(moved > TRAIN_RANK_F32_TOL, f"train_ranks f32 {arch}: the "
+                 f"planted wrong-home gather moves step 1 by {moved}")
+            planted = moved
+        pairs = [(x, y) for r in ranks for x, y in zip(
+            r["f32"][arch, "cuda"]["metrics"],
+            r["f32"][arch, "cpu"]["metrics"])]
+        c[arch] = dict(planted_rel=planted, max_abs_err=max(errs),
+                       outliers=outliers, moment_err=max(moment_errs),
+                       loss_err=max(abs(x[0] - y[0]) for x, y in pairs),
+                       norm_err=max(abs(x[1] - y[1]) for x, y in pairs))
+    out["f32"] = c
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase train_ranks qwen ({smi}): {TRAIN_ARCH} bf16 at full width "
+        f"and depth on {TRAIN_RANK_QWEN['mesh']} ({TRAIN_RANKS} gloo ranks "
+        f"sharing the card), batch {TRAIN_BATCH} x {TRAIN_SEQ}: step ms by "
+        f"the slowest rank's host clock {[round(x, 1) for x in a['step_ms']]}"
+        f", median of steps 2- {a['step_ms_median']:.1f} ms, "
+        f"{a['tokens_per_s']:.0f} tokens/s; rank 0 busy "
+        f"{a['busy_ms']:.1f} ms a step (torch.profiler); losses "
+        f"{[round(x, 5) for x in losses]} against one process's "
+        f"{[round(straight[s + 1]['loss'], 5) for s in range(len(losses))]}"
+        f" (relative "
+        f"{[f'{x:.3g}' for x in a['loss_rel']]} <= {TRAIN_RANK_LOSS_RTOL}), "
+        f"step 1's norm {a['norm_rel']:.3g} apart (<= "
+        f"{TRAIN_RANK_NORM_RTOL}); resumed from step {at}: bit-identical; "
+        f"every "
+        f"rank's log == train_schedule, replicas equal by SHA-256 after "
+        f"every step; planted " + json.dumps(a["planted"]))
+    say(f"phase train_ranks qwen bytes ({smi}): by rank, a step's "
+        f"collectives {a['collectives']}, wire {a['wire']}, inter-pod "
+        f"{a['inter_pod']}, staged {a['staged']}, peak {a['peak_bytes']}; "
+        f"checkpoint {a['ckpt_bytes']} B, saves s "
+        f"{[round(x, 2) for x in a['save_s']]}, restore s "
+        f"{[round(x, 2) for x in a['restore_s']]}")
+    say(f"phase train_ranks granite ({smi}): granite-20b bf16 at full "
+        f"width, {g['layers']} of 52 layers, on {g['mesh']} (FSDP over "
+        f"pod and data), batch {g['batch']} x {g['seq']}, 4 microbatches: "
+        f"step ms {[round(x, 1) for x in b['step_ms']]}, "
+        f"{b['tokens_per_s']:.0f} tokens/s; step 1 loss "
+        f"{b['losses'][0]:.5f} against one process's {one['loss']:.5f} "
+        f"({b['loss_rel']:.3g}), norm {b['norm_rel']:.3g} apart; planted "
+        + json.dumps(b["planted"]) + "; collectives "
+        f"{b['collectives']}, wire {b['wire']}, inter-pod {b['inter_pod']},"
+        f" staged {b['staged']}, peak {b['peak_bytes']}, parameter bytes "
+        f"{b['param_bytes']}; one process {one['peak_bytes']} B peak, "
+        f"{one['s']:.1f} s")
+    say("phase train_ranks float32 (reduce_config, card ranks against CPU "
+        "ranks, 2 steps): " + json.dumps(c) + f"; flash_attention launches "
+        f"by rank {out['flash_launches']}; phase {out['seconds']:.1f} s")
     return out
 
 
@@ -4506,6 +5240,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--train-child", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--train-ranks-child", metavar="PATH",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     need(torch.cuda.is_available(), "no CUDA device: the port's kernels "
@@ -4516,6 +5252,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.train_child:                 # the train phase's child process
         Path(args.train_child).write_text(json.dumps(train_child(args.seed)))
+        return 0
+    if args.train_ranks_child:           # the train_ranks phase's yardstick
+        Path(args.train_ranks_child).write_text(json.dumps(
+            train_ranks_one(args.seed)))
         return 0
     from repro_torch.core import LocalisationPolicy
     from repro_torch.kernels import _build, ops
@@ -4550,10 +5290,16 @@ def main(argv=None) -> int:
     fig1 = phase_fig1(args.seed)
     attention = phase_attention(args.seed)
     serve = phase_serve(args.seed)
-    serve_ranks = phase_serve_ranks(args.seed, smi, {"picks": serve.pop(
-        "picks")})
+    serve_ranks = phase_serve_ranks(args.seed, smi)
     stack = phase_stack(args.seed, smi)
-    train = phase_train(args.seed, smi)
+    # the dtypes check's CPU sorts run beside the train phase, whose child
+    # keeps the card busy while the host mostly waits on it; they end
+    # before train_ranks' 8 ranks take the host
+    with concurrent.futures.ThreadPoolExecutor(1) as beside:
+        cpu_sorts = beside.submit(cpu_reference, args.seed)
+        train = phase_train(args.seed, smi)
+        cpu_sorts = cpu_sorts.result()
+    train_ranks = phase_train_ranks(args.seed, smi, train)
     dtypes = phase_dtypes(args.seed)
     full_width = {
         "flagship": flat.pop("recorded") + hier.pop("recorded")
@@ -4563,8 +5309,7 @@ def main(argv=None) -> int:
                       "serve": serve.pop("recorded"),
                       "stack": stack.pop("recorded")}}
     analysis = phase_analysis(args.seed, full_width)
-    # last: the CPU sorts would load the host under the timed phases
-    check_dtypes_on_cpu(dtypes, args.seed)
+    check_dtypes_on_cpu(dtypes, cpu_sorts)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4618,7 +5363,7 @@ def main(argv=None) -> int:
              "engine": engine, "flat": flat, "hier": hier, "ranks": ranks,
              "constraint": constraint, "fig1": fig1, "attention": attention,
              "serve": serve, "serve_ranks": serve_ranks, "stack": stack,
-             "train": train,
+             "train": train, "train_ranks": train_ranks,
              "dtypes": dtypes,
              "analysis": analysis},
             indent=1))

@@ -7,8 +7,9 @@ has to import the other; the tests hand the reference's numpy outputs in.
 and `make_serve_stream` make the inputs that the tests and
 ``chip_smoke.py`` feed to both sides; `lm_params_from_reference` carries a
 reference `LM`'s parameters over, `opt_state_from_reference` its
-trainer's optimiser state, and `rank_params` cuts either package's whole
-parameters down to one rank's blocks for serving across ranks.
+trainer's optimiser state, and `rank_params` / `rank_opt_state` cut either
+package's whole parameters and optimiser state down to one rank's blocks
+for serving or training across ranks.
 """
 from __future__ import annotations
 
@@ -230,25 +231,42 @@ def make_serve_stream(n: int, vocab: int, prompt_len, *, sessions: int,
     return out
 
 
-def rank_cut(plan, cfg):
+def rank_cut(plan, cfg, train: bool = False):
     """The function that cuts a parameter tree -- the whole one, or an
     unstacked part such as one superblock -- to `plan`'s rank's blocks:
     `sharding.partition.param_specs` of the serving plan (`serving_plan`:
-    no FSDP over the data axes) cut by `shard_for_rank`.  The identity
-    off ranks (no `RankMesh`).  ``LM(cfg).init(gen, cut=rank_cut(plan,
-    cfg))`` draws a rank's blocks a superblock at a time, so that a rank
-    holds at most one superblock beyond its own blocks."""
+    no FSDP over the data axes) or, with `train`, of the plan itself
+    (FSDP's cut too), cut by `shard_for_rank`.  The identity off ranks
+    (no `RankMesh`).  ``LM(cfg).init(gen, cut=rank_cut(plan, cfg))``
+    draws a rank's blocks a superblock at a time, so that a rank holds at
+    most one superblock beyond its own blocks."""
     from repro_torch.sharding.partition import (param_specs, serving_plan,
                                                 shard_for_rank)
     if not isinstance(plan.mesh, RankMesh):
         return lambda tree: tree
-    plan = serving_plan(plan)
+    if not train:
+        plan = serving_plan(plan)
     return lambda tree: shard_for_rank(tree, param_specs(tree, plan, cfg),
                                        plan.mesh)
 
 
-def rank_params(params, plan, cfg):
+def rank_params(params, plan, cfg, train: bool = False):
     """The blocks of the whole parameters `params` (the port's, or the
     reference's through `lm_params_from_reference`) that `plan`'s rank
-    serves with (`rank_cut`); off ranks the parameters themselves."""
-    return rank_cut(plan, cfg)(params)
+    serves (or, with `train`, trains) with (`rank_cut`); off ranks the
+    parameters themselves."""
+    return rank_cut(plan, cfg, train)(params)
+
+
+def rank_opt_state(opt_state, params, plan, cfg):
+    """The blocks of a whole optimiser state (`models.steps.
+    init_opt_state`'s structure, the port's or the reference's through
+    `opt_state_from_reference`) that `plan`'s rank trains with: each leaf
+    cut under `sharding.partition.full_opt_specs` (ZeRO-1's cut of ``m``
+    and ``v`` included); `params` are the whole parameters, whose shapes
+    the specs read.  Off ranks the state itself."""
+    from repro_torch.sharding.partition import full_opt_specs, shard_for_rank
+    if not isinstance(plan.mesh, RankMesh):
+        return opt_state
+    return shard_for_rank(opt_state, full_opt_specs(opt_state, params, plan,
+                                                    cfg), plan.mesh)

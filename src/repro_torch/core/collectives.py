@@ -19,7 +19,17 @@ ones over the mesh's axis subgroups:
   ``psum(x, mesh, axes)``             ``jax.lax.psum``: an all-gather of
                                       the summands, summed in home
                                       order (the same bits on every
-                                      rank).
+                                      rank);
+  ``reduce_scatter(x, mesh, axes)``   ``jax.lax.psum_scatter`` over dim
+                                      0: one all-to-all of dim-0 blocks,
+                                      each home's block summed in home
+                                      order (``psum(x)`` sliced, bit for
+                                      bit).
+
+Training differentiates through them (`Enter`, `Exit`, `Gather`,
+`Scatter`, below): each is a ``torch.autograd.Function`` whose backward is
+itself a counted collective, Megatron's f/g pair and the sequence and
+FSDP gathers.
 
 Every call appends one record to this process's log (`collective_log`,
 `reset_collectives`), the counterpart of the HLO collective list that the
@@ -250,6 +260,125 @@ def psum(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     return total.to(x.dtype)
 
 
+def reduce_scatter(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
+    """The sum of every home's `x` over `axes`, of which each home keeps
+    its block of dim 0 (``jax.lax.psum_scatter(..., tiled=True)``, HLO
+    ``"reduce-scatter"``): one all-to-all of the ``g`` dim-0 blocks, then
+    the g blocks received summed in the homes' linear order (floats in
+    float32, cast back to `x`'s dtype), so a block has the bits of
+    ``psum(x)``'s same block.  This rank sends each other home its block:
+    ``(g - 1) / g * x.nbytes`` wire bytes, where `psum` sends ``(g - 1) *
+    x.nbytes``."""
+    axes = axis_tuple(axes)
+    group, ranks = mesh.group(axes)
+    g = len(ranks)
+    if x.shape[0] % g:
+        raise ValueError(f"reduce_scatter over {axes!r} takes dim 0 in {g} "
+                         f"blocks, got shape {tuple(x.shape)}")
+    if g == 1:
+        _record("reduce-scatter", mesh, axes, mesh.partition(axes), {}, 0)
+        return x.clone()
+    send = _bytes(x)
+    recv, staged = _transport(
+        lambda r, s: dist.all_to_all_single(r, s, group=group), send,
+        send.numel(), dist.get_backend(group))
+    block = send.numel() // g
+    _record("reduce-scatter", mesh, axes, mesh.partition(axes),
+            {r: block for r in ranks if r != mesh.rank}, staged)
+    parts = _view(recv, x).view(g, x.shape[0] // g, *x.shape[1:])
+    if not x.is_floating_point():
+        return parts.sum(dim=0).to(x.dtype)
+    total = parts[0].float()
+    for i in range(1, g):
+        total = total + parts[i].float()
+    return total.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the counted collectives under autograd
+# ---------------------------------------------------------------------------
+def _lead(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x` with `dim` moved to the front, contiguous."""
+    return x.movedim(dim, 0).contiguous() if dim else x.contiguous()
+
+
+def gather_dim(x: torch.Tensor, mesh, axes: Axis, dim: int) -> torch.Tensor:
+    """`all_gather` of every home's `x` over `axes`, concatenated along
+    `dim` in the homes' linear order (no autograd)."""
+    parts = all_gather(_lead(x, dim), mesh, axes)
+    whole = parts.reshape(-1, *parts.shape[2:])
+    return whole.movedim(0, dim) if dim else whole
+
+
+def scatter_dim(x: torch.Tensor, mesh, axes: Axis, dim: int) -> torch.Tensor:
+    """`reduce_scatter` of `x` over `axes` along `dim` (no autograd)."""
+    part = reduce_scatter(_lead(x, dim), mesh, axes)
+    return part.movedim(0, dim) if dim else part
+
+
+class Enter(torch.autograd.Function):
+    """Megatron's f: the identity forward, a `psum` of the gradient
+    backward -- where a value every rank of `axes` holds whole enters a
+    region whose ranks each compute a part (their heads, columns or
+    experts), so each rank's gradient of it is a part of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class Exit(torch.autograd.Function):
+    """Megatron's g: a `psum` forward (a row-parallel product's partial
+    sums), the identity backward (the gradient of a value every rank
+    holds whole is already whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x.contiguous(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class Gather(torch.autograd.Function):
+    """`all_gather` along `dim` forward; `reduce_scatter` along `dim`
+    backward: the gathered value feeds each rank's part of a computation,
+    so each rank's gradient of it is a partial sum, and the sum of the
+    parts, cut to this rank's block, is its block's gradient.  The
+    sequence gather of the sequence-sharded residual and the FSDP gather
+    of a parameter."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_dim(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class Scatter(torch.autograd.Function):
+    """`reduce_scatter` along `dim` forward (partial sums, each rank
+    keeping its block: the row-parallel output onto the sequence-sharded
+    residual); `all_gather` along `dim` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return scatter_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
 def log_against_schedule(log: Sequence[Dict], schedule: Sequence[Dict],
                          m: int) -> List[str]:
     """Where a rank's collective log differs from `exchange_schedule`'s
@@ -315,5 +444,7 @@ def census(log: Sequence[Dict]) -> Dict[str, Dict]:
 
 
 __all__ = ["all_to_all", "all_to_all_v", "ppermute", "all_gather", "psum",
+           "reduce_scatter", "gather_dim", "scatter_dim", "Enter", "Exit",
+           "Gather", "Scatter",
            "collective_log", "reset_collectives", "staged_bytes",
            "log_against_schedule", "log_against_moves", "census"]

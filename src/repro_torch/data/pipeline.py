@@ -11,6 +11,11 @@ under ``striped=True`` (the default) each home's callback materialises
 only the rows it owns.  ``striped=False`` builds every full array on the
 host and then places it: the bit-exact oracle.
 
+On a `RankMesh` (training across ranks) each rank builds only its home's
+rows -- `Locale.make` over the data-parallel axes, as the reference's
+`locale` homes them -- so the ranks of one home (every "model" rank of
+it) build equal rows.
+
 Determinism: batch content is a pure function of (seed, step, row), so a
 restart replays exactly the same batches, which checkpoint resume relies
 on.  Batches land on the card unless ``device="cpu"`` (or a mesh on the
@@ -26,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.api import Locale
-from repro_torch.core.mesh import HomeMesh, entry_device
+from repro_torch.core.mesh import entry_device
 
 
 def _row_tokens(seed: int, step: int, row: int, seq_len: int,
@@ -63,7 +68,7 @@ class SyntheticLM:
     global_batch: int
     seq_len: int
     seed: int = 0
-    mesh: Optional[HomeMesh] = None
+    mesh: Optional[object] = None   # a HomeMesh or a RankMesh
     striped: bool = True    # per-home generation; False = host-build oracle
     device: Optional[str] = None   # without a mesh: default "cuda"
 

@@ -357,10 +357,10 @@ def probe(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype,
     """One launch on normal inputs (finite outputs) into an output filled
     with `analysis.probe.poisoned`; returns the output."""
     from repro_torch.analysis.probe import poisoned
-    gen = torch.Generator().manual_seed(B * H * Sq + Skv)
+    gen = torch.Generator(device=device).manual_seed(B * H * Sq + Skv)
     dt = getattr(torch, dtype)
-    q = torch.randn(B, H, Sq, hd, generator=gen).to(dt).to(device)
-    k, v = (torch.randn(B, KV, Skv, hd, generator=gen).to(dt).to(device)
+    q = torch.randn(B, H, Sq, hd, generator=gen, device=device).to(dt)
+    k, v = (torch.randn(B, KV, Skv, hd, generator=gen, device=device).to(dt)
             for _ in range(2))
     out = poisoned((B, H, Sq, hd), dt, device)
     _launch(q, k, v, out, causal, window, block_q, block_k, scale=scale)

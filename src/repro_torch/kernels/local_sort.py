@@ -361,11 +361,11 @@ def probe(rows: int, C: int, dtype: str,
     scratch and the co-ranks filled with `analysis.probe.poisoned`, which
     no such key and no co-rank can write; returns the buffers."""
     from repro_torch.analysis.probe import PROBE_KEY_TOP, poisoned
-    gen = torch.Generator().manual_seed(rows * 7919 + C)
+    gen = torch.Generator(device=device).manual_seed(rows * 7919 + C)
     dt = getattr(torch, dtype)
     top = PROBE_KEY_TOP[torch.empty((), dtype=dt).element_size()]
-    x = torch.randint(0, top, (rows, C), generator=gen, dtype=torch.int32)
-    x = x.to(dt).to(device)
+    x = torch.randint(0, top, (rows, C), generator=gen, dtype=torch.int32,
+                      device=device).to(dt)
     bufs = {name: poisoned(shape, torch.int32, device)
             for name, shape in scratch_shapes(rows, C, dtype).items()}
     out = poisoned((rows, C), x.dtype, device)

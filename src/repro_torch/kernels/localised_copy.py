@@ -149,9 +149,9 @@ def probe(n: int, reps: int, dtype: str, vec: bool,
     filled with `analysis.probe.poisoned`; without `vec` the input starts
     one element into its buffer, so it is not 16-byte aligned."""
     from repro_torch.analysis.probe import poisoned
-    gen = torch.Generator().manual_seed(n + reps)
+    gen = torch.Generator(device=device).manual_seed(n + reps)
     dt = getattr(torch, dtype)
-    buf = torch.rand(n + 1, generator=gen).to(dt).to(device)
+    buf = torch.rand(n + 1, generator=gen, device=device).to(dt)
     x = buf[:n] if vec else buf[1:]
     out = poisoned((n,), dt, device)
     if (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0) != vec:

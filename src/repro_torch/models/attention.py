@@ -24,7 +24,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import needs_grad
 from repro_torch.models.common import ninit, out_scale, pdt, rmsnorm, rope
-from repro_torch.sharding.partition import psum_model, tp_of
+from repro_torch.sharding.partition import (enter_region, exit_region,
+                                            tp_of)
 
 NEG_INF = -1e30
 
@@ -343,13 +344,17 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
     read: its ``wq``/``wo`` blocks, its ``wk``/``wv`` (and cache) block
     where the KV heads are split too, else the KV heads' contiguous
     range of the whole ones; ``wo``'s partial products are summed by one
-    `psum`.
+    `psum`.  Training with the residual sequence-sharded (`partition.
+    seq_split`) gathers `x`'s sequence first and reduce-scatters ``wo``'s
+    partial products back onto the rank's rows (`enter_region`,
+    `exit_region`); `positions` are the whole sequence's.
     """
-    B, Sq, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     W = 0 if cross else cfg.sliding_window
     H, KV, kv_sel, split = rank_heads(cfg, plan)
     Gq = H // KV
+    x = enter_region(x, plan, split)
+    B, Sq, D = x.shape
 
     q = _project(x, p["wq"])
     if "q_norm" in p:
@@ -411,7 +416,6 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
             new_cache = _build_cache(k, v, positions, window=W,
                                      cache_len=cache_len)
 
-    y = psum_model(out.reshape(B, Sq, H * hd)
-                   @ p["wo"].to(x.dtype).reshape(H * hd, D),
-                   plan if split else None)
+    y = exit_region(out.reshape(B, Sq, H * hd)
+                    @ p["wo"].to(x.dtype).reshape(H * hd, D), plan, split)
     return y, new_cache

@@ -10,15 +10,21 @@ same way: (superblocks, B, ...), and decode writes them in place.
 Training rematerialises each superblock when ``cfg.parallel.remat``
 (`apply_stack`), as the reference checkpoints its scan body.
 
-Every function takes the serving ``plan`` and hands it to the members
+Every function takes the ``plan`` and hands it to the members
 (`attention.apply_attention`, `common.apply_mlp`, `moe.apply_moe`).
-Across ranks the reference's only constraint here, the residual stream
-sequence-sharded over "model" (``seq_axis``, `repro/models/blocks.py:131`),
-moves no value: every rank of a home holds its whole residual, and that
-layout is left to training across ranks.  Mamba2 and cross-attention
-members are not split over "model" yet and raise with "model" > 1
-(`partition.no_split`); with "model" = 1 every member serves
-data-parallel, each home running the whole model on its own rows.
+Serving keeps every rank of a home's residual whole (its decode plan has
+no ``seq_axis``).  Training across ranks carries the reference's
+constraint here (`repro/models/blocks.py:131`): the residual stream
+between superblocks sequence-sharded over "model" (``seq_axis``), each
+member gathering the sequence and scattering its output back; and under
+FSDP each superblock's leaves are all-gathered over ``fsdp_axes`` inside
+the rematerialised function (`apply_stack`), so the gathered weights live
+for the superblock's forward only and are gathered again in the
+recompute, as under the reference's ``jax.checkpoint`` of its scan body.
+Mamba2 and cross-attention members are not split over "model" yet and
+raise with "model" > 1 (`partition.no_split`); with "model" = 1 every
+member runs data-parallel, each home running the whole model on its own
+rows.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from dataclasses import dataclass
 from typing import List
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (_rowwise_positions, apply_attention,
@@ -34,7 +40,7 @@ from repro_torch.models.attention import (_rowwise_positions, apply_attention,
 from repro_torch.models.common import apply_mlp, init_mlp, rmsnorm
 from repro_torch.models.mamba2 import apply_mamba, decode_mamba, init_mamba
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.sharding.partition import homes_of, no_split
+from repro_torch.sharding.partition import fsdp_gather, homes_of, no_split
 from repro_torch.tree import tree_map
 
 
@@ -134,7 +140,8 @@ def _check_split(spec: MemberSpec, plan) -> None:
 
 
 def _apply_member(p, spec: MemberSpec, x, *, cfg, positions, img_embeds,
-                  build_cache: bool, cache_len, flash: bool, plan=None):
+                  build_cache: bool, cache_len, flash: bool, plan=None,
+                  train: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     _check_split(spec, plan)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -151,7 +158,7 @@ def _apply_member(p, spec: MemberSpec, x, *, cfg, positions, img_embeds,
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
-            f, aux = apply_moe(p["moe"], h, cfg, plan)
+            f, aux = apply_moe(p["moe"], h, cfg, plan, train=train)
         else:
             f = apply_mlp(p["mlp"], h, cfg, plan)
         x = x + f
@@ -179,27 +186,34 @@ def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
     With ``cfg.parallel.remat`` and grad enabled (training), each
     superblock runs under `torch.utils.checkpoint`: only its input is kept
     for the backward pass, which runs the superblock's forward again --
-    the reference's ``jax.checkpoint`` of the scan body."""
+    the reference's ``jax.checkpoint`` of the scan body -- all of it,
+    collectives included (no early stop), so the recompute's collectives
+    are the forward's.  Training across ranks: `x` is the rank's rows of
+    the sequence under `partition.seq_split` (`positions` the whole
+    sequence's), and each superblock's FSDP-cut leaves are gathered
+    inside that function (`partition.fsdp_gather`)."""
     members = superblock_spec(cfg)
-    remat = (cfg.parallel.remat and torch.is_grad_enabled()
-             and not build_cache)
+    train = torch.is_grad_enabled() and not build_cache
+    remat = cfg.parallel.remat and train
 
     def superblock(sb, x):
+        sb = fsdp_gather(sb, plan, cfg) if train and plan is not None else sb
         caches = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, m in enumerate(members):
             x, caches[f"m{j}"], a = _apply_member(
                 sb[f"m{j}"], m, x, cfg=cfg, positions=positions,
                 img_embeds=img_embeds, build_cache=build_cache,
-                cache_len=cache_len, flash=flash, plan=plan)
+                cache_len=cache_len, flash=flash, plan=plan, train=train)
             aux = aux + a
         return x, caches, aux
 
     caches, auxs = [], []
     for sb in tree_unbind(stack, num_superblocks(cfg)):
         if remat:
-            x, aux = checkpoint(lambda sb, x: superblock(sb, x)[::2], sb, x,
-                                use_reentrant=False)
+            with set_checkpoint_early_stop(False):
+                x, aux = checkpoint(lambda sb, x: superblock(sb, x)[::2], sb,
+                                    x, use_reentrant=False)
         else:
             x, sb_caches, aux = superblock(sb, x)
             caches.append(sb_caches)

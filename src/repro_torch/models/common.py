@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.sharding.partition import psum_model
+from repro_torch.sharding.partition import enter_region, exit_region
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -26,9 +26,19 @@ def pdt(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+class MetaGen:
+    """A stand-in for a generator on the ``meta`` device: `LM.init` with
+    it draws nothing and returns the parameters' shapes and dtypes
+    (`obs.schedule.train_schedule` reads them)."""
+
+    device = torch.device("meta")
+
+
 def ninit(gen: torch.Generator, shape, dtype, scale: float = 0.02):
     """Scaled standard normals of `shape`, drawn in float32 on the
-    generator's device, cast to `dtype`."""
+    generator's device, cast to `dtype` (shape only for a `MetaGen`)."""
+    if isinstance(gen, MetaGen):
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (scale * torch.randn(shape, generator=gen, dtype=torch.float32,
                                 device=gen.device)).to(dtype)
 
@@ -85,15 +95,23 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff=None):
             "w_down": ninit(gen, (Fd, D), pdt(cfg), out_scale(cfg))}
 
 
-def apply_mlp(p, x, cfg: ArchConfig, plan=None):
+def apply_mlp(p, x, cfg: ArchConfig, plan=None, region: bool = True):
     """The SwiGLU MLP.  Across the ranks of a "model" axis (`plan` on a
     `RankMesh`) ``w_gate``/``w_up`` hold this rank's F columns and
     ``w_down`` its F rows: the partial products, in `x`'s dtype as the
-    whole product is, are summed by one `psum`."""
+    whole product is, are summed by one `psum` -- in training with the
+    residual sequence-sharded, the sequence is gathered first and the
+    partial products reduce-scattered back onto the rank's rows
+    (`partition.enter_region`/`exit_region`).  ``region=False``: `x` is
+    already the region's input and the partial products are returned
+    unsummed (a MoE's shared experts)."""
+    if region:
+        x = enter_region(x, plan)
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     h = F.silu(g.float()).to(x.dtype) * u
-    return psum_model(h @ p["w_down"].to(x.dtype), plan)
+    y = h @ p["w_down"].to(x.dtype)
+    return exit_region(y, plan) if region else y
 
 
 def causal_conv1d(u, w, state=None):

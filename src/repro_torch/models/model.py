@@ -7,14 +7,19 @@ are the reference's pytree as a dict of tensors (`init`, or
 `convert.lm_params_from_reference`); every method takes them explicitly,
 as the reference's do, and runs where they lie.
 
-Across ``torch.distributed`` ranks every method takes the serving
-``plan`` (`sharding.partition.make_plan` on a `RankMesh`) and the rank's
-blocks of the parameters (`convert.rank_params`): the rows it is given
-are its home's, and over the "model" axis ``tok_embed`` holds the rank's
+Across ``torch.distributed`` ranks every method takes the ``plan``
+(`sharding.partition.make_plan` on a `RankMesh`) and the rank's blocks
+of the parameters (`convert.rank_params`): the rows it is given are its
+home's, and over the "model" axis ``tok_embed`` holds the rank's
 vocabulary rows (a lookup of its range, zeros elsewhere, then one exact
 `psum`) and ``head_w`` its vocabulary columns, so the logits the methods
 return are the rank's vocabulary block (`runtime.server.greedy` picks
-across them).
+across them; `models.steps.vocab_nll` takes the loss from them).
+Training (`forward` under autograd) also reads the plan's ``seq_axis``
+and ``fsdp_axes``: the embedding's lookup is reduce-scattered onto the
+rank's rows of the sequence in place of the `psum`, the final norm acts
+on those rows and the head gathers the sequence back, and the FSDP-cut
+``tok_embed`` and ``head_w`` are gathered over the dp axes before use.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
 from repro_torch.models.common import dt, ninit, pdt, rmsnorm
-from repro_torch.sharding.partition import psum_model, tp_of
+from repro_torch.sharding.partition import (enter_region, fsdp_gather,
+                                            psum_model, seq_split, tp_of)
 
 
 class LM(nn.Module):
@@ -64,10 +70,16 @@ class LM(nn.Module):
         return params
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, params, batch, plan=None):
+    def _embed(self, params, batch, plan=None, train: bool = False):
+        Ms, i_s = seq_split(plan) if train else (1, 0)
         if not self.cfg.embed_input:
-            return batch["embeds"].to(dt(self.cfg))
-        table, tokens = params["embed"]["tok_embed"], batch["tokens"]
+            x = batch["embeds"].to(dt(self.cfg))
+            S = x.shape[1] // Ms
+            return x[:, i_s * S:(i_s + 1) * S] if Ms > 1 else x
+        emb = params["embed"]
+        if train:
+            emb = fsdp_gather(emb, plan, self.cfg)
+        table, tokens = emb["tok_embed"], batch["tokens"]
         M, i = tp_of(plan)
         if M == 1:
             return table[tokens].to(dt(self.cfg))
@@ -76,15 +88,26 @@ class LM(nn.Module):
         inside = (local >= 0) & (local < rows)
         x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)],
                         table.new_zeros(()))
+        if Ms > 1:
+            from repro_torch.core import collectives
+            return collectives.Scatter.apply(x, plan.mesh, (plan.tp,),
+                                             1).to(dt(self.cfg))
         return psum_model(x, plan).to(dt(self.cfg))
 
-    def _head(self, params, x):
+    def _head(self, params, x, plan=None, train: bool = False):
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        return x @ params["head"]["head_w"].to(x.dtype)
+        head = params["head"]
+        if train:
+            x = enter_region(x, plan)
+            head = fsdp_gather(head, plan, self.cfg)
+        return x @ head["head_w"].to(x.dtype)
 
-    def _stack(self, params, batch, build_cache: bool, cache_len, plan=None):
-        x = self._embed(params, batch, plan)
-        positions = torch.arange(x.shape[1], device=x.device)
+    def _stack(self, params, batch, build_cache: bool, cache_len, plan=None,
+               train: bool = False):
+        x = self._embed(params, batch, plan, train)
+        S = (batch["tokens"] if self.cfg.embed_input
+             else batch["embeds"]).shape[1]
+        positions = torch.arange(S, device=x.device)
         return blocks.apply_stack(params["stack"], x, cfg=self.cfg,
                                   positions=positions,
                                   img_embeds=batch.get("image_embeds"),
@@ -93,13 +116,19 @@ class LM(nn.Module):
                                   plan=plan)
 
     # --------------------------------------------------------------- forward
-    def forward(self, params, batch, build_cache: bool = False,
+    def forward(self, params, batch, plan=None, build_cache: bool = False,
                 cache_len=None):
         """Returns (logits (B, S, Vp), caches_or_None, aux); aux is the
         MoE load-balancing loss summed over the layers (0 without MoE).
-        A vision config's batch carries ``image_embeds`` (B, n, D)."""
-        x, caches, aux = self._stack(params, batch, build_cache, cache_len)
-        return self._head(params, x), caches, aux
+        A vision config's batch carries ``image_embeds`` (B, n, D).
+        Across ranks (`plan`) the logits are the home's rows and the
+        rank's vocabulary block, and under autograd (training, no cache)
+        the plan's sequence and FSDP layouts hold (see the module
+        docstring)."""
+        train = torch.is_grad_enabled() and not build_cache
+        x, caches, aux = self._stack(params, batch, build_cache, cache_len,
+                                     plan, train)
+        return self._head(params, x, plan, train), caches, aux
 
     def prefill(self, params, batch, max_len=None, plan=None):
         """(last-position logits (B, Vp), caches sized for `max_len`).  The

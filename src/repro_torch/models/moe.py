@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (apply_mlp, init_mlp, ninit, out_scale,
                                        pdt)
-from repro_torch.sharding.partition import homes_of, psum_model, tp_of
+from repro_torch.sharding.partition import (enter_region, exit_region,
+                                            homes_of, tp_of)
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig):
@@ -45,7 +46,8 @@ def top_k(gates: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048):
+def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048,
+              train: bool = False):
     """x: (B, S, D) -> (y, aux_loss). Token-choice top-k with capacity drop.
 
     The B*S tokens, in row order, form groups of ``min(group_size, B*S)``,
@@ -63,11 +65,21 @@ def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048):
     experts (``expert_axis``) or its F columns of every expert, then one
     `psum` sums the combine.  ``aux`` is this home's share of the
     load-balance loss (serving reads none).
+
+    Training (`train`) takes the same route with the residual's sequence
+    gathered first where it is sharded (`partition.enter_region`; the
+    combine's partial sums reduce-scattered back, `exit_region`), and
+    makes ``aux`` the whole batch's: the fraction of first choices of
+    every home (from the gathered counts, gathered in training whenever
+    there is more than one home) times this home's mean gates, so that
+    the homes' mean is the reference's ``aux``; across "model" ranks,
+    whose gradients of the gates are partial sums, each takes 1/M of it.
     """
+    M, rank = tp_of(plan)
+    x = enter_region(x, plan)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     n, home = homes_of(plan)
-    M, rank = tp_of(plan)
     Th = B * S                                   # this home's tokens
     T = Th * n
     gs = min(group_size, T)
@@ -93,7 +105,7 @@ def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048):
     mine = torch.zeros((Gn, K, E), dtype=torch.float32, device=x.device)
     mine[g0:g0 + Gl] = torch.stack(
         [mk[a:b].sum(dim=0) for a, b in zip(starts, starts[1:] + [Th])])
-    if n > 1 and Th % gs:                        # groups span homes
+    if n > 1 and (Th % gs or train):             # groups span homes
         from repro_torch.core import collectives
         counts = collectives.all_gather(mine.to(torch.int32), plan.mesh,
                                         plan.batch_axes).float()
@@ -131,13 +143,19 @@ def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048):
         ye = torch.einsum("ecf,efd->ecd", h, wd)
         parts.append(torch.einsum("sec,ecd->sd", combine[a:b].to(x.dtype),
                                   ye))
-    y = psum_model(torch.cat(parts), plan).to(x.dtype).reshape(B, S, D)
+    y = exit_region(torch.cat(parts).reshape(B, S, D), plan).to(x.dtype)
 
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], x, cfg, plan)
+        y = y + exit_region(apply_mlp(p["shared"], x, cfg, plan,
+                                      region=False), plan)
 
     # ---- switch-style load-balance aux ----
-    frac_tokens = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    if n > 1 and train:
+        frac_tokens = total[:, 0].sum(dim=0) / T
+    else:
+        frac_tokens = F.one_hot(topi[:, 0], E).float().mean(dim=0)
     frac_gates = gates.mean(dim=0)
     aux = E * (frac_tokens * frac_gates).sum()
+    if train and M > 1:
+        aux = aux / M
     return y, aux

@@ -19,6 +19,16 @@ Failure model:
 
 The model is ``LM(cfg, flash=False)``: the `flash_attention` kernel has
 no backward pass, and the reference trains on its chunked attention too.
+
+Across ``torch.distributed`` ranks (`plan` on a `RankMesh`, the same
+`mesh`) each rank draws only its blocks (`LM.init` with `convert.
+rank_cut`), its data pipeline builds only its home's rows, checkpoints
+are written and restored elastically (`checkpoint.save`/`restore` with
+the specs), and everything that decides control flow is agreed: the
+guard reads the step's loss and norm, the same bits on every rank; a
+stop signal is summed over the mesh at each step boundary (one counted
+`psum`), so every rank stops at the same step and saves together.  Rank
+0 alone prints and writes the metrics file.
 """
 from __future__ import annotations
 
@@ -36,12 +46,13 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.mesh import entry_device
+from repro_torch.core.mesh import RankMesh, entry_device
 from repro_torch.data import make_batch_iterator
 from repro_torch.models.model import LM
 from repro_torch.models.steps import init_opt_state, make_train_step
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.sharding.partition import NULL_PLAN, MeshPlan
+from repro_torch.sharding.partition import (NULL_PLAN, MeshPlan,
+                                            full_opt_specs, param_specs)
 
 
 @dataclass
@@ -73,7 +84,10 @@ class Trainer:
         total = tcfg.schedule_total or tcfg.steps
         self.opt = AdamW(lr=cosine_schedule(tcfg.lr, tcfg.warmup, total))
         self.step_fn = make_train_step(self.model, cfg, plan, self.opt)
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_every)
+        self.ranks = isinstance(mesh, RankMesh)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_every,
+                                      mesh=mesh if self.ranks else None)
+        self.lead = not self.ranks or mesh.rank == 0
         self.slow_steps = 0
         self._stop = False
 
@@ -85,17 +99,50 @@ class Trainer:
             signal.signal(sig, handler)
 
     def init_or_restore(self):
+        from repro_torch.convert import rank_cut
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        params = self.model.init(gen)
-        opt_state = init_opt_state(self.cfg, self.opt, params)
+        params = self.model.init(gen, cut=rank_cut(self.plan, self.cfg,
+                                                   train=True)
+                                 if self.ranks else None)
+        opt_state = init_opt_state(self.cfg, self.opt, params, self.plan)
         start = 0
         last = latest_step(self.tcfg.ckpt_dir)
         if last is not None:
-            state = restore(self.tcfg.ckpt_dir, last,
-                            {"params": params, "opt": opt_state})
-            params, opt_state = state["params"], state["opt"]
+            params, opt_state = self._restore(last, params, opt_state)
             start = last
         return params, opt_state, start
+
+    def specs(self, params, opt_state):
+        """The spec tree of the checkpointed state across ranks (None on
+        one process)."""
+        if not self.ranks:
+            return None
+        return {"params": param_specs(params, self.plan, self.cfg),
+                "opt": full_opt_specs(opt_state, params, self.plan,
+                                      self.cfg)}
+
+    def _restore(self, step, params, opt_state):
+        st = restore(self.tcfg.ckpt_dir, step,
+                     {"params": params, "opt": opt_state},
+                     self.specs(params, opt_state),
+                     self.mesh if self.ranks else None)
+        return st["params"], st["opt"]
+
+    def _save(self, step, params, opt_state, force=False):
+        tree = {"params": params, "opt": opt_state}
+        if self.ranks:
+            return self.ckpt.maybe_save(step, tree, force=force,
+                                        specs=self.specs(params, opt_state))
+        return self.ckpt.maybe_save(step, tree, force=force)
+
+    def _stopping(self) -> bool:
+        """The stop signal, agreed over the mesh across ranks."""
+        if not self.ranks:
+            return self._stop
+        from repro_torch.core import collectives
+        flag = torch.tensor([float(self._stop)], device=self.device)
+        return float(collectives.psum(flag, self.mesh,
+                                      tuple(self.mesh.shape))[0]) > 0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -112,7 +159,7 @@ class Trainer:
         durations, metrics_log = [], []
         step = start
         for step in range(start, t.steps):
-            if self._stop:
+            if self._stopping():
                 break
             batch = next(data)
             self._sync()
@@ -134,9 +181,8 @@ class Trainer:
             if not seen["ok"]:
                 last = latest_step(t.ckpt_dir)
                 if last is not None:
-                    st = restore(t.ckpt_dir, last,
-                                 {"params": params, "opt": opt_state})
-                    params, opt_state = st["params"], st["opt"]
+                    params, opt_state = self._restore(last, params,
+                                                      opt_state)
                 continue  # skip the offending batch, keep going
             # ---- straggler watchdog ----
             durations.append(dt)
@@ -148,13 +194,13 @@ class Trainer:
                        "step_time_s": round(dt, 4),
                        "slow_steps": self.slow_steps}
                 metrics_log.append(rec)
-                print(json.dumps(rec), flush=True)
-            self.ckpt.maybe_save(step + 1,
-                                 {"params": params, "opt": opt_state})
-        self.ckpt.maybe_save(step + 1, {"params": params, "opt": opt_state},
-                             force=True)
+                if self.lead:
+                    print(json.dumps(rec), flush=True)
+            self._save(step + 1, params, opt_state)
+        if self.ckpt.saved_step != step + 1:     # not saved twice
+            self._save(step + 1, params, opt_state, force=True)
         self.ckpt.wait()
-        if t.metrics_path:
+        if t.metrics_path and self.lead:
             with open(t.metrics_path, "w") as f:
                 json.dump(metrics_log, f, indent=1)
         return {"final_step": step + 1,

@@ -6,26 +6,33 @@ for field, for a mesh of homes on one device (`HomeMesh`) or of
 ``torch.distributed`` ranks (`RankMesh`).  A spec is a tuple with one
 entry per dimension -- None (whole), an axis name, or a tuple of axis
 names linearised row-major -- the counterpart of ``PartitionSpec``;
-`param_specs`, `batch_specs` and `cache_specs` build them for a tree as
-the reference builds its ``P`` trees, and `shard_for_rank` cuts a whole
-tree down to one rank's blocks.
+`param_specs`, `opt_specs`, `full_opt_specs`, `batch_specs` and
+`cache_specs` build them for a tree as the reference builds its ``P``
+trees, `shard_for_rank` cuts a whole tree down to one rank's blocks, and
+`gather_leaf`/`cut_leaf` move one leaf between its whole and a spec's
+block (FSDP, ZeRO-1, checkpoints).
 
 What reads a plan:
 
 * On a `HomeMesh` every home lies on one device, so only ``batch_axes``
   matters: the server homes its slots over them (`Locale.pin_tree`'s
   counted relayout); the model runs whole.
-* On a `RankMesh` serving splits the model over ``"model"`` where the
-  plan says (`tp_of`): heads and KV heads (`models.attention`), MLP
-  columns (`models.common`), experts or their F columns (`models.moe`),
-  the vocabulary (`models.model`), each followed by a counted `psum`
+* On a `RankMesh` the model is split over ``"model"`` where the plan
+  says (`tp_of`): heads and KV heads (`models.attention`), MLP columns
+  (`models.common`), experts or their F columns (`models.moe`), the
+  vocabulary (`models.model`), each followed by a counted sum
   (`core.collectives`).  Every other axis is data-parallel: each
-  (pod, data) coordinate is a home holding its own slot rows.  Serving
-  cuts the parameters with ``fsdp_axes`` cleared (`serving_plan`): as in
-  the reference, where serving never shards parameters over the data
-  axes.  The sequence-sharded residual (``seq_axis``) and FSDP/ZeRO-1
-  change no value and wait for training across ranks (`opt_specs` and
-  `full_opt_specs` with them).
+  (pod, data) coordinate is a home holding its own batch or slot rows.
+* Serving cuts the parameters with ``fsdp_axes`` and ``zero1_axes``
+  cleared (`serving_plan`), as the reference never shards parameters
+  over the data axes when it serves; its decode plan has no
+  ``seq_axis``.
+* Training reads the whole plan: the residual stream between members
+  sequence-sharded over ``seq_axis`` (`seq_split`; the members gather it
+  and scatter their outputs, `enter_region`/`exit_region`), parameters
+  cut over ``fsdp_axes`` and gathered a superblock at a time
+  (`fsdp_gather`), AdamW's ``m`` and ``v`` cut further over
+  ``zero1_axes`` (`opt_specs`), gradients reduced as `models.steps` says.
 """
 from __future__ import annotations
 
@@ -140,12 +147,64 @@ def homes_of(plan: Optional[MeshPlan]) -> Tuple[int, int]:
 
 
 def psum_model(x: torch.Tensor, plan: Optional[MeshPlan]) -> torch.Tensor:
-    """`x` summed over the ranks of the model axis (`collectives.psum`);
-    `x` itself where nothing is split."""
+    """`x` summed over the ranks of the model axis (`collectives.psum`;
+    under autograd Megatron's g, `collectives.Exit`: the gradient of the
+    sum every rank holds whole is each part's); `x` itself where nothing
+    is split."""
     if tp_of(plan)[0] == 1:
         return x
     from repro_torch.core import collectives
+    if torch.is_grad_enabled() and x.requires_grad:
+        return collectives.Exit.apply(x, plan.mesh, (plan.tp,))
     return collectives.psum(x, plan.mesh, (plan.tp,))
+
+
+def seq_split(plan: Optional[MeshPlan]) -> Tuple[int, int]:
+    """``(model-axis size, this rank's index)`` where training shards the
+    residual's sequence over ``seq_axis`` across ranks; ``(1, 0)``
+    otherwise."""
+    M, i = tp_of(plan)
+    if M == 1 or plan.seq_axis is None:
+        return 1, 0
+    return M, i
+
+
+def enter_region(x: torch.Tensor, plan: Optional[MeshPlan],
+                 split: bool = True) -> torch.Tensor:
+    """The input of a member whose ranks each compute a part over
+    "model", from the residual: under `seq_split` the whole sequence
+    gathered from the shards (`collectives.Gather`: its gradient
+    reduce-scattered back); otherwise, where the region is `split`,
+    Megatron's f (`collectives.Enter`: the gradient summed).  `x` itself
+    with nothing split."""
+    from repro_torch.core import collectives
+    M, _ = tp_of(plan)
+    if M == 1:
+        return x
+    if seq_split(plan)[0] > 1:
+        return collectives.Gather.apply(x, plan.mesh, (plan.tp,), 1)
+    if split and torch.is_grad_enabled():
+        return collectives.Enter.apply(x, plan.mesh, (plan.tp,))
+    return x
+
+
+def exit_region(y: torch.Tensor, plan: Optional[MeshPlan],
+                split: bool = True) -> torch.Tensor:
+    """A member's output back onto the residual: its partial sums over
+    "model" (`split`) reduce-scattered onto this rank's sequence shard
+    under `seq_split` (`collectives.Scatter`), else summed (`psum_model`,
+    Megatron's g under autograd).  A whole output (`split` False: every
+    rank computed all of it) is cut to the rank's rows under `seq_split`
+    -- its gradient is this rank's rows only, a partial sum like the
+    split members' -- and is itself otherwise."""
+    M, i = seq_split(plan)
+    if M > 1:
+        if not split:
+            S = y.shape[1] // M
+            return y[:, i * S:(i + 1) * S]
+        from repro_torch.core import collectives
+        return collectives.Scatter.apply(y, plan.mesh, (plan.tp,), 1)
+    return psum_model(y, plan) if split else y
 
 
 def no_split(plan: Optional[MeshPlan], what: str) -> None:
@@ -264,7 +323,7 @@ def block_of(shape, spec, mesh: RankMesh):
     rank's the one at its linear index over them."""
     out = []
     for n, entry in zip(shape, spec):
-        axes = tuple(a for a in _axes(entry) if mesh.shape[a] > 1)
+        axes = tuple(a for a in _axes(entry) if mesh.shape.get(a, 1) > 1)
         if not axes:
             out.append(slice(None))
             continue
@@ -289,3 +348,148 @@ def shard_for_rank(tree, specs, mesh: RankMesh):
             return leaf
         return leaf[sl].contiguous()
     return _map_paths(cut, tree)
+
+
+# ---------------------------------------------------------------------------
+# optimiser-state specs
+# ---------------------------------------------------------------------------
+def _used(spec) -> set:
+    return {a for d in spec for a in _axes(d)}
+
+
+def zero1_dim(spec, shape, plan: MeshPlan) -> Optional[int]:
+    """The dim ZeRO-1 cuts over ``zero1_axes`` in a leaf of `spec` and
+    (whole) `shape`: the first dim with no axis that the dp size divides,
+    where the spec has no dp axis at all (the reference's `opt_specs`);
+    None otherwise."""
+    if plan.zero1_axes is None:
+        return None
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    if set(plan.zero1_axes) & _used(dims):
+        return None
+    dp_n = plan.axis_size(plan.zero1_axes)
+    for i, (d, n) in enumerate(zip(dims, shape)):
+        if d is None and n % dp_n == 0:
+            return i
+    return None
+
+
+def opt_specs(params, plan: MeshPlan, cfg: ArchConfig):
+    """Optimiser-state specs (the reference's `opt_specs`): ``m`` and ``v``
+    mirror the parameters' specs; ZeRO-1 also cuts the first dp-free dim
+    the dp size divides over ``zero1_axes``; ``step`` is replicated."""
+    pspecs = param_specs(params, plan, cfg)
+
+    def zero1(path, leaf):
+        spec = _at(pspecs, path)
+        i = zero1_dim(spec, leaf.shape, plan)
+        if i is None:
+            return spec
+        dims = list(spec) + [None] * (len(leaf.shape) - len(spec))
+        dims[i] = plan.zero1_axes
+        return P(*dims)
+
+    mv = _map_paths(zero1, params)
+    return {"adam": {"m": mv, "v": mv, "step": P()}}
+
+
+def full_opt_specs(opt_state, params, plan: MeshPlan, cfg: ArchConfig):
+    """The spec tree of `models.steps.init_opt_state`'s structure: `opt_specs`
+    and, where the state has an error-feedback residual, ``ef`` mirroring
+    the parameters."""
+    out = {"adam": opt_specs(params, plan, cfg)["adam"]}
+    if "ef" in opt_state:
+        out["ef"] = param_specs(params, plan, cfg)
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# one leaf between its whole and a spec's block
+# ---------------------------------------------------------------------------
+def split_dims(spec, mesh: RankMesh):
+    """``[(dim, axes)]``: each dim of `spec` cut over axes of size > 1."""
+    out = []
+    for i, entry in enumerate(spec):
+        axes = tuple(a for a in _axes(entry) if mesh.shape.get(a, 1) > 1)
+        if axes:
+            out.append((i, axes))
+    return out
+
+
+def whole_shape(block_shape, spec, mesh: RankMesh) -> Tuple[int, ...]:
+    """The whole leaf's shape from one rank's block under `spec`."""
+    shape = list(block_shape)
+    for i, axes in split_dims(spec, mesh):
+        shape[i] *= math.prod(mesh.shape[a] for a in axes)
+    return tuple(shape)
+
+
+def owns(spec, mesh: RankMesh) -> bool:
+    """Whether this rank is its block's owner: the rank at index 0 on
+    every axis the block is replicated over (each axis of size > 1 that
+    `spec` does not cut by)."""
+    used = _used(spec)
+    return all(mesh.coords[a] == 0 for a, n in mesh.shape.items()
+               if n > 1 and a not in used)
+
+
+def gather_leaf(block: torch.Tensor, spec, mesh: RankMesh,
+                axes=None) -> torch.Tensor:
+    """The leaf gathered from every home's block over `axes` (default
+    every axis `spec` cuts by): one counted all-gather per cut dim,
+    differentiable (`collectives.Gather`, whose gradient is
+    reduce-scattered back to the block)."""
+    from repro_torch.core import collectives
+    for i, dim_axes in split_dims(spec, mesh):
+        over = dim_axes if axes is None else tuple(
+            a for a in dim_axes if a in axes)
+        if over:
+            block = collectives.Gather.apply(block, mesh, over, i)
+    return block
+
+
+def cut_leaf(whole, spec, mesh: RankMesh):
+    """This rank's block of a whole leaf (a tensor or an array) under
+    `spec`: a view, which an assignment writes through."""
+    return whole[block_of(whole.shape, spec, mesh)]
+
+
+def fsdp_gather(tree, plan: MeshPlan, cfg: ArchConfig):
+    """A (sub)tree of parameter blocks with every leaf that FSDP cuts
+    gathered whole over ``fsdp_axes`` (its "model" cut kept): the
+    all-gathers before use, whose backward reduce-scatters the gradient
+    over the dp axes into the block.  The tree itself without FSDP."""
+    if plan is None or not plan.fsdp_axes \
+            or not isinstance(plan.mesh, RankMesh) \
+            or plan.axis_size(plan.fsdp_axes) == 1:
+        return tree
+    specs = param_specs(tree, plan, cfg)
+    return _map_paths(lambda path, leaf: gather_leaf(
+        leaf, _at(specs, path), plan.mesh, plan.fsdp_axes), tree)
+
+
+def grad_partial_over_model(path, spec, plan: MeshPlan,
+                            cfg: ArchConfig) -> bool:
+    """Whether a rank's gradient of the leaf at `path` is a partial sum
+    over "model" that the step must sum there: a leaf every "model" rank
+    holds whole, used where each rank computes a part.  Under `seq_split`
+    that is every such leaf of the stack and the final norm (norms act on
+    the rank's rows; every member computes its own rows' part); without
+    it, the router (each rank backpropagates its experts' part) and, where
+    the heads are split, the q/k norms and KV projections the rank's q
+    heads read."""
+    if tp_of(plan)[0] == 1 or plan.tp in _used(spec):
+        return False
+    if seq_split(plan)[0] > 1:
+        return "embed" not in path and "head" not in path
+    name = str(path[-1])
+    if name == "router":
+        return True
+    return plan.head_axis is not None and name in ("q_norm", "k_norm",
+                                                   "wk", "wv")

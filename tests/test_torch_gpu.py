@@ -991,3 +991,75 @@ def test_two_rank_serve_on_card_matches_cpu():
             assert card[pad][1] == (0 if pad else layers * card[pad][2])
         torch.testing.assert_close(card_last, cpu_last, rtol=1e-4,
                                    atol=1e-5)
+
+
+def _two_rank_train(device, arch):
+    """A rank of the card test below: reduced float32 `arch` with FSDP,
+    the sequence-sharded residual, remat and 2 microbatches, on {"data":
+    1, "model": 2} (the model split) and on {"data": 2, "model": 1}
+    (FSDP's gathers), two steps on `device`, then on the CPU: metrics,
+    parameter blocks and `flash_attention` launches."""
+    from repro_torch.configs import base
+    from repro_torch.convert import rank_params
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM, steps
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding.partition import make_plan
+    from repro_torch.tree import tree_items, tree_map
+    cfg = base.reduce_config(base.get_config(arch))
+    cfg = cfg.replace(parallel=base.ParallelConfig(
+        fsdp=True, sequence_shard=True, remat=True, microbatches=2))
+    whole = LM(cfg).init(torch.Generator().manual_seed(0))
+    out = {}
+    for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+        for dev in (device, "cpu"):
+            mesh = RankMesh(shape, device=dev)
+            plan = make_plan(mesh, cfg, base.ShapeSpec("t", 32, 4, "train"))
+            # a copy: the step updates in place, and a leaf left whole is
+            # `whole`'s own tensor
+            params = _to(tree_map(torch.clone, rank_params(
+                whole, plan, cfg, train=True)), mesh.device)
+            opt = AdamW(lr=1e-3)
+            state = steps.init_opt_state(cfg, opt, params, plan)
+            fn = steps.make_train_step(LM(cfg, flash=False), cfg, plan, opt)
+            data = SyntheticLM(cfg, 4, 32, 0, mesh)
+            ops.reset_launches()
+            metrics = []
+            for i in range(2):
+                params, state, m = fn(params, state, data.batch(i))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            out[str(shape), mesh.device.type] = (
+                metrics, {"/".join(p): t.detach().cpu() for p, t in
+                          tree_items(params)},
+                ops.launch_counts()["flash_attention"])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x7b"])
+def test_two_rank_train_on_card_matches_cpu(arch):
+    """Two gloo ranks sharing the card train reduced float32 qwen3-0.6b
+    (dense) and mixtral-8x7b (MoE) with FSDP, the sequence-sharded
+    residual, remat and 2 microbatches, split over "model" and over
+    "data": each step's loss and norm within rtol 1e-5 of the CPU
+    ranks', each rank's parameter blocks within rtol 1e-4 / atol 1e-5 of
+    its CPU blocks after two steps (but for at most 0.1 % of the
+    elements, each within two steps' learning rate), no
+    `flash_attention` launch."""
+    _need_card()
+    from repro_torch.launch.mesh import spawn
+    for res in spawn(_two_rank_train, 2, "gloo", "cuda", arch):
+        for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+            card, cpu = res[str(shape), "cuda"], res[str(shape), "cpu"]
+            np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+            for k, t in card[1].items():
+                # AdamW's step turns on the rounding where a gradient
+                # element is near zero: at most 0.1 % of the elements, each
+                # within the most two runs move apart (lr a step)
+                d = (t - cpu[1][k]).abs()
+                off = d > 1e-5 + 1e-4 * cpu[1][k].abs()
+                assert off.float().mean() <= 1e-3, (k, int(off.sum()))
+                assert (d[off] <= 2 * 1e-3 * 2).all(), (k, float(d.max()))
+            assert card[2] == cpu[2] == 0
