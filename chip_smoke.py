@@ -216,6 +216,39 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 tokens/s, rank 0's busy ms, collectives, wire, inter-pod,
                 staged and peak bytes by rank, checkpoint bytes and
                 seconds;
+  8h. model_split — the members split over "model" and the decode cache
+                homed by sequence, across 8 gloo ranks sharing the card,
+                each run held to one process's at the same depth on the
+                same homes: (a) mamba2-2.7b at full width, 16 of 64
+                layers, on {"data": 2, "model": 4} (20 SSD heads a rank,
+                the gated norm's statistic summed over "model"): the
+                serve_ranks stream's first 16 requests in aligned waves
+                padded to 768, 16 slots homed (picks within
+                `SERVE_RANK_TOL`), then one
+                train step of 2 x 1024 (loss within
+                `TRAIN_RANK_LOSS_RTOL`, the norm within
+                `TRAIN_RANK_NORM_RTOL` or NaN on both sides, the train
+                forward's last logits within `SERVE_RANK_TOL`), the
+                statistic left unsummed as the planted fault (outside
+                the picks' and the train logits' bound); (b)
+                llama-3.2-vision-90b at full width, one superblock, on
+                the same mesh: a (2, 512) prefill over 4096 image tokens
+                and 4 decode steps, logits within `SERVE_RANK_TOL`, a
+                decode step's time and rank 0's busy ms; (c)
+                the cache homed by sequence: qwen3-0.6b at 7 layers, one
+                slot and a 12,000-token prompt on {"data": 8} (the cache
+                over "data", keys on 6 of the 8 ranks' blocks) and
+                glm4-9b at 2 layers, 2 slots and prompts of ~6,000 on
+                {"data": 2, "model": 4} (over "model": q all-gathered,
+                the partials sent to their heads' ranks), 8 decode steps
+                each, picks within `SERVE_RANK_TOL`, each rank's cache
+                bytes its block's, the blocks' merge against the plain
+                attention over the whole cache (a dropped block's
+                partial outside); every log equal to its schedule,
+                `flash_attention` at every rank call shape (the cross
+                layer's (1, 16, 2, 512 x 4096, 128)) against its plain
+                version, timed beside SDPA and its bound; tokens/s, step
+                ms, collectives and bytes by rank;
   8d. dtypes  — int8, int16, uint8, uint16, uint32, float16 and bfloat16
                 through both backends on {"data": 8} at n = 2^24 + 5:
                 equal to torch.sort's values, and bit for bit the CPU
@@ -4988,6 +5021,735 @@ def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# model_split: Mamba2 and cross attention over "model", and decode caches
+# homed by sequence, across torch.distributed ranks sharing the card
+# ---------------------------------------------------------------------------
+MODEL_SPLIT_RANKS = 8
+MODEL_SPLIT_MESH = {"data": 2, "model": 4}
+#: (a) mamba2-2.7b at full width on `MODEL_SPLIT_MESH` (20 of its 80 SSD
+#: heads a rank), its depth cut from 64 to 16 layers and the serve_ranks
+#: phase's aligned-wave stream to its first 16 requests (one wave of the
+#: 16 slots homed over the 2 homes; prompts of 128-768 padded to 768,
+#: three SSD chunks) for the phase's time, under the homed policy; one
+#: train step of 2 x 1024 (its own knobs: the sequence-sharded residual,
+#: remat, no FSDP)
+MODEL_SPLIT_MAMBA = dict(arch="mamba2-2.7b", layers=16, policy="homed",
+                         requests=16, pad=768, batch=2, seq=1024)
+#: (b) llama-3.2-vision-90b at full width, one superblock (4 self and 1
+#: cross layer), the stack phase's (2, 512) prompts over 4096 image
+#: tokens and 4 decode steps, on `MODEL_SPLIT_MESH` (16 q and 2 KV heads a
+#: rank, a home's one row)
+MODEL_SPLIT_VISION_STEPS = 4
+#: (c) the decode cache homed by sequence (caches of 8192 positions or
+#: more): qwen3-0.6b at 7 of 28 layers, 1 slot (it does not divide over 8
+#: homes: the cache over "data", 2048 slots a rank), one 12,000-token
+#: prompt; glm4-9b at 2 of 40 layers, 2 slots on `MODEL_SPLIT_MESH` (its
+#: 2 KV heads do not divide over 4: the cache over "model", 2048 slots a
+#: rank), prompts of about 6,000 tokens; each served in aligned waves
+#: (fifo), 9 tokens a request (8 decode steps)
+MODEL_SPLIT_SEQ = {
+    "qwen_data": dict(arch="qwen3-0.6b", layers=7, mesh="data8", axis="data",
+                      slots=1, max_len=16384, prompt=(12000, 12000), new=9),
+    "glm_model": dict(arch="glm4-9b", layers=2, mesh="d2m4", axis="model",
+                      slots=2, max_len=8192, prompt=(5800, 6200), new=9)}
+#: the merge check's planted fault: block 1's partial dropped from every
+#: merge (its max score set to -1e30, so its weight is 0)
+MODEL_SPLIT_DROPPED = 1
+
+
+def model_split_inputs(cfg, seed: int, device):
+    """(b)'s inputs: the stack phase's prompt tokens and image embeddings,
+    and the tokens fed to the decode steps (whole batches, on `device`)."""
+    rng = np.random.default_rng(seed)
+    B, S, n = STACK_VISION_B, STACK_VISION_S, cfg.num_image_tokens
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).to(device),
+        "image_embeds": (0.1 * torch.randn(
+            B, n, cfg.d_model, generator=torch.Generator(
+                device=device).manual_seed(seed + 2), device=device)).to(
+                    torch.bfloat16)}
+    fed = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, MODEL_SPLIT_VISION_STEPS))).to(device)
+    return batch, fed
+
+
+def model_split_stream(cfg, spec: dict, seed: int) -> list:
+    """(c)'s requests: one a slot, all arriving at once."""
+    from repro_torch.convert import make_serve_stream
+    return make_serve_stream(spec["slots"], cfg.vocab_size, spec["prompt"],
+                             sessions=1, new_tokens=(spec["new"],) * 2,
+                             slots=spec["slots"], seed=seed)
+
+
+@contextlib.contextmanager
+def unsummed_stat():
+    """(a)'s planted fault: the gated norm's statistic left unsummed over
+    "model" (each rank normalises by its own columns' sum of squares)."""
+    from repro_torch.models import common
+    with mock.patch.object(common, "psum_stat", lambda x, plan: x):
+        yield
+
+
+@contextlib.contextmanager
+def dropped_partial():
+    """(c)'s planted fault: block `MODEL_SPLIT_DROPPED`'s partial dropped
+    from every merge of the blocks' attention."""
+    from repro_torch.models import attention
+    real = attention.merge_partials
+
+    def merge(parts):
+        parts = parts.clone()
+        parts[MODEL_SPLIT_DROPPED, ..., -2] = attention.NEG_INF
+        return real(parts)
+    with mock.patch.object(attention, "merge_partials", merge):
+        yield
+
+
+def first_pick_logits(cfg, params, plan, reqs, *, slots, max_len, pad,
+                      policy) -> torch.Tensor:
+    """The first pick's logits (this rank's rows and vocabulary block) of
+    an aligned-wave run; every rank stops at the same pick."""
+    from repro_torch.runtime.server import DecodeServer, Request
+    got = {}
+
+    def _pick(logits):
+        got["logits"] = logits.float().cpu()
+        raise _FirstPick
+    srv = DecodeServer(cfg, params, batch_slots=slots, max_len=max_len,
+                       plan=plan, scheduler=policy, prompt_pad=pad)
+    for d in reqs:
+        srv.submit(Request(**d))
+    srv._pick = _pick
+    try:
+        srv.run()
+    except _FirstPick:
+        pass
+    return got["logits"]
+
+
+def merge_check(cfg, plan, slots: int, live: int, seed: int) -> dict:
+    """The blocks' merge (`attention._decode_blocks`, this rank's block of
+    a seeded bf16 cache of `slots` slots with `live` keys, one query a
+    row at position ``live - 1``) against the plain `decode_attention`
+    over the whole cache, on the rank's heads: the largest difference
+    over the largest |value|, sound and with `dropped_partial`."""
+    from repro_torch.models.attention import (_decode_blocks,
+                                              decode_attention, rank_heads)
+    from repro_torch.sharding.partition import cache_block, tp_of
+    dev = plan.mesh.device
+    rh = rank_heads(cfg, plan)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = 1
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = draw(B, 1, H, hd), draw(B, slots, KV, hd), draw(B, slots, KV,
+                                                              hd)
+    kpos = torch.full((B, slots), -1, dtype=torch.int32, device=dev)
+    kpos[:, :live] = torch.arange(live, dtype=torch.int32, device=dev)
+    pos = torch.full((B, 1), live - 1, dtype=torch.long, device=dev)
+    want = decode_attention(q.reshape(B, 1, KV, H // KV, hd), k, v, kpos,
+                            pos)
+    M, i = tp_of(plan)
+    heads = slice(i * rh.H, (i + 1) * rh.H) if rh.split else slice(None)
+    kv = (slice(i * KV // M, (i + 1) * KV // M)
+          if rh.split and plan.kv_axis is not None else slice(None))
+    lo, blk = cache_block(slots, plan)
+    block = {"k": k[:, lo:lo + blk, kv], "v": v[:, lo:lo + blk, kv],
+             "kpos": kpos[:, lo:lo + blk]}
+    out = {}
+    for tag in ("sound", "planted"):
+        with (dropped_partial() if tag == "planted"
+              else contextlib.nullcontext()):
+            got = _decode_blocks(q[:, :, heads], block, pos, slots=slots,
+                                 rh=rh, window=0, plan=plan)
+        out[tag] = rel_err(got, want[:, :, heads])
+    return out
+
+
+def train_forward(cfg, plan, params, batch, last: int = 16):
+    """The train forward on this rank (one process with no `plan`): its
+    loss metric (averaged over the homes, as the step averages it) and
+    its logits at the last `last` positions (its rows and vocabulary
+    block), under autograd so that the model takes its training layout,
+    with nothing differentiated."""
+    from repro_torch.core import collectives
+    from repro_torch.models import LM, steps
+    from repro_torch.sharding.partition import homes_of
+    with torch.enable_grad():
+        logits = LM(cfg, flash=False).forward(params, batch, plan)[0]
+        nll = steps.vocab_nll(logits, batch["targets"], cfg.vocab_size,
+                              plan).detach()
+    n = homes_of(plan)[0]
+    if n > 1:
+        nll = collectives.psum(nll[None], plan.mesh, plan.batch_axes)[0] / n
+    return float(nll), logits[:, -last:].detach().float().cpu()
+
+
+def assemble(blocks, n: int, M: int) -> torch.Tensor:
+    """``[(home, vocabulary block, tensor (rows, ..., V / M))]`` of every
+    rank as the whole (n * rows, ..., V), rows by home."""
+    rows = {}
+    for h, i, t in blocks:
+        rows.setdefault(h, {})[i] = t
+    return torch.cat([torch.cat([rows[h][i] for i in range(M)], dim=-1)
+                      for h in range(n)])
+
+
+def model_split_mamba(mesh, seed: int, progress) -> dict:
+    """(a) on this rank: the served stream and the planted unsummed
+    statistic in its first pick; then the train forward's loss and last
+    logits, sound and with that fault, and the train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import rank_cut
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.obs.schedule import train_schedule
+    from repro_torch.sharding import partition
+    m = MODEL_SPLIT_MAMBA
+    cfg = get_config(m["arch"]).replace(num_layers=m["layers"])
+    plan = partition.make_plan(mesh, cfg, ShapeSpec(
+        "serve", SERVE_MAX_LEN, SERVE_SLOTS, "decode"))
+    params = LM(cfg).init(torch.Generator(device=mesh.device).manual_seed(
+        seed), cut=rank_cut(plan, cfg))
+    reqs = serve_streams(cfg, seed)["waves"][:m["requests"]]
+    kw = dict(slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, pad=m["pad"])
+    out = {"runs": {"waves-" + m["policy"]: rank_serve_run(
+        cfg, params, plan, reqs, page_size=None, policy=m["policy"], **kw)}}
+    progress("(a) served")
+    with unsummed_stat():
+        out["planted"] = first_pick_logits(cfg, params, plan, reqs,
+                                           policy=m["policy"], **kw)
+    progress("(a) planted in serving")
+    del params
+    release()
+    shape = ShapeSpec("train", m["seq"], m["batch"], "train")
+    plan = partition.make_plan(mesh, cfg, shape)
+    params, _, state, fn = train_rank_state(cfg, plan, seed, mesh.device,
+                                            TRAIN_LR)
+    batch = SyntheticLM(cfg, m["batch"], m["seq"], seed, mesh).batch(0)
+    _, logits = train_forward(cfg, plan, params, batch)
+    with unsummed_stat():
+        planted_loss, planted = train_forward(cfg, plan, params, batch)
+    specs = {"params": partition.param_specs(params, plan, cfg),
+             "opt": partition.full_opt_specs(state, params, plan, cfg)}
+    params, state, rec = timed_step(fn, params, state, batch, mesh.device,
+                                    train_schedule(cfg, plan, shape))
+    rec["digests"] = step_digests(params, state, specs, mesh, False)
+    n, h = partition.homes_of(plan)
+    out["train"] = dict(rec, home=h, tp=partition.tp_of(plan)[1],
+                        logits=logits, planted_loss=planted_loss,
+                        planted_logits=planted)
+    del params, state, fn
+    release()
+    return out
+
+
+def model_split_vision(mesh, seed: int) -> dict:
+    """(b) on this rank: its rows and vocabulary block of the prefill's and
+    decode steps' logits, its log against `serve_schedule`."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import rank_cut
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.obs.schedule import log_against_serve, serve_schedule
+    from repro_torch.sharding import partition
+    cfg = get_config("llama-3.2-vision-90b")
+    cfg = cfg.replace(num_layers=cfg.cross_attn_every)
+    B, S = STACK_VISION_B, STACK_VISION_S
+    steps = MODEL_SPLIT_VISION_STEPS
+    plan = partition.make_plan(mesh, cfg, ShapeSpec("serve", S + steps, B,
+                                                    "decode"))
+    # a rank draws each superblock whole before it cuts its blocks: the
+    # vision superblock is 9 GB in bf16, so the ranks draw in turn
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            params = LM(cfg).init(torch.Generator(
+                device=mesh.device).manual_seed(seed), cut=rank_cut(plan,
+                                                                    cfg))
+            release()
+        dist.barrier()
+    batch, fed = model_split_inputs(cfg, seed, mesh.device)
+    n, h = partition.homes_of(plan)
+    rows = slice(h * B // n, (h + 1) * B // n)
+    mine = {k: v[rows] for k, v in batch.items()}
+    model = LM(cfg)
+    sync(mesh.device)
+    ops.reset_launches()                      # the path's counted run
+    coll.reset_collectives()
+    dist.barrier()
+    t0 = time.perf_counter()
+    last, caches = model.prefill(params, mine, max_len=S + steps, plan=plan)
+    logits, calls = [last], [{"call": "prefill", "rows": B // n, "seq": S}]
+    for t in range(steps):
+        lg, caches = model.decode_step(params, caches,
+                                       {"tokens": fed[rows, t:t + 1]}, S + t,
+                                       plan=plan)
+        logits.append(lg)
+        calls.append({"call": "decode", "rows": B // n, "seq": 1})
+    sync(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    log = coll.collective_log()
+
+    def step():                      # the last decode step again, timed
+        return model.decode_step(params, caches, {
+            "tokens": fed[rows, -1:]}, S + steps - 1, plan=plan)
+    dist.barrier()
+    step_ms = cuda_ms(step, reps=3)
+    dist.barrier()
+    if mesh.rank == 0:
+        busy = device_busy_ms(step)
+    else:
+        step()
+        sync(mesh.device)
+    out = dict(home=h, tp=partition.tp_of(plan)[1], ms=ms,
+               decode_step_ms=step_ms,
+               decode_step_busy_ms=busy if mesh.rank == 0 else None,
+               logits=torch.stack(logits).float().cpu(),
+               cross_kv=list(caches[f"m{cfg.cross_attn_every - 1}"]["k"]
+                             .shape),
+               schedule=log_against_serve(log, serve_schedule(cfg, plan,
+                                                              calls))[:3],
+               collectives=len(log), wire=sum(r["wire_bytes"] for r in log),
+               launches=ops.launch_counts()["flash_attention"])
+    del params, caches
+    release()
+    return out
+
+
+def model_split_seq(mesh, name: str, seed: int) -> dict:
+    """(c) on this rank: the served stream (its picks, every pick's logits,
+    its log against `serve_schedule`), the self-attention cache bytes and
+    live slots its prefill built, and the merge check."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import rank_cut
+    from repro_torch.models import LM
+    from repro_torch.sharding import partition
+    spec = MODEL_SPLIT_SEQ[name]
+    cfg = get_config(spec["arch"]).replace(num_layers=spec["layers"])
+    plan = partition.make_plan(mesh, cfg, ShapeSpec(
+        "serve", spec["max_len"], spec["slots"], "decode"))
+    need(plan.cache_seq_axis == spec["axis"], f"model_split {name}: the "
+         f"plan homes the cache over {plan.cache_seq_axis!r}")
+    params = LM(cfg).init(torch.Generator(device=mesh.device).manual_seed(
+        seed), cut=rank_cut(plan, cfg))
+    reqs = model_split_stream(cfg, spec, seed)
+    built = {}
+    real = LM.prefill
+
+    def prefill(self, *a, **kw):
+        last, caches = real(self, *a, **kw)
+        attn = [c for c in caches.values()
+                if "kpos" in c and c["kpos"].dim() == 3]
+        built["bytes"] = sum(t.numel() * t.element_size() for c in attn
+                             for t in c.values())
+        built["blocks"] = [list(c["k"].shape) for c in attn]
+        built["live"] = bool(any((c["kpos"] >= 0).any() for c in attn))
+        return last, caches
+    with mock.patch.object(LM, "prefill", prefill):
+        run = rank_serve_run(cfg, params, plan, reqs, slots=spec["slots"],
+                             max_len=spec["max_len"], pad=None,
+                             page_size=None, policy="fifo")
+    run["cache"] = built
+    run["merge"] = merge_check(cfg, plan, spec["max_len"],
+                               max(len(d["prompt"]) for d in reqs), seed)
+    del params
+    release()
+    return run
+
+
+def model_split_child(device, seed: int) -> dict:
+    """One rank of the model_split phase (see the module docstring, 8h),
+    and the distinct shapes of every `flash_attention` call it made."""
+    need("jax" not in sys.modules, "a rank process imported JAX")
+    import torch.distributed as dist
+    from repro_torch.analysis import record
+    from repro_torch.core.mesh import RankMesh
+    meshes = {"d2m4": RankMesh(MODEL_SPLIT_MESH, device=device),
+              "data8": RankMesh({"data": 8, "model": 1}, device=device)}
+    out = {"rank": dist.get_rank()}
+    t0 = time.perf_counter()
+
+    def progress(what):
+        if out["rank"] == 0:
+            say(f"model_split progress: {time.perf_counter() - t0:.1f} s: "
+                f"{what} done (rank 0 holds "
+                f"{torch.cuda.memory_allocated()} B)")
+    # (b) first: its superblock is drawn whole on each rank in turn, and
+    # wants the card's memory free
+    with record() as launches:
+        out["vision"] = model_split_vision(meshes["d2m4"], seed)
+        progress("(b) llama-3.2-vision-90b")
+        for name, spec in MODEL_SPLIT_SEQ.items():
+            out[name] = model_split_seq(meshes[spec["mesh"]], name, seed)
+            progress(f"(c) {name}")
+        out["mamba"] = model_split_mamba(meshes["d2m4"], seed, progress)
+        progress("(a) trained")
+    out["kernel_shapes"] = sorted({f.call[1] for f in launches
+                                   if f.call[0].endswith("flash_attention")},
+                                  key=repr)
+    out["jax_free"] = "jax" not in sys.modules
+    return out
+
+
+def model_split_one(seed: int) -> dict:
+    """The one-process runs the ranks are held to, at the same depths and
+    on the same homes: (a)'s served stream and train step (loss and norm,
+    nothing written), (b)'s logits, (c)'s served streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HomeMesh, Locale
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM, steps
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.server import DecodeServer, Request
+    one = {}
+
+    def served(cfg, params, reqs, *, slots, max_len, pad, policy, homes):
+        locale = (Locale(HomeMesh({"data": homes}, device="cuda"), "data")
+                  if homes > 1 else None)
+        srv = DecodeServer(cfg, params, batch_slots=slots, max_len=max_len,
+                           locale=locale, scheduler=policy, prompt_pad=pad)
+        for d in reqs:
+            srv.submit(Request(**d))
+        picks = pick_recorder(srv)
+        srv.run()
+        return picks
+
+    m = MODEL_SPLIT_MAMBA
+    cfg = get_config(m["arch"]).replace(num_layers=m["layers"])
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    one["mamba"] = served(cfg, params, serve_streams(cfg, seed)["waves"][
+        :m["requests"]],
+                          slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                          pad=m["pad"], policy=m["policy"],
+                          homes=MODEL_SPLIT_MESH["data"])
+    fn = steps.make_train_step(LM(cfg, flash=False), cfg, steps.NULL_PLAN,
+                               AdamW(lr=TRAIN_LR))
+    state = {"adam": {"step": torch.zeros((), dtype=torch.int32,
+                                          device="cuda")}}
+    batch = SyntheticLM(cfg, m["batch"], m["seq"], seed,
+                        device="cuda").batch(0)
+    _, _, mt = fn(params, state, batch, accept=lambda mt: False)
+    one["mamba_train"] = {"loss": float(mt["loss"]),
+                          "grad_norm": float(mt["grad_norm"]),
+                          "logits": train_forward(cfg, None, params,
+                                                  batch)[1]}
+    del params, fn
+    release()
+
+    cfg = get_config("llama-3.2-vision-90b")
+    cfg = cfg.replace(num_layers=cfg.cross_attn_every)
+    S, steps_ = STACK_VISION_S, MODEL_SPLIT_VISION_STEPS
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    batch, fed = model_split_inputs(cfg, seed, "cuda")
+    model = LM(cfg)
+    last, caches = model.prefill(params, batch, max_len=S + steps_)
+    logits = [last]
+    for t in range(steps_):
+        lg, caches = model.decode_step(params, caches,
+                                       {"tokens": fed[:, t:t + 1]}, S + t)
+        logits.append(lg)
+    one["vision"] = torch.stack(logits).float().cpu()
+    del params, caches
+    release()
+
+    for name, spec in MODEL_SPLIT_SEQ.items():
+        cfg = get_config(spec["arch"]).replace(num_layers=spec["layers"])
+        params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(
+            seed))
+        homes = (spec["slots"] if spec["mesh"] == "d2m4" else 1)
+        one[name] = served(cfg, params, model_split_stream(cfg, spec, seed),
+                           slots=spec["slots"], max_len=spec["max_len"],
+                           pad=None, policy="fifo", homes=homes)
+        del params
+        release()
+    return one
+
+
+def unique_blocks(ranks: list, key) -> list:
+    """One rank of each (home, vocabulary block) pair, over `key(rank
+    result)`: where the batch is not homed every rank holds the same
+    rows, and `combine_picks` takes each block once."""
+    seen, out = set(), []
+    for r in ranks:
+        run = key(r)
+        if (run["home"], run["tp"]) not in seen:
+            seen.add((run["home"], run["tp"]))
+            out.append(r)
+    return out
+
+
+def phase_model_split(seed: int, smi: str) -> dict:
+    """Mamba2 and cross attention over "model" and the decode cache homed
+    by sequence, across 8 gloo ranks sharing the card (see the module
+    docstring, 8h)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import make_attention_inputs
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    release()
+    tol = SERVE_RANK_TOL
+    one = model_split_one(seed)
+    release()
+    t0 = time.perf_counter()
+    say(f"model_split progress: one-process runs in {t0 - t_phase:.1f} s")
+    # the ranks' allocators map their blocks in expandable segments: the
+    # vision superblock each draws whole in turn needs the card's memory
+    # in one piece
+    old_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn(model_split_child, MODEL_SPLIT_RANKS, "gloo", "cuda",
+                      seed)
+    finally:
+        if old_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old_conf
+    out = {"one_s": t0 - t_phase, "spawn_s": time.perf_counter() - t0}
+    need(all(r["jax_free"] for r in ranks), "model_split: a rank imported "
+                                            "JAX")
+
+    def run_checks(what, rs):
+        for r in rs:
+            need(not r["schedule"], f"model_split {what}: rank collectives "
+                                    f"differ from serve_schedule: "
+                                    f"{r['schedule'][:3]}")
+            need(r["tokens"] == rs[0]["tokens"], f"model_split {what}: the "
+                                                 f"ranks' tokens differ")
+        need(len({r["digest"] for r in rs}) == 1,
+             f"model_split {what}: the scheduler replicas diverged")
+
+    def summary(rs):
+        n_tok = sum(len(v) for v in rs[0]["tokens"].values())
+        wall = max(r["wall_s"] for r in rs)
+        return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                    collectives=[r["collectives"] for r in rs],
+                    wire=[r["wire"] for r in rs],
+                    staged=[r["staged"] for r in rs],
+                    peak_bytes=[r["peak_bytes"] for r in rs])
+
+    # ---- (a) mamba2-2.7b ----
+    m = MODEL_SPLIT_MAMBA
+    run = "waves-" + m["policy"]
+    rs = [r["mamba"]["runs"][run] for r in ranks]
+    run_checks("mamba", rs)
+    view = [{"meshes": {"mamba": r["mamba"]}} for r in ranks]
+    cmp = compare_picks(one["mamba"], combine_picks(
+        view, run, "mamba", MODEL_SPLIT_MESH["model"]), tol)
+    need(cmp["first_logits_rel"] is not None
+         and cmp["first_logits_rel"] <= tol,
+         f"model_split mamba: the first pick's logits differ from one "
+         f"process's by {cmp['first_logits_rel']}")
+    first = next(c[4] for c in one["mamba"] if c[4] is not None)
+    n = MODEL_SPLIT_MESH["data"]
+    planted = torch.cat([torch.cat([b for _, b in sorted(
+        (x["mamba"]["runs"][run]["tp"], x["mamba"]["planted"])
+        for x in ranks if x["mamba"]["runs"][run]["home"] == h)], dim=-1)
+        for h in range(n)])
+    cmp["planted_stat_rel"] = rel_err(planted, first)
+    need(cmp["planted_stat_rel"] > tol, f"model_split mamba: the planted "
+         f"unsummed statistic passes: {cmp['planted_stat_rel']} <= {tol}")
+    a = out["mamba"] = dict(summary(rs), vs_one_process=cmp)
+    tr = [r["mamba"]["train"] for r in ranks]
+    for rec in tr:
+        need(rec["schedule"] == [], f"model_split mamba train: rank "
+             f"collectives differ from train_schedule: {rec['schedule']}")
+    bad = replica_mismatches(tr, lambda x: x["digests"])
+    need(not bad, f"model_split mamba train: replicas differ {bad[:3]}")
+    ot = one["mamba_train"]
+    M = MODEL_SPLIT_MESH["model"]
+    a["train"] = dict(
+        step_ms=max(x["ms"] for x in tr), loss=tr[0]["loss"],
+        norm=tr[0]["grad_norm"], norm_one=ot["grad_norm"],
+        loss_rel=rel(tr[0]["loss"], ot["loss"]),
+        norm_rel=rel(tr[0]["grad_norm"], ot["grad_norm"]),
+        logits_rel=rel_err(assemble([(x["home"], x["tp"], x["logits"])
+                                     for x in tr], n, M), ot["logits"]),
+        planted_loss_rel=rel(tr[0]["planted_loss"], ot["loss"]),
+        planted_logits_rel=rel_err(assemble(
+            [(x["home"], x["tp"], x["planted_logits"]) for x in tr], n, M),
+            ot["logits"]),
+        collectives=[x["collectives"] for x in tr],
+        wire=[x["wire"] for x in tr], staged=[x["staged"] for x in tr],
+        peak_bytes=[x["peak_bytes"] for x in tr])
+    a["train"]["tokens_per_s"] = m["batch"] * m["seq"] / (
+        a["train"]["step_ms"] / 1e3)
+    t = a["train"]
+    # at full width the SSD's masked exp(seg) overflows in float32, and
+    # its backward (0 * inf) makes the norm NaN, one process's as the
+    # ranks' -- the reference's arithmetic: the norms must agree as NaN
+    norm_ok = (math.isnan(t["norm"]) and math.isnan(t["norm_one"])) or (
+        t["norm_rel"] <= TRAIN_RANK_NORM_RTOL)
+    need(t["loss_rel"] <= TRAIN_RANK_LOSS_RTOL and norm_ok
+         and t["logits_rel"] <= tol,
+         f"model_split mamba train: loss, norm or logits from one "
+         f"process's: {t} ")
+    # at random weights the loss stays near log(vocabulary) whatever the
+    # stack computes: the unsummed statistic moves it 1.6e-4 (H100, seed
+    # 0), under the loss bound, so the train forward's logits hold it
+    need(t["planted_logits_rel"] > tol, f"model_split mamba train: the "
+         f"planted unsummed statistic passes: {t['planted_logits_rel']}")
+
+    # ---- (b) llama-3.2-vision-90b ----
+    vs = [r["vision"] for r in ranks]
+    for r in vs:
+        need(not r["schedule"], f"model_split vision: rank collectives "
+             f"differ from serve_schedule: {r['schedule']}")
+    want = one["vision"]
+    got = torch.full_like(want, float("nan"))
+    b, v = want.shape[1] // n, want.shape[2] // MODEL_SPLIT_MESH["model"]
+    for r in vs:
+        got[:, r["home"] * b:(r["home"] + 1) * b,
+            r["tp"] * v:(r["tp"] + 1) * v] = r["logits"]
+    out["vision"] = dict(logits_rel=rel_err(got, want),
+                         ms=max(r["ms"] for r in vs),
+                         decode_step_ms=max(r["decode_step_ms"] for r in vs),
+                         decode_step_busy_ms=vs[0]["decode_step_busy_ms"],
+                         cross_cache=vs[0]["cross_kv"],
+                         collectives=[r["collectives"] for r in vs],
+                         wire=[r["wire"] for r in vs])
+    need(out["vision"]["logits_rel"] <= tol, f"model_split vision: logits "
+         f"{out['vision']['logits_rel']} from one process's")
+
+    # ---- (c) caches homed by sequence ----
+    for name, spec in MODEL_SPLIT_SEQ.items():
+        rs = [r[name] for r in ranks]
+        run_checks(name, rs)
+        view = [{"meshes": {name: {"runs": {"fifo": r[name]}}}}
+                for r in unique_blocks(ranks, lambda r: r[name])]
+        M = MODEL_SPLIT_MESH["model"] if spec["mesh"] == "d2m4" else 1
+        cmp = compare_picks(one[name], combine_picks(view, "fifo", name, M),
+                            tol)
+        need(cmp["first_logits_rel"] is not None
+             and cmp["first_logits_rel"] <= tol,
+             f"model_split {name}: the first pick's logits differ from one "
+             f"process's by {cmp['first_logits_rel']}")
+        need(cmp["compared"] >= spec["slots"] * spec["new"],
+             f"model_split {name}: {cmp['compared']} picks compared")
+        cfg = get_config(spec["arch"])
+        shards = 8 // M if spec["axis"] == "data" else M
+        rows = spec["slots"] // (2 if spec["mesh"] == "d2m4" else 1)
+        blk = spec["max_len"] // shards
+        item = getattr(torch, cfg.dtype).itemsize
+        want_bytes = spec["layers"] * rows * blk * (
+            2 * cfg.num_kv_heads * cfg.head_dim * item + 4)
+        for r in rs:
+            need(r["cache"]["bytes"] == want_bytes, f"model_split {name}: "
+                 f"a rank's cache holds {r['cache']['bytes']} B, its block "
+                 f"{want_bytes} B")
+        live = sum(r["cache"]["live"] for r in rs)
+        merges = [r["merge"] for r in rs]
+        need(max(x["sound"] for x in merges) <= tol, f"model_split {name}: "
+             f"the blocks' merge {merges} from the plain attention")
+        need(min(x["planted"] for x in merges) > tol, f"model_split {name}: "
+             f"the dropped partial passes: {merges}")
+        out[name] = dict(summary(rs), vs_one_process=cmp,
+                         cache_bytes=want_bytes, block=rs[0]["cache"][
+                             "blocks"][0], ranks_with_keys=live,
+                         merge_rel=max(x["sound"] for x in merges),
+                         planted_rel=min(x["planted"] for x in merges),
+                         kinds=rs[0]["kinds"])
+    need(out["qwen_data"]["ranks_with_keys"] == 6,
+         f"model_split qwen_data: keys on "
+         f"{out['qwen_data']['ranks_with_keys']} ranks, want 6")
+
+    # ---- every flash_attention call the ranks made, timed ----
+    calls = sorted({tuple(c) for r in ranks for c in r["kernel_shapes"]},
+                   key=repr)
+    need(calls, "model_split: the ranks made no flash_attention call")
+    out["cells"] = {}
+    for call in calls:
+        B, H, KV, Sq, Skv, hd, _, _, causal, window, dtype = call[:11]
+        q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
+                   for x in make_attention_inputs(B, H, KV, Sq, Skv, hd,
+                                                  dtype, seed))
+        out["cells"][f"{B}x{H}x{KV}x{Sq}x{Skv}x{hd}"] = kernel_cell(
+            q, k, v, causal=causal, window=window)
+        del q, k, v
+    need(any(not c["causal"] and c["shape"] == [1, 16, 2, 512, 4096, 128]
+             for c in out["cells"].values()),
+         f"model_split: no cross launch at the rank shape: "
+         f"{list(out['cells'])}")
+    # flash_attention's launches by rank in each counted run: none for
+    # mamba, 4 causal and 1 cross a vision prefill, a layer a wave for (c)
+    out["rank_launches"] = {
+        "model_split_mamba": [r["mamba"]["runs"][run]["launches"].get(
+            "flash_attention", 0) for r in ranks],
+        "model_split_vision": [r["vision"]["launches"] for r in ranks],
+        **{f"model_split_{k}": [r[k]["launches"].get("flash_attention", 0)
+                                for r in ranks] for k in MODEL_SPLIT_SEQ}}
+    want_launches = {"model_split_mamba": 0, "model_split_vision": 5,
+                     **{f"model_split_{k}": spec["layers"]
+                        for k, spec in MODEL_SPLIT_SEQ.items()}}
+    for k, got_l in out["rank_launches"].items():
+        need(got_l == [want_launches[k]] * MODEL_SPLIT_RANKS,
+             f"model_split: flash_attention launches by rank in {k} "
+             f"{got_l}, want {want_launches[k]} each")
+    out["seconds"] = time.perf_counter() - t_phase
+
+    say(f"phase model_split mamba ({smi}): mamba2-2.7b bf16 at full width, "
+        f"{m['layers']} of 64 layers, on {MODEL_SPLIT_MESH} ({MODEL_SPLIT_RANKS}"
+        f" gloo ranks sharing the card), the serve_ranks stream in aligned "
+        f"waves padded to {m['pad']}, {m['policy']}: {a['tokens']} tokens in "
+        f"{a['wall_s']:.3f} s ({a['tokens_per_s']:.1f} tokens/s); "
+        f"collectives by rank "
+        f"{a['collectives']}, wire {a['wire']}, staged {a['staged']}, peak "
+        f"{a['peak_bytes']}; each log == serve_schedule; against one "
+        f"process " + json.dumps(a["vs_one_process"]))
+    t = a["train"]
+    say(f"phase model_split mamba train ({smi}): one step of "
+        f"{m['batch']} x {m['seq']} on {MODEL_SPLIT_MESH} (sequence-sharded "
+        f"residual, remat): {t['step_ms']:.1f} ms by the slowest rank, "
+        f"{t['tokens_per_s']:.0f} tokens/s; loss {t['loss']:.5f}, "
+        f"{t['loss_rel']:.3g} from one process's (<= "
+        f"{TRAIN_RANK_LOSS_RTOL}), norm {t['norm']} (one process "
+        f"{t['norm_one']}), the forward's last 16 positions' logits "
+        f"{t['logits_rel']:.3g} (<= {tol}); planted unsummed statistic: "
+        f"loss {t['planted_loss_rel']:.3g}, logits "
+        f"{t['planted_logits_rel']:.3g}, first pick "
+        f"{a['vs_one_process']['planted_stat_rel']:.3g}; "
+        f"collectives {t['collectives']}, wire {t['wire']}, staged "
+        f"{t['staged']}, peak {t['peak_bytes']}; log == train_schedule, "
+        f"replicas equal")
+    vv = out["vision"]
+    say(f"phase model_split vision ({smi}): llama-3.2-vision-90b bf16 at "
+        f"full width, one superblock, prefill (2, 512) over 4096 image "
+        f"tokens and {MODEL_SPLIT_VISION_STEPS} decode steps on "
+        f"{MODEL_SPLIT_MESH} in {vv['ms']:.1f} ms, a decode step "
+        f"{vv['decode_step_ms']:.2f} ms (rank 0 busy "
+        f"{vv['decode_step_busy_ms']:.2f}): logits "
+        f"{vv['logits_rel']:.3g} from one process's (<= {tol}); the cross "
+        f"cache a rank {vv['cross_cache']}; collectives {vv['collectives']},"
+        f" wire {vv['wire']}; each log == serve_schedule")
+    for name in MODEL_SPLIT_SEQ:
+        r = out[name]
+        say(f"phase model_split {name} ({smi}): {r['tokens']} tokens in "
+            f"{r['wall_s']:.3f} s ({r['tokens_per_s']:.1f} tokens/s); cache "
+            f"block {r['block']} a rank ({r['cache_bytes']} B), keys on "
+            f"{r['ranks_with_keys']} ranks after the prefill; collectives "
+            f"{r['collectives']} ({r['kinds']}), wire {r['wire']}, staged "
+            f"{r['staged']}, peak {r['peak_bytes']}; each log == "
+            f"serve_schedule; merge {r['merge_rel']:.3g}, dropped partial "
+            f"{r['planted_rel']:.3g} (bound {tol}); against one process "
+            + json.dumps(r["vs_one_process"]))
+    say("phase model_split flash_attention at the ranks' call shapes "
+        "(kernel, plain, SDPA ms; bound): " + json.dumps(
+            {k: {f: c[f] for f in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err")}
+             for k, c in out["cells"].items()})
+        + f"; phase {out['seconds']:.1f} s ({out['one_s']:.1f} s one "
+        f"process, {out['spawn_s']:.1f} s the ranks) [{smi}]")
+    return out
+
+
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -5300,6 +6062,7 @@ def main(argv=None) -> int:
         train = phase_train(args.seed, smi)
         cpu_sorts = cpu_sorts.result()
     train_ranks = phase_train_ranks(args.seed, smi, train)
+    model_split = phase_model_split(args.seed, smi)
     dtypes = phase_dtypes(args.seed)
     full_width = {
         "flagship": flat.pop("recorded") + hier.pop("recorded")
@@ -5350,10 +6113,21 @@ def main(argv=None) -> int:
     attention["line"]["rank_launches"] = dict(
         attention["line"]["rank_launches"], **serve_ranks["rank_launches"],
         **{f"serve_moe_{p}": r["launches"]
-           for p, r in serve_ranks["moe"]["runs"].items()})
+           for p, r in serve_ranks["moe"]["runs"].items()},
+        **model_split["rank_launches"])
+    # the rank call shapes of the model_split phase, timed
+    attention["line"]["model_split_cells"] = {
+        tag: {k: c[k] for k in ("shape", "causal", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "max_abs_err")}
+        for tag, c in model_split["cells"].items()}
+    attention["line"]["max_abs_err"] = max(
+        attention["line"]["max_abs_err"],
+        *(c["max_abs_err"] for c in model_split["cells"].values()))
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
              "floor_ms", "rank_launches", "stack_launches", "stack_cells",
+             "model_split_cells",
              *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
@@ -5364,7 +6138,7 @@ def main(argv=None) -> int:
              "constraint": constraint, "fig1": fig1, "attention": attention,
              "serve": serve, "serve_ranks": serve_ranks, "stack": stack,
              "train": train, "train_ranks": train_ranks,
-             "dtypes": dtypes,
+             "model_split": model_split, "dtypes": dtypes,
              "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))

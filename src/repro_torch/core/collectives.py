@@ -26,8 +26,8 @@ ones over the mesh's axis subgroups:
                                       order (``psum(x)`` sliced, bit for
                                       bit).
 
-Training differentiates through them (`Enter`, `Exit`, `Gather`,
-`Scatter`, below): each is a ``torch.autograd.Function`` whose backward is
+Training differentiates through them (`Enter`, `Exit`, `AllReduce`,
+`Gather`, `Scatter`, below): each is a ``torch.autograd.Function`` whose backward is
 itself a counted collective, Megatron's f/g pair and the sequence and
 FSDP gathers.
 
@@ -346,6 +346,24 @@ class Exit(torch.autograd.Function):
         return g, None, None
 
 
+class AllReduce(torch.autograd.Function):
+    """A `psum` both ways: a statistic every rank of `axes` needs whole,
+    summed from the parts each rank computes from its own columns (the
+    Mamba2 gated norm's sum of squares over ``d_inner``).  Every rank
+    uses the whole sum, so each rank's gradient of it is a part of the
+    whole gradient, which every part's gradient is: neither Megatron's f
+    (`Enter`) nor g (`Exit`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return psum(x.contiguous(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
 class Gather(torch.autograd.Function):
     """`all_gather` along `dim` forward; `reduce_scatter` along `dim`
     backward: the gathered value feeds each rank's part of a computation,
@@ -445,6 +463,6 @@ def census(log: Sequence[Dict]) -> Dict[str, Dict]:
 
 __all__ = ["all_to_all", "all_to_all_v", "ppermute", "all_gather", "psum",
            "reduce_scatter", "gather_dim", "scatter_dim", "Enter", "Exit",
-           "Gather", "Scatter",
+           "AllReduce", "Gather", "Scatter",
            "collective_log", "reset_collectives", "staged_bytes",
            "log_against_schedule", "log_against_moves", "census"]

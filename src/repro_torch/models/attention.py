@@ -13,10 +13,20 @@ under a sliding window, the static image K/V through a cross layer.
 Where the reference's einsums accumulate in float32
 (``preferred_element_type``), the operands are cast to float32 first, so
 that a bfloat16 product is not rounded to bfloat16 in between.
+
+Across ranks a plan that homes the decode cache by sequence
+(``cache_seq_axis``, `partition.cache_block`) leaves each rank a block
+of the self-attention cache's slots: decode writes a token on the rank
+whose block holds its slot, each rank attends over its block in float32
+(`decode_partials`: the block's max, sum of exponentials and weighted
+values) and the blocks' partials are merged as a log-sum-exp combine
+(`merge_partials`) after a counted all-gather -- or, with the cache over
+"model" while ``wq``/``wo`` stay cut by heads, after an all-gather of q
+and an all-to-all of the partials by head (`rank_heads`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,8 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import needs_grad
 from repro_torch.models.common import ninit, out_scale, pdt, rmsnorm, rope
-from repro_torch.sharding.partition import (enter_region, exit_region,
-                                            tp_of)
+from repro_torch.sharding.partition import (cache_block, cache_seq,
+                                            enter_region, exit_region, tp_of)
 
 NEG_INF = -1e30
 
@@ -238,24 +248,83 @@ def decode_attention(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
     return out.to(q.dtype)
 
 
+def decode_partials(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
+    """`decode_attention` over one block of a cache's slots, unnormalised:
+    ``(B, KV, Gq, Sq, hd + 2)`` float32 holding each query's weighted
+    values over the block (``sum exp(s - m) v``), then the block's max
+    score ``m`` and sum of exponentials ``l`` -- the partial that
+    `merge_partials` combines with the other blocks'.  A block with no
+    live key has ``m`` = -1e30, which the merge weighs by 0."""
+    B, Sq, KV, Gq, hd = q.shape
+    Sc = cache_k.shape[1]
+    if kpos.dim() == 1:
+        kpos = kpos[None].expand(B, Sc)
+    pos = _rowwise_positions(pos, B, Sq, q.device)
+    qt = q.permute(0, 2, 3, 1, 4).float()              # (B, KV, Gq, Sq, hd)
+    s = torch.einsum("bkgqd,bskd->bkgqs", qt, cache_k.float()) * hd ** -0.5
+    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= pos[:, :, None])
+    if window:
+        mask = mask & ((pos[:, :, None] - kpos[:, None, :]) < window)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, cache_v.float())
+    return torch.cat([acc, m[..., None], p.sum(dim=-1)[..., None]], dim=-1)
+
+
+def merge_partials(parts):
+    """The attention output from the blocks' partials stacked on dim 0
+    (`decode_partials`' layout after it): the log-sum-exp combine, in
+    block order, so every rank holding the same partials gets the same
+    bits.  Returns (..., hd) float32."""
+    acc, m, l = parts[..., :-2], parts[..., -2], parts[..., -1]
+    top = m.amax(dim=0)
+    c = torch.exp(m - top)
+    total = (l * c).sum(dim=0)
+    return (acc * c[..., None]).sum(dim=0) / torch.clamp(
+        total, min=1e-20)[..., None]
+
+
 def _project(x, w):
     """``einsum("bsd,dhk->bshk", x, w)`` in x's dtype."""
     B, S, D = x.shape
     return (x @ w.to(x.dtype).reshape(D, -1)).view(B, S, *w.shape[1:])
 
 
-def write_cache(cache: dict, k_new, v_new, pos, write_mask=None) -> None:
+def write_cache(cache: dict, k_new, v_new, pos, write_mask=None,
+                slots: Optional[int] = None, lo: int = 0) -> None:
     """Write the new tokens' K/V into `cache` ({k, v: (B, Sc, KV, hd),
     kpos: (B, Sc)}) in place, at slot ``pos % Sc`` of their own row;
     a token whose `write_mask` (B, Sq) is False leaves its slot as it was.
     The reference's masked one-hot scatter, as a gather and a scatter:
     the values committed are the same bits.  A row's Sq positions must
-    fall on distinct slots (Sq <= Sc, as without a sliding window)."""
+    fall on distinct slots (Sq <= Sc, as without a sliding window).
+
+    `slots` given: `cache` is the block of a cache of that many slots
+    homed by sequence that starts at slot `lo` (`partition.cache_block`),
+    and only the tokens whose slot lies in it are written, at ``slot -
+    lo``, one query column at a time (a token outside the block is
+    clamped to a slot it leaves as it was, which may be one another
+    column writes)."""
     B, Sq = pos.shape
-    Sc = cache["k"].shape[1]
-    slot = pos % Sc
+    blk = cache["k"].shape[1]
     wmask = (torch.ones((B, Sq), dtype=torch.bool, device=pos.device)
              if write_mask is None else write_mask)
+    if slots is None:
+        _scatter_slots(cache, k_new, v_new, pos, pos % blk, wmask)
+        return
+    local = pos % slots - lo
+    wmask = wmask & (local >= 0) & (local < blk)
+    local = local.clamp(0, blk - 1)
+    for j in range(Sq):
+        c = slice(j, j + 1)
+        _scatter_slots(cache, k_new[:, c], v_new[:, c], pos[:, c],
+                       local[:, c], wmask[:, c])
+
+
+def _scatter_slots(cache: dict, k_new, v_new, pos, slot, wmask) -> None:
+    """`write_cache`'s gather and scatter at (B, Sq) cache `slot`s."""
+    B, Sq = pos.shape
     for name, new in (("k", k_new), ("v", v_new)):
         leaf = cache[name]
         idx = slot[:, :, None, None].expand(B, Sq, *leaf.shape[2:])
@@ -267,13 +336,16 @@ def write_cache(cache: dict, k_new, v_new, pos, write_mask=None) -> None:
                                      kp.gather(1, slot)))
 
 
-def _build_cache(k, v, positions, *, window: int, cache_len) -> dict:
+def _build_cache(k, v, positions, *, window: int, cache_len,
+                 plan=None) -> dict:
     """The decode cache a prefill of (B, Sq) tokens builds from its K/V:
     sized for the decode horizon ``max(cache_len, Sq)``, or a ring of
     ``Sc = min(window, horizon)`` slots under a sliding window, holding
     the last ``keep = min(Sc, Sq)`` positions at slots 0 .. keep-1, the
     rest empty (position -1).  Per-row kpos: decode is per-slot-clocked,
-    so each row carries its own occupancy map from here on.
+    so each row carries its own occupancy map from here on.  Where the
+    plan homes the cache by sequence, this rank's block of those slots
+    (`partition.cache_block`).
 
     The reference's layout, kept as it is: decode writes position p at
     slot ``p % Sc``, which is where prefill put it only when ``Sq <= Sc``
@@ -283,49 +355,107 @@ def _build_cache(k, v, positions, *, window: int, cache_len) -> dict:
     total = max(cache_len or Sq, Sq)
     Sc = min(window, total) if window else total
     keep = min(Sc, Sq)
-    ck = k.new_zeros((B, Sc, *k.shape[2:]))
-    cv = v.new_zeros((B, Sc, *v.shape[2:]))
-    ck[:, :keep] = k[:, Sq - keep:]
-    cv[:, :keep] = v[:, Sq - keep:]
-    kp = torch.full((B, Sc), -1, dtype=torch.int32, device=k.device)
-    kp[:, :keep] = positions[Sq - keep:].to(torch.int32)
+    lo, blk = cache_block(Sc, plan)
+    ck = k.new_zeros((B, blk, *k.shape[2:]))
+    cv = v.new_zeros((B, blk, *v.shape[2:]))
+    kp = torch.full((B, blk), -1, dtype=torch.int32, device=k.device)
+    a, b = lo, min(lo + blk, keep)         # the block's slots holding keys
+    if b > a:
+        src = slice(Sq - keep + a, Sq - keep + b)
+        ck[:, a - lo:b - lo] = k[:, src]
+        cv[:, a - lo:b - lo] = v[:, src]
+        kp[:, a - lo:b - lo] = positions[src].to(torch.int32)
     return {"k": ck, "v": cv, "kpos": kp}
 
 
-def rank_heads(cfg: ArchConfig, plan=None):
-    """``(q heads, KV heads, KV selector, split)`` of this rank's attention.
+class RankHeads(NamedTuple):
+    """This rank's share of an attention layer (`rank_heads`)."""
 
-    Unsplit: ``(H, KV, slice(None), False)``.  Across the ranks of a
-    "model" axis where the plan sets ``head_axis``, rank i holds the q
-    heads ``[i * H/M, (i + 1) * H/M)`` and attends over the KV heads
+    H: int                 # q heads (its ``wq``/``wo`` block)
+    KV: int                # KV heads those q heads read
+    kv_sel: slice          # their range of the KV heads it holds
+    split: bool            # whether ``wo``'s products are partial sums
+    seq: Tuple[int, int]   # (ranks, index) homing the cache's sequence
+    by_head: bool          # the cache over "model" with heads split there
+
+
+def rank_heads(cfg: ArchConfig, plan=None) -> RankHeads:
+    """This rank's heads, and the block of the decode cache it holds.
+
+    Unsplit: all ``H`` q heads over all ``KV`` heads.  Across the ranks
+    of a "model" axis where the plan sets ``head_axis``, rank i holds the
+    q heads ``[i * H/M, (i + 1) * H/M)`` and attends over the KV heads
     they read, ``h // (H / KV)``: with ``kv_axis`` set its own block of
     KV heads (the whole selector), else the contiguous range of the
-    whole (replicated) KV heads those q heads read.  A plan that homes
-    the decode cache's sequence over ranks (``cache_seq_axis``, caches
-    of 8192 positions or more) is not served across ranks yet."""
+    whole (replicated) KV heads those q heads read.
+
+    ``seq``: where the plan homes the decode cache's sequence over ranks
+    (``cache_seq_axis``: over "data" when the batch does not divide over
+    the homes, over "model" when the KV heads do not), each rank of that
+    axis keeps a block of the self-attention cache's slots, with the KV
+    heads its head split gives it.  ``by_head``: the cache over "model"
+    while the heads are cut there too -- decode then gathers every
+    head's q for its block and sends each rank its heads' partials (the
+    reference keeps the heads whole on that axis,
+    `repro/models/attention.py:276-283`)."""
     H, KV = cfg.num_heads, cfg.num_kv_heads
     M, i = tp_of(plan)
-    if M == 1:
-        return H, KV, slice(None), False
-    if plan.cache_seq_axis is not None:
-        raise NotImplementedError(
-            f"a decode cache homed over {plan.cache_seq_axis!r} by sequence "
-            f"(cache_seq_axis) is not served across ranks yet (ROADMAP.md "
-            f"Queue 1)")
-    if plan.head_axis is None:
-        return H, KV, slice(None), False
+    seq = cache_seq(plan)
+    if M == 1 or plan.head_axis is None:
+        return RankHeads(H, KV, slice(None), False, seq, False)
     Hl, Gq = H // M, H // KV
+    by_head = seq[0] > 1 and plan.cache_seq_axis == plan.tp
     if plan.kv_axis is not None:
-        return Hl, KV // M, slice(None), True
+        return RankHeads(Hl, KV // M, slice(None), True, seq, by_head)
     lo, hi = i * Hl // Gq, ((i + 1) * Hl - 1) // Gq + 1
-    return Hl, hi - lo, slice(lo, hi), True
+    return RankHeads(Hl, hi - lo, slice(lo, hi), True, seq, by_head)
+
+
+def _decode_blocks(q, cache: dict, pos, *, slots: int, rh: RankHeads,
+                   window: int, plan):
+    """Decode attention over a cache homed by sequence: this rank's
+    partials over its block (its real slots: a padded tail is left out),
+    merged across the cache's axis -- all-gathered there, or with
+    ``rh.by_head`` every head's q all-gathered over "model" first and
+    the partials sent to their heads' ranks by one all-to-all.  q: (B,
+    Sq, H, hd) of the rank's heads; returns (B, Sq, H, hd) float32."""
+    from repro_torch.core import collectives
+    B, Sq, H, hd = q.shape
+    n, ci = rh.seq
+    kv_sel = rh.kv_sel
+    lo, blk = cache_block(slots, plan)
+    real = min(blk, slots - lo)
+    if real <= 0:
+        raise ValueError(f"a cache of {slots} slots leaves rank {ci} of "
+                         f"{n} no slot")
+    ck, cv, kp = (cache["k"][:, :real], cache["v"][:, :real],
+                  cache["kpos"][:, :real])
+    mesh, cax = plan.mesh, (plan.cache_seq_axis,)
+    if rh.by_head:
+        M = n
+        qa = collectives.all_gather(q.contiguous(), mesh, cax)
+        qa = qa.permute(1, 2, 0, 3, 4).reshape(B, Sq, M * H, hd)
+        KV = ck.shape[2]
+        part = decode_partials(qa.reshape(B, Sq, KV, M * H // KV, hd),
+                               ck, cv, kp, pos, window=window)
+        part = part.reshape(B, M, H, Sq, hd + 2).transpose(0, 1)
+        parts = collectives.all_to_all(part.contiguous(), mesh, cax)
+        out = merge_partials(parts)                    # (B, H, Sq, hd)
+        return out.transpose(1, 2)
+    KV = ck[:, :, kv_sel].shape[2]
+    part = decode_partials(q.reshape(B, Sq, KV, H // KV, hd),
+                           ck[:, :, kv_sel], cv[:, :, kv_sel], kp, pos,
+                           window=window)
+    out = merge_partials(collectives.all_gather(part, mesh, cax))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
 def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
                     cache: Optional[dict] = None, pos=None, kv_src=None,
                     build_cache: bool = False, cross: bool = False,
                     kv_chunk: int = 1024, cache_len: Optional[int] = None,
-                    write_mask=None, flash: bool = True, plan=None):
+                    write_mask=None, flash: bool = True, plan=None,
+                    cache_slots: Optional[int] = None):
     """Full attention block body (no residual/norm -- the block adds those).
 
     Returns (y, new_cache).  Decode (`cache` given, {k, v, kpos} of this
@@ -344,14 +474,24 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
     read: its ``wq``/``wo`` blocks, its ``wk``/``wv`` (and cache) block
     where the KV heads are split too, else the KV heads' contiguous
     range of the whole ones; ``wo``'s partial products are summed by one
-    `psum`.  Training with the residual sequence-sharded (`partition.
-    seq_split`) gathers `x`'s sequence first and reduce-scatters ``wo``'s
-    partial products back onto the rank's rows (`enter_region`,
-    `exit_region`); `positions` are the whole sequence's.
+    `psum`.  A cross layer's image K/V are projected at the rank's KV
+    heads the same way, and its static cache holds them (the reference's
+    ``P(None, b, None, kv, None)``; its kpos stays whole).  Training
+    with the residual sequence-sharded (`partition.seq_split`) gathers
+    `x`'s sequence first and reduce-scatters ``wo``'s partial products
+    back onto the rank's rows (`enter_region`, `exit_region`);
+    `positions` are the whole sequence's.
+
+    A plan that homes the decode cache by sequence (``rank_heads(...)
+    .seq``): prefill builds this rank's block of the cache it computes,
+    and decode writes and attends as the module docstring says;
+    `cache_slots` is the whole cache's slot count (default the block's
+    times the ranks: pass it where they do not divide it).
     """
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     W = 0 if cross else cfg.sliding_window
-    H, KV, kv_sel, split = rank_heads(cfg, plan)
+    rh = rank_heads(cfg, plan)
+    H, KV, kv_sel, split = rh.H, rh.KV, rh.kv_sel, rh.split
     Gq = H // KV
     x = enter_region(x, plan, split)
     B, Sq, D = x.shape
@@ -377,12 +517,19 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
         pos = _rowwise_positions(pos, B, Sq, x.device)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-        write_cache(cache, k, v, pos, write_mask)
         new_cache = cache
-        out = decode_attention(q.reshape(B, Sq, KV, Gq, hd),
-                               cache["k"][:, :, kv_sel],
-                               cache["v"][:, :, kv_sel], cache["kpos"], pos,
-                               window=W)
+        if rh.seq[0] == 1:
+            write_cache(cache, k, v, pos, write_mask)
+            out = decode_attention(q.reshape(B, Sq, KV, Gq, hd),
+                                   cache["k"][:, :, kv_sel],
+                                   cache["v"][:, :, kv_sel], cache["kpos"],
+                                   pos, window=W)
+        else:
+            slots = cache_slots or cache["k"].shape[1] * rh.seq[0]
+            write_cache(cache, k, v, pos, write_mask, slots=slots,
+                        lo=cache_block(slots, plan)[0])
+            out = _decode_blocks(q, cache, pos, slots=slots, rh=rh,
+                                 window=W, plan=plan).to(q.dtype)
     else:
         # ---- train / prefill
         if positions is None:
@@ -414,7 +561,7 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
                                              device=x.device)}
         elif build_cache:
             new_cache = _build_cache(k, v, positions, window=W,
-                                     cache_len=cache_len)
+                                     cache_len=cache_len, plan=plan)
 
     y = exit_region(out.reshape(B, Sq, H * hd)
                     @ p["wo"].to(x.dtype).reshape(H * hd, D), plan, split)

@@ -11,7 +11,8 @@ Training rematerialises each superblock when ``cfg.parallel.remat``
 (`apply_stack`), as the reference checkpoints its scan body.
 
 Every function takes the ``plan`` and hands it to the members
-(`attention.apply_attention`, `common.apply_mlp`, `moe.apply_moe`).
+(`attention.apply_attention`, `mamba2.apply_mamba`/`decode_mamba`,
+`common.apply_mlp`, `moe.apply_moe`).
 Serving keeps every rank of a home's residual whole (its decode plan has
 no ``seq_axis``).  Training across ranks carries the reference's
 constraint here (`repro/models/blocks.py:131`): the residual stream
@@ -21,10 +22,11 @@ FSDP each superblock's leaves are all-gathered over ``fsdp_axes`` inside
 the rematerialised function (`apply_stack`), so the gathered weights live
 for the superblock's forward only and are gathered again in the
 recompute, as under the reference's ``jax.checkpoint`` of its scan body.
-Mamba2 and cross-attention members are not split over "model" yet and
-raise with "model" > 1 (`partition.no_split`); with "model" = 1 every
-member runs data-parallel, each home running the whole model on its own
-rows.
+Every member kind is split over "model" as the plan says -- attention
+and cross attention by heads, Mamba2 by SSD heads and their ``d_inner``
+columns, the MLP by columns, the MoE by experts or columns -- and with
+"model" = 1 every member runs data-parallel, each home running the whole
+model on its own rows.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from repro_torch.models.attention import (_rowwise_positions, apply_attention,
 from repro_torch.models.common import apply_mlp, init_mlp, rmsnorm
 from repro_torch.models.mamba2 import apply_mamba, decode_mamba, init_mamba
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.sharding.partition import fsdp_gather, homes_of, no_split
+from repro_torch.sharding.partition import fsdp_gather, homes_of
 from repro_torch.tree import tree_map
 
 
@@ -132,21 +134,13 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, cut=None):
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
-def _check_split(spec: MemberSpec, plan) -> None:
-    if spec.mixer == "mamba":
-        no_split(plan, "a Mamba2 member")
-    elif spec.mixer == "cross":
-        no_split(plan, "a cross-attention member")
-
-
 def _apply_member(p, spec: MemberSpec, x, *, cfg, positions, img_embeds,
                   build_cache: bool, cache_len, flash: bool, plan=None,
                   train: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    _check_split(spec, plan)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
-        mix, cache = apply_mamba(p["mamba"], h, cfg)
+        mix, cache = apply_mamba(p["mamba"], h, cfg, plan)
     else:
         cross = spec.mixer == "cross"
         mix, cache = apply_attention(
@@ -226,18 +220,18 @@ def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
 # decode (Sq tokens per row, cache update)
 # ---------------------------------------------------------------------------
 def _decode_member(p, spec: MemberSpec, x, cache, pos, *, cfg,
-                   write_mask=None, plan=None):
-    _check_split(spec, plan)
+                   write_mask=None, plan=None, cache_slots=None):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
         if x.shape[1] != 1:
             raise ValueError("mamba decode is strictly sequential: "
                              f"one token per call, got {x.shape[1]}")
-        mix, _ = decode_mamba(p["mamba"], h, cache, cfg)
+        mix, _ = decode_mamba(p["mamba"], h, cache, cfg, plan)
     else:
         mix, _ = apply_attention(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
                                  cross=spec.mixer == "cross",
-                                 write_mask=write_mask, plan=plan)
+                                 write_mask=write_mask, plan=plan,
+                                 cache_slots=cache_slots)
     x = x + mix
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -252,7 +246,7 @@ def _decode_member(p, spec: MemberSpec, x, cache, pos, *, cfg,
 
 
 def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None,
-                 plan=None):
+                 plan=None, cache_slots=None):
     """x: (B, S, D); caches: dict tree with a leading superblock axis.
 
     ``pos`` is a scalar, (B,) or (B, S) of absolute query positions
@@ -260,7 +254,9 @@ def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None,
     Returns (x, caches): the caches -- KV rings, SSM and conv states --
     are written in place, the bits the reference's functional update
     gives.  The cache is donated (`Locale.jit`): a caller that reads the
-    old cache afterwards copies it first."""
+    old cache afterwards copies it first.  `cache_slots`: the whole
+    self-attention cache's slots where the plan homes it by sequence
+    (`attention.apply_attention`)."""
     members = superblock_spec(cfg)
     pos = _rowwise_positions(pos, x.shape[0], x.shape[1], x.device)
     for i in range(num_superblocks(cfg)):
@@ -268,5 +264,6 @@ def decode_stack(stack, caches, x, pos, *, cfg: ArchConfig, write_mask=None,
         for j, m in enumerate(members):
             x = _decode_member(sb[f"m{j}"], m, x,
                                tree_index(caches[f"m{j}"], i), pos, cfg=cfg,
-                               write_mask=write_mask, plan=plan)
+                               write_mask=write_mask, plan=plan,
+                               cache_slots=cache_slots)
     return x, caches

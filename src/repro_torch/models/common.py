@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.sharding.partition import enter_region, exit_region
+from repro_torch.sharding.partition import (enter_region, exit_region,
+                                            psum_stat, tp_of)
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -59,9 +60,22 @@ def rmsnorm(x, scale, eps: float):
     return (y * scale.float()).to(x.dtype)
 
 
-def gated_rmsnorm(x, gate, scale, eps: float):
-    """Mamba2-style: norm(x * silu(gate))."""
-    return rmsnorm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
+def gated_rmsnorm(x, gate, scale, eps: float, plan=None):
+    """Mamba2-style: norm(x * silu(gate)) over the whole ``d_inner``.
+
+    Across the ranks of a "model" axis (`plan` on a `RankMesh`) `x`,
+    `gate` and `scale` hold this rank's columns: each rank's float32 sum
+    of squares (B, S, 1) is summed over "model" by one counted all-reduce
+    (`partition.psum_stat`, whose gradient is summed too) and divided by
+    the whole width."""
+    g = x * F.silu(gate.float()).to(x.dtype)
+    M = tp_of(plan)[0]
+    if M == 1:
+        return rmsnorm(g, scale, eps)
+    gf = g.float()
+    var = psum_stat(gf.square().sum(dim=-1, keepdim=True), plan) \
+        / (gf.shape[-1] * M)
+    return (gf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

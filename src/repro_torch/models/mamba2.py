@@ -7,6 +7,20 @@ boundaries.  The reference's ``lax.scan`` over chunks is a Python loop
 here that emits the state *entering* each chunk.  Decode is the recurrent
 one-token step; it writes the layer's state ({ssm, conv_x, conv_bc}) in
 place, as attention writes its KV cache.
+
+Across the ranks of a "model" axis (a `plan` on a `RankMesh`) rank i of
+M runs the SSD heads ``[i Hs/M, (i+1) Hs/M)`` (the reference's heads
+over ``plan.tp``, `repro/models/mamba2.py:71`): its blocks of ``wz``,
+``wx``, ``wdt`` and ``conv_x`` (columns) and ``out_proj`` (rows), the
+whole ``wBC`` and ``conv_bc`` of which it keeps the groups its heads
+read, and its heads' or columns' slices of the whole ``A_log``,
+``dt_bias``, ``D_skip`` and ``ssm_norm``.  The gated norm sums its
+statistic over "model" (`common.gated_rmsnorm`) and ``out_proj``'s
+partial products are summed as ``wo``'s are (`partition.exit_region`);
+training gathers the sequence first where the residual is
+sequence-sharded (`enter_region`): the scan needs all of it.  The
+decode state is the rank's block of the cache (`partition.cache_specs`:
+``ssm`` over heads, ``conv_x`` over ``d_inner``, ``conv_bc`` whole).
 """
 from __future__ import annotations
 
@@ -16,6 +30,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (causal_conv1d, gated_rmsnorm, ninit,
                                        out_scale, pdt)
+from repro_torch.sharding.partition import (enter_region, exit_region,
+                                            tp_of)
 
 
 def init_mamba(gen: torch.Generator, cfg: ArchConfig):
@@ -43,8 +59,29 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _project(p, x, cfg: ArchConfig, conv_state=None):
-    """Shared projection + causal conv for both train and decode paths."""
+def rank_ssm_heads(cfg: ArchConfig, plan=None):
+    """``(heads, first head)`` of this rank's SSD heads: all of them
+    unsplit, else the rank's ``Hs / M`` of the model axis.  Where M does
+    not divide the heads the reference replicates them
+    (`repro/models/mamba2.py:71`) while its specs still cut ``wz``/``wx``/
+    ``wdt``/``conv_x``/``out_proj`` over "model"; no config reaches that
+    case at M <= 8, and it raises here."""
+    Hs = cfg.ssm_nheads
+    M, i = tp_of(plan)
+    if M == 1:
+        return Hs, 0
+    if Hs % M:
+        raise NotImplementedError(
+            f"{cfg.name}: {Hs} SSD heads over a \"model\" axis of {M} ranks "
+            f"(the reference replicates heads that do not divide; ROADMAP.md)")
+    return Hs // M, i * (Hs // M)
+
+
+def _project(p, x, cfg: ArchConfig, conv_state=None, heads=None):
+    """Shared projection + causal conv for both train and decode paths.
+    `heads` = (this rank's heads, first head): its columns of z, x and
+    dt, and the groups of B and C its heads read."""
+    Hl, h0 = heads or (cfg.ssm_nheads, 0)
     z = x @ p["wz"].to(x.dtype)
     xin = x @ p["wx"].to(x.dtype)
     bc = x @ p["wBC"].to(x.dtype)
@@ -59,31 +96,42 @@ def _project(p, x, cfg: ArchConfig, conv_state=None):
     B_, C_ = torch.chunk(bc, 2, dim=-1)
     B_ = B_.reshape(*B_.shape[:-1], G, N)
     C_ = C_.reshape(*C_.shape[:-1], G, N)
-    dt = _softplus(dtr.float() + p["dt_bias"])
+    dt = _softplus(dtr.float() + p["dt_bias"][h0:h0 + Hl])
     return z, xin, B_, C_, dt, {"conv_x": ns_x, "conv_bc": ns_b}
 
 
-def _expand_groups(t, Hs: int):
-    """(B, S, G, N) -> (B, S, Hs, N) by broadcasting heads within groups."""
+def _expand_groups(t, Hs: int, heads=None):
+    """(B, S, G, N) -> (B, S, H, N) by broadcasting heads within groups:
+    all Hs heads, or `heads` = (count, first) of them, each reading group
+    ``h // (Hs / G)``."""
     B, S, G, N = t.shape
     rep = Hs // G
-    return t[:, :, :, None, :].expand(B, S, G, rep, N).reshape(B, S, Hs, N)
+    Hl, h0 = heads or (Hs, 0)
+    if Hl == Hs:
+        return t[:, :, :, None, :].expand(B, S, G, rep, N).reshape(B, S, Hs, N)
+    idx = torch.arange(h0, h0 + Hl, device=t.device) // rep
+    return t.index_select(2, idx)
 
 
-def apply_mamba(p, x, cfg: ArchConfig, state=None, chunk: int = 256):
+def apply_mamba(p, x, cfg: ArchConfig, plan=None, state=None,
+                chunk: int = 256):
     """Train/prefill path. x: (B, S, D) -> (y, final_state_dict).
 
     ``state`` carries an SSM state in (its ``ssm``; the conv starts from
     zeros, as in the reference).  S must be a multiple of ``min(chunk,
-    S)``."""
+    S)``.  Across ranks (`plan`) see the module docstring: the state
+    returned is the rank's block."""
+    heads = rank_ssm_heads(cfg, plan)
+    Hs, h0 = heads
+    x = enter_region(x, plan)
     Bb, S, D = x.shape
-    Hs, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    P, N = cfg.ssm_headdim, cfg.ssm_state
 
-    z, xin, B_, C_, dt, conv_state = _project(p, x, cfg)
-    Bh = _expand_groups(B_, Hs)
-    Ch = _expand_groups(C_, Hs)
+    z, xin, B_, C_, dt, conv_state = _project(p, x, cfg, heads=heads)
+    Bh = _expand_groups(B_, cfg.ssm_nheads, heads)
+    Ch = _expand_groups(C_, cfg.ssm_nheads, heads)
     xh = xin.reshape(Bb, S, Hs, P)
-    A = -torch.exp(p["A_log"])                                  # (Hs,)
+    A = -torch.exp(p["A_log"][h0:h0 + Hs])                      # (Hs,)
 
     Q = min(chunk, S)
     assert S % Q == 0, f"seq {S} not divisible by ssd chunk {Q}"
@@ -126,36 +174,42 @@ def apply_mamba(p, x, cfg: ArchConfig, state=None, chunk: int = 256):
                         prev_states.to(x.dtype).float(),
                         torch.exp(cum).to(x.dtype).float())
     Y = (Ydiag + Yoff).reshape(Bb, S, Hs, P)
-    Y = Y + p["D_skip"][:, None] * xh.float()
-    y = Y.to(x.dtype).reshape(Bb, S, cfg.d_inner)
-    y = gated_rmsnorm(y, z, p["ssm_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    Y = Y + p["D_skip"][h0:h0 + Hs, None] * xh.float()
+    y = Y.to(x.dtype).reshape(Bb, S, Hs * P)
+    y = gated_rmsnorm(y, z, p["ssm_norm"][h0 * P:(h0 + Hs) * P],
+                      cfg.norm_eps, plan)
+    out = exit_region(y @ p["out_proj"].to(x.dtype), plan)
     new_state = {"ssm": s,
                  "conv_x": conv_state["conv_x"].to(x.dtype),
                  "conv_bc": conv_state["conv_bc"].to(x.dtype)}
     return out, new_state
 
 
-def decode_mamba(p, x, state, cfg: ArchConfig):
+def decode_mamba(p, x, state, cfg: ArchConfig, plan=None):
     """Single-token state update. x: (B, 1, D).  Writes `state` ({ssm,
-    conv_x, conv_bc} of this layer) in place, the values the reference's
-    functional update returns; returns (y, state)."""
+    conv_x, conv_bc} of this layer; across ranks the rank's block) in
+    place, the values the reference's functional update returns; returns
+    (y, state)."""
+    heads = rank_ssm_heads(cfg, plan)
+    Hs, h0 = heads
     Bb = x.shape[0]
-    Hs, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
-    z, xin, B_, C_, dt, conv_state = _project(p, x, cfg, conv_state=state)
-    Bh = _expand_groups(B_, Hs)[:, 0]                           # (B,Hs,N)
-    Ch = _expand_groups(C_, Hs)[:, 0]
+    P, N = cfg.ssm_headdim, cfg.ssm_state
+    z, xin, B_, C_, dt, conv_state = _project(p, x, cfg, conv_state=state,
+                                              heads=heads)
+    Bh = _expand_groups(B_, cfg.ssm_nheads, heads)[:, 0]        # (B,Hs,N)
+    Ch = _expand_groups(C_, cfg.ssm_nheads, heads)[:, 0]
     xh = xin.reshape(Bb, Hs, P)
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(p["A_log"][h0:h0 + Hs])
     dA = torch.exp(dt[:, 0] * A)                                # (B,Hs)
     s = state["ssm"].float()
     upd = torch.einsum("bhn,bh,bhp->bhpn", Bh.float(), dt[:, 0], xh.float())
     s_new = s * dA[:, :, None, None] + upd
     y = torch.einsum("bhn,bhpn->bhp", Ch.float(), s_new)
-    y = y + p["D_skip"][:, None] * xh.float()
-    y = y.to(x.dtype).reshape(Bb, 1, cfg.d_inner)
-    y = gated_rmsnorm(y, z, p["ssm_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    y = y + p["D_skip"][h0:h0 + Hs, None] * xh.float()
+    y = y.to(x.dtype).reshape(Bb, 1, Hs * P)
+    y = gated_rmsnorm(y, z, p["ssm_norm"][h0 * P:(h0 + Hs) * P],
+                      cfg.norm_eps, plan)
+    out = exit_region(y @ p["out_proj"].to(x.dtype), plan)
     state["ssm"].copy_(s_new)
     state["conv_x"].copy_(conv_state["conv_x"])
     state["conv_bc"].copy_(conv_state["conv_bc"])

@@ -29,8 +29,9 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
 from repro_torch.models.common import dt, ninit, pdt, rmsnorm
-from repro_torch.sharding.partition import (enter_region, fsdp_gather,
-                                            psum_model, seq_split, tp_of)
+from repro_torch.sharding.partition import (cache_block, enter_region,
+                                            fsdp_gather, psum_model,
+                                            seq_split, tp_of)
 
 
 class LM(nn.Module):
@@ -137,18 +138,22 @@ class LM(nn.Module):
         x, caches, _ = self._stack(params, batch, True, max_len, plan)
         return self._head(params, x[:, -1:])[:, 0], caches
 
-    def decode_step(self, params, caches, batch, pos, plan=None):
+    def decode_step(self, params, caches, batch, pos, plan=None,
+                    cache_slots=None):
         """One token per row; ``pos`` is a scalar (one shared clock) or a
         (B,) vector of per-slot position clocks (continuous batching: each
         row decodes at its own position).  Returns (logits (B, Vp),
-        caches'): `caches` written in place (`blocks.decode_stack`)."""
+        caches'): `caches` written in place (`blocks.decode_stack`).
+        `cache_slots`: the whole self-attention cache's slots where the
+        plan homes it by sequence (`attention.apply_attention`)."""
         x = self._embed(params, batch, plan)
         x, new_caches = blocks.decode_stack(params["stack"], caches, x, pos,
-                                            cfg=self.cfg, plan=plan)
+                                            cfg=self.cfg, plan=plan,
+                                            cache_slots=cache_slots)
         return self._head(params, x)[:, 0], new_caches
 
     def decode_pages(self, params, caches, batch, positions, write_mask,
-                     plan=None):
+                     plan=None, cache_slots=None):
         """Page-stepped prefill: S new tokens per row written into the
         decode cache at ``positions`` (B, S), cache commits gated by
         ``write_mask`` (B, S) -- pad positions and non-refilling rows
@@ -159,7 +164,8 @@ class LM(nn.Module):
         x = self._embed(params, batch, plan)
         x, new_caches = blocks.decode_stack(params["stack"], caches, x,
                                             positions, cfg=self.cfg,
-                                            write_mask=write_mask, plan=plan)
+                                            write_mask=write_mask, plan=plan,
+                                            cache_slots=cache_slots)
         return self._head(params, x), new_caches
 
     # ----------------------------------------------------------------- cache
@@ -169,27 +175,36 @@ class LM(nn.Module):
         zero K/V with every slot's position -1 (a ring of
         ``min(window, max_len)`` slots under a sliding window), zero SSM
         and conv states, and a cross layer's zero image K/V of `img_len`
-        tokens (default the config's) at position 0.  Across a "model" axis
-        that splits the KV heads (`plan`) each attention cache holds the
-        rank's block of them."""
+        tokens (default the config's) at position 0.  Across ranks
+        (`plan`) each leaf is the rank's block (`partition.cache_specs`):
+        the KV heads where "model" splits them, the self-attention slots
+        where the plan homes the cache by sequence (`cache_block`), the
+        SSM heads and ``conv_x`` columns of the rank's Mamba2 heads."""
         cfg = self.cfg
         nsb = blocks.num_superblocks(cfg)
         Sc = min(cfg.sliding_window, max_len) if cfg.sliding_window \
             else max_len
+        Sc = cache_block(Sc, plan)[1]
         KV, hd = cfg.num_kv_heads, cfg.head_dim
-        if tp_of(plan)[0] > 1 and plan.kv_axis is not None:
-            KV //= tp_of(plan)[0]
+        M = tp_of(plan)[0]
+        if M > 1 and plan.kv_axis is not None:
+            KV //= M
+        members = blocks.superblock_spec(cfg)
+        if any(m.mixer == "mamba" for m in members):
+            from repro_torch.models.mamba2 import rank_ssm_heads
+            Hs = rank_ssm_heads(cfg, plan)[0]
+            di = Hs * cfg.ssm_headdim
 
         def zeros(*shape, dtype=dt(cfg)):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         def member_cache(spec):
             if spec.mixer == "mamba":
-                return {"ssm": zeros(nsb, batch_size, cfg.ssm_nheads,
+                return {"ssm": zeros(nsb, batch_size, Hs,
                                      cfg.ssm_headdim, cfg.ssm_state,
                                      dtype=torch.float32),
                         "conv_x": zeros(nsb, batch_size, cfg.ssm_conv - 1,
-                                        cfg.d_inner),
+                                        di),
                         "conv_bc": zeros(nsb, batch_size, cfg.ssm_conv - 1,
                                          2 * cfg.ssm_ngroups * cfg.ssm_state)}
             if spec.mixer == "cross":
@@ -202,5 +217,4 @@ class LM(nn.Module):
                     "kpos": torch.full((nsb, batch_size, Sc), -1,
                                        dtype=torch.int32, device=device)}
 
-        return {f"m{i}": member_cache(m)
-                for i, m in enumerate(blocks.superblock_spec(cfg))}
+        return {f"m{i}": member_cache(m) for i, m in enumerate(members)}

@@ -7,15 +7,18 @@ and tokens a row, and each greedy pick), from the plan alone: the
 counterpart for serving of `engine.exchange_schedule` and
 `sort.constraint_schedule`.  `log_against_serve` holds a rank's
 `collectives.collective_log` to it op for op.  Every record is a
-model-axis sum, a pick or a count of expert choices: none carries a KV
-cache, which never crosses ranks (a session that lands off its home is
-recomputed there, as in the reference).
+model-axis sum (a Mamba2 member's norm statistic too), a pick, a count
+of expert choices or, where the plan homes the decode cache by
+sequence, a decode step's merge of the blocks' attention partials (and
+the all-gather of q before it with the cache over "model"): none
+carries a KV cache, which never crosses ranks (a session that lands off
+its home is recomputed there, as in the reference).
 
 `train_schedule(cfg, plan, shape)` does the same for one train step
 across ranks (`models.steps.make_train_step` on a `RankMesh`): the
 microbatch relayout, each microbatch's forward (the FSDP gathers, the
-sequence gathers and reduce-scatters, the MoE's counts, the loss's
-"model" combine) and backward (the recompute's collectives again under
+sequence gathers and reduce-scatters, a Mamba2 member's norm statistic,
+the MoE's counts, the loss's "model" combine) and backward (the recompute's collectives again under
 remat, each collective's transpose, the FSDP reduce-scatters), then the
 gradient buckets' sums (a reduce-scatter and an all-gather each), the
 loss's sum over the homes, the norm's sum
@@ -53,6 +56,7 @@ def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
     """The collectives, in order, of the model calls `calls` on one rank
     of `plan`'s `RankMesh` (records of `_record`'s form: kind, axes, wire,
     inter- and intra-pod bytes)."""
+    from repro_torch.models.attention import rank_heads
     from repro_torch.models.blocks import num_superblocks, superblock_spec
     from repro_torch.sharding.partition import homes_of, tp_of
     par = getattr(torch, cfg.param_dtype).itemsize
@@ -60,7 +64,9 @@ def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
     M, n = tp_of(plan)[0], homes_of(plan)[0]
     tp, homes = (plan.tp,), tuple(plan.batch_axes or ())
     members = superblock_spec(cfg)
-    D, K, E = cfg.d_model, cfg.top_k, cfg.num_experts
+    D, K, E, hd = cfg.d_model, cfg.top_k, cfg.num_experts, cfg.head_dim
+    rh = rank_heads(cfg, plan) if any(m.mixer != "mamba"
+                                      for m in members) else None
     out: List[Dict] = []
     for c in calls:
         r, S = c["rows"], c["seq"]
@@ -76,11 +82,16 @@ def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
         group = PREFILL_GROUP if c["call"] == "prefill" else r * n
         for _ in range(num_superblocks(cfg)):
             for m in members:
-                if M > 1 and m.mixer != "attn":
-                    raise NotImplementedError(
-                        f"{m.mixer} over \"model\" is not split yet")
-                if M > 1 and plan.head_axis is not None:
-                    out.append(_record("all-reduce", tp, x, plan))
+                if m.mixer == "mamba":
+                    if M > 1:
+                        out.append(_record("all-reduce", tp, r * S * 4, plan))
+                        out.append(_record("all-reduce", tp, x, plan))
+                else:
+                    if m.mixer == "attn" and c["call"] != "prefill" \
+                            and rh.seq[0] > 1:
+                        out += _merge_records(rh, plan, r, S, hd, act)
+                    if M > 1 and rh.split:
+                        out.append(_record("all-reduce", tp, x, plan))
                 if m.ffn == "mlp" and M > 1:
                     out.append(_record("all-reduce", tp, x, plan))
                 elif m.ffn == "moe":
@@ -94,6 +105,21 @@ def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
                         if cfg.num_shared_experts:
                             out.append(_record("all-reduce", tp, x, plan))
     return out
+
+
+def _merge_records(rh, plan, r: int, S: int, hd: int, act: int
+                   ) -> List[Dict]:
+    """A decode step's collectives over a cache homed by sequence
+    (`models.attention._decode_blocks`): the float32 partials (hd + 2
+    numbers a query and head) all-gathered over the cache's axis, or,
+    with ``by_head``, every head's q all-gathered over "model" and the
+    partials sent to their heads' ranks by one all-to-all."""
+    cax = (plan.cache_seq_axis,)
+    part = r * rh.H * S * (hd + 2) * 4
+    if rh.by_head:
+        return [_record("all-gather", cax, r * S * rh.H * hd * act, plan),
+                _record("all-to-all", cax, part, plan)]
+    return [_record("all-gather", cax, part, plan)]
 
 
 def log_against_serve(log: Sequence[Dict], schedule: Sequence[Dict]
@@ -126,17 +152,22 @@ def _member_fwd(m, cfg, plan, r: int, S: int, n: int, act: int,
     tp = (plan.tp,)
     D = cfg.d_model
     shard = r * (S // Ms) * D * act           # a (r, S/Ms, D) activation
+    whole = r * S * D * act
     out: List[Dict] = []
-    if M > 1 and m.mixer != "attn":
-        raise NotImplementedError(f"{m.mixer} over \"model\" is not split "
-                                  f"yet")
-    split = rank_heads(cfg, plan)[3] if M > 1 else False
+    if m.mixer == "mamba":
+        split = M > 1
+        stat = [_record("all-reduce", tp, r * S * 4, plan)] if split else []
+    else:
+        split = rank_heads(cfg, plan)[3] if M > 1 else False
+        stat = []
     if Ms > 1:
         out.append(_record("all-gather", tp, shard, plan))
+        out += stat
         if split:
             out.append(_record("reduce-scatter", tp, shard, plan))
     elif split:
-        out.append(_record("all-reduce", tp, r * S * D * act, plan))
+        out += stat
+        out.append(_record("all-reduce", tp, whole, plan))
     if m.ffn == "none":
         return out
     if Ms > 1:
@@ -151,13 +182,14 @@ def _member_fwd(m, cfg, plan, r: int, S: int, n: int, act: int,
         for _ in range(sums):
             out.append(_record("reduce-scatter", tp, shard, plan)
                        if Ms > 1 else
-                       _record("all-reduce", tp, r * S * D * act, plan))
+                       _record("all-reduce", tp, whole, plan))
     return out
 
 
 def _member_bwd(m, cfg, plan, r: int, S: int, act: int) -> List[Dict]:
     """One member's backward collectives (ffn, then mixer): each forward
-    collective's transpose."""
+    collective's transpose (a Mamba2 norm statistic's all-reduce is its
+    own)."""
     from repro_torch.sharding.partition import seq_split, tp_of
     from repro_torch.models.attention import rank_heads
     M = tp_of(plan)[0]
@@ -175,12 +207,17 @@ def _member_bwd(m, cfg, plan, r: int, S: int, act: int) -> List[Dict]:
             out.append(_record("reduce-scatter", tp, shard, plan))
         else:
             out.append(_record("all-reduce", tp, whole, plan))
-    split = rank_heads(cfg, plan)[3]
+    if m.mixer == "mamba":
+        split, stat = True, [_record("all-reduce", tp, r * S * 4, plan)]
+    else:
+        split, stat = rank_heads(cfg, plan)[3], []
     if Ms > 1:
         if split:
             out.append(_record("all-gather", tp, shard, plan))
+        out += stat
         out.append(_record("reduce-scatter", tp, shard, plan))
     elif split:
+        out += stat
         out.append(_record("all-reduce", tp, whole, plan))
     return out
 
@@ -273,12 +310,11 @@ def train_schedule(cfg: ArchConfig, plan, shape) -> List[Dict]:
     for m in reversed(members):
         bwd_members += _member_bwd(m, cfg, plan, r, S, act)
     # under remat the recompute runs at the first saved tensor the
-    # backward unpacks: after the transposes of the last member's output
-    # reduce-scatters (which save nothing), unless a MoE member's aux loss
+    # backward unpacks: after the transpose of the last member's output
+    # reduce-scatter (which saves nothing), unless a MoE member's aux loss
     # (whose backward unpacks at once) is differentiated first
-    last = members[-1]
     pre = 0
-    if cfg.parallel.remat and Ms > 1 and last.ffn == "mlp" \
+    if cfg.parallel.remat and Ms > 1 \
             and not any(m.ffn == "moe" for m in members):
         pre = 1
     if cfg.parallel.remat:

@@ -51,7 +51,13 @@ keys of every home's (`HomePageStore`), so no KV cache crosses ranks.
 The model calls are listed in ``calls`` (`obs.schedule.serve_schedule`
 gives the collectives they imply).  With no batch axes (the slots do
 not divide over the homes) every rank computes every row, the
-reference's replicated batch.
+reference's replicated batch.  Where the plan homes the decode cache by
+sequence (``cache_seq_axis``: caches of 8192 positions or more whose
+slots do not divide over the homes, or whose KV heads do not divide over
+"model"), each rank keeps its block of every self-attention cache's
+slots (`partition.cache_block`; `Locale.pin_tree` over that axis on the
+slot dim), the model merges the blocks' attention, and a pooled page
+holds the part of its slots that lies in the rank's block.
 """
 from __future__ import annotations
 
@@ -70,8 +76,9 @@ from repro_torch.models.blocks import superblock_spec
 from repro_torch.models.model import LM
 from repro_torch.runtime.kvpool import PageStore
 from repro_torch.runtime.scheduler import Scheduler, make_scheduler
-from repro_torch.sharding.partition import (MeshPlan, NULL_PLAN, homes_of,
-                                           tp_of)
+from repro_torch.sharding.partition import (MeshPlan, NULL_PLAN,
+                                            cache_block, cache_seq, homes_of,
+                                            tp_of)
 
 
 @dataclass
@@ -172,6 +179,12 @@ class DecodeServer:
             raise ValueError(f"the locale's mesh lies on {locale.mesh.device},"
                              f" the parameters on {self.device}")
         self.locale = locale
+        # a cache homed by sequence: the whole cache's slots (set by each
+        # run: the wave's horizon, or max_len paged) and the pinning
+        # locale over the cache's axis
+        self.slots = max_len
+        self.seq_locale = (Locale(mesh=plan.mesh, axis=(plan.cache_seq_axis,))
+                           if cache_seq(plan)[0] > 1 else None)
 
         # the paged/continuous mode needs position-pure rows: a fixed
         # right-pad bucket, no sequential member state, no ring window
@@ -207,15 +220,41 @@ class DecodeServer:
                       if self.ranks else PageStore(tracer=self.tracer))
 
         def _step(p, c, b, pos):
-            logits, c2 = self.model.decode_step(p, c, b, pos, plan=self.plan)
+            logits, c2 = self.model.decode_step(p, c, b, pos, plan=self.plan,
+                                                cache_slots=self._slots())
             # re-home each slot's cache on its decode home (slot dim = 1:
             # cache leaves are (layers, slot, ...))
             c2 = self.locale.pin_tree(c2, dim=1, size=self.B)
-            return logits, c2
+            return logits, self._pin_seq(c2)
 
         self._decode = self.locale.jit(_step, donate=(1,))
         if self.paged:
             self._build_paged_steps()
+
+    def _slots(self) -> Optional[int]:
+        """The whole self-attention cache's slots where the plan homes it
+        by sequence (the model's `cache_slots`); None otherwise."""
+        return self.slots if self.seq_locale is not None else None
+
+    def _pin_seq(self, caches):
+        """Each self-attention member's cache homed by sequence over the
+        plan's cache axis (`Locale.pin_tree` on the slot dim, 2): a rank's
+        block stays as it is, a whole cache is cut to it.  The caches
+        themselves where the plan homes none by sequence."""
+        if self.seq_locale is None:
+            return caches
+        for i, m in enumerate(superblock_spec(self.cfg)):
+            if m.mixer == "attn":
+                caches[f"m{i}"] = self.seq_locale.pin_tree(
+                    caches[f"m{i}"], dim=2, size=self.slots)
+        return caches
+
+    def _block(self, p0: int, p1: int) -> Optional[slice]:
+        """The slots ``[p0, p1)`` of the whole cache that lie in this
+        rank's block, as the block's slice; None where none does."""
+        lo, blk = cache_block(self.slots, self.plan)
+        a, b = max(p0, lo), min(p1, lo + blk)
+        return slice(a - lo, b - lo) if b > a else None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -250,9 +289,10 @@ class DecodeServer:
 
         def _page(p, c, toks, positions, wmask):
             logits, c2 = self.model.decode_pages(
-                p, c, {"tokens": toks}, positions, wmask, plan=self.plan)
+                p, c, {"tokens": toks}, positions, wmask, plan=self.plan,
+                cache_slots=self._slots())
             c2 = self.locale.pin_tree(c2, dim=1, size=self.B)
-            return logits, c2
+            return logits, self._pin_seq(c2)
 
         def _reset(c, mask):
             # wipe refilled rows' attention timelines: kpos back to -1, so
@@ -266,13 +306,19 @@ class DecodeServer:
             # splice one pooled page level into the refilled rows' caches:
             # row s (of this home's rows) takes content[s][m] = (k, v) at
             # cache slots [p0, p0 + ps), and positions p0 .. p0 + ps - 1
+            # (of a cache homed by sequence, the part in this rank's block)
+            sl = self._block(p0, p0 + ps)
+            if sl is None:
+                return c
+            lo = cache_block(self.slots, self.plan)[0]
             for s, pages in content.items():
                 for m, (kb, vb) in pages.items():
-                    c[m]["k"][:, s, p0:p0 + ps] = kb
-                    c[m]["v"][:, s, p0:p0 + ps] = vb
-                    c[m]["kpos"][:, s, p0:p0 + ps] = torch.arange(
-                        p0, p0 + ps, dtype=torch.int32, device=self.device)
-            return self.locale.pin_tree(c, dim=1, size=self.B)
+                    c[m]["k"][:, s, sl] = kb
+                    c[m]["v"][:, s, sl] = vb
+                    c[m]["kpos"][:, s, sl] = torch.arange(
+                        lo + sl.start, lo + sl.stop, dtype=torch.int32,
+                        device=self.device)
+            return self._pin_seq(self.locale.pin_tree(c, dim=1, size=self.B))
 
         self._page = self.locale.jit(_page, donate=(1,))
         self._reset = self.locale.jit(_reset, donate=(0,))
@@ -303,6 +349,7 @@ class DecodeServer:
         active = [r for r in reqs if r is not None]
         plen = (self.prompt_pad if self.prompt_pad is not None
                 else max(1, max(len(r.prompt) for r in active)))
+        self.slots = max(self.max_len, plen)     # the cache prefill builds
         toks = np.zeros((B, plen), np.int64)
         for i, r in enumerate(reqs):             # left-pad with token 0
             if r is not None:
@@ -444,7 +491,7 @@ class DecodeServer:
                 if key not in live.get(r.home, ()) \
                         or self.store.has(r.home, key):
                     continue
-                sl = slice(i * ps, (i + 1) * ps)
+                sl = self._block(i * ps, (i + 1) * ps) or slice(0, 0)
                 self.store.put(r.home, key, {
                     m: (caches[m]["k"][:, s - lo, sl].clone(),
                         caches[m]["v"][:, s - lo, sl].clone())
@@ -463,6 +510,7 @@ class DecodeServer:
         sch, B = self.scheduler, self.B
         slots: List[Optional[Request]] = [None] * B
         caches = None
+        self.slots = self.max_len
         pos_np = np.zeros((B,), np.int64)
         cur_np = np.zeros((B,), np.int64)
         now = 0.0
@@ -561,11 +609,12 @@ class _NullLM:
         B = batch["tokens"].shape[0]
         return torch.zeros(B, 1), self.init_cache(B, max_len)
 
-    def decode_step(self, params, caches, batch, pos, plan=None):
+    def decode_step(self, params, caches, batch, pos, plan=None,
+                    cache_slots=None):
         return torch.zeros(batch["tokens"].shape[0], 1), caches
 
     def decode_pages(self, params, caches, batch, positions, write_mask,
-                     plan=None):
+                     plan=None, cache_slots=None):
         return torch.zeros(*batch["tokens"].shape, 1), caches
 
 

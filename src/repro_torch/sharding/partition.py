@@ -18,15 +18,22 @@ What reads a plan:
   matters: the server homes its slots over them (`Locale.pin_tree`'s
   counted relayout); the model runs whole.
 * On a `RankMesh` the model is split over ``"model"`` where the plan
-  says (`tp_of`): heads and KV heads (`models.attention`), MLP columns
-  (`models.common`), experts or their F columns (`models.moe`), the
-  vocabulary (`models.model`), each followed by a counted sum
-  (`core.collectives`).  Every other axis is data-parallel: each
-  (pod, data) coordinate is a home holding its own batch or slot rows.
+  says (`tp_of`): heads and KV heads (`models.attention`, cross
+  attention too), MLP columns (`models.common`), experts or their F
+  columns (`models.moe`), the Mamba2 heads and their ``d_inner``
+  columns (`models.mamba2`, the gated norm's statistic summed by
+  `psum_stat`), the vocabulary (`models.model`), each followed by a
+  counted sum (`core.collectives`).  Every other axis is data-parallel:
+  each (pod, data) coordinate is a home holding its own batch or slot
+  rows.
 * Serving cuts the parameters with ``fsdp_axes`` and ``zero1_axes``
   cleared (`serving_plan`), as the reference never shards parameters
   over the data axes when it serves; its decode plan has no
-  ``seq_axis``.
+  ``seq_axis``.  Where it sets ``cache_seq_axis`` (caches of 8192
+  positions or more whose batch does not divide over the homes, or
+  whose KV heads do not divide over "model") each rank keeps a block of
+  the self-attention cache's slots (`cache_block`) and decode merges
+  the blocks' partial softmaxes (`models.attention`).
 * Training reads the whole plan: the residual stream between members
   sequence-sharded over ``seq_axis`` (`seq_split`; the members gather it
   and scatter their outputs, `enter_region`/`exit_region`), parameters
@@ -207,12 +214,43 @@ def exit_region(y: torch.Tensor, plan: Optional[MeshPlan],
     return psum_model(y, plan) if split else y
 
 
-def no_split(plan: Optional[MeshPlan], what: str) -> None:
-    """Raise for a member the model axis does not split yet."""
-    if tp_of(plan)[0] > 1:
-        raise NotImplementedError(
-            f"{what} over a \"model\" axis of {plan.tp_size} ranks is not "
-            f"split yet (ROADMAP.md Queue 1); serve it with \"model\" = 1")
+def psum_stat(x: torch.Tensor, plan: Optional[MeshPlan]) -> torch.Tensor:
+    """A statistic summed over the ranks of the model axis from the parts
+    each rank computes from its own columns (the gated norm's sum of
+    squares over ``d_inner``): `collectives.psum`, and under autograd
+    `collectives.AllReduce`, whose backward sums the gradient too -- each
+    rank's gradient of the whole statistic is a part.  `x` itself where
+    nothing is split."""
+    if tp_of(plan)[0] == 1:
+        return x
+    from repro_torch.core import collectives
+    if torch.is_grad_enabled() and x.requires_grad:
+        return collectives.AllReduce.apply(x, plan.mesh, (plan.tp,))
+    return collectives.psum(x, plan.mesh, (plan.tp,))
+
+
+def cache_seq(plan: Optional[MeshPlan]) -> Tuple[int, int]:
+    """``(ranks, this rank's index)`` over the axis that homes the decode
+    cache's sequence (``cache_seq_axis``) where the plan's mesh is a
+    `RankMesh`; ``(1, 0)`` otherwise."""
+    if plan is None or plan.cache_seq_axis is None \
+            or not isinstance(plan.mesh, RankMesh):
+        return 1, 0
+    n = plan.axis_size(plan.cache_seq_axis)
+    if n == 1:
+        return 1, 0
+    return n, plan.mesh.index(_axes(plan.cache_seq_axis))
+
+
+def cache_block(slots: int, plan: Optional[MeshPlan]) -> Tuple[int, int]:
+    """``(first slot, slots a block)`` of this rank's block of a cache of
+    `slots` positions homed by sequence (`cache_seq`): blocks of
+    ``ceil(slots / n)``, as GSPMD pads a dim the axis does not divide (the
+    last block's tail beyond `slots` stays empty); ``(0, slots)``
+    otherwise."""
+    n, i = cache_seq(plan)
+    blk = -(-slots // n)
+    return i * blk, blk
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +512,12 @@ def fsdp_gather(tree, plan: MeshPlan, cfg: ArchConfig):
         leaf, _at(specs, path), plan.mesh, plan.fsdp_axes), tree)
 
 
+#: the Mamba2 leaves every "model" rank holds whole and uses in part: the
+#: B/C projection and its conv (the groups the rank's heads read), the
+#: per-head scalars and the norm scale (the rank's heads and columns)
+MAMBA_WHOLE = ("wBC", "conv_bc", "A_log", "dt_bias", "D_skip", "ssm_norm")
+
+
 def grad_partial_over_model(path, spec, plan: MeshPlan,
                             cfg: ArchConfig) -> bool:
     """Whether a rank's gradient of the leaf at `path` is a partial sum
@@ -481,15 +525,15 @@ def grad_partial_over_model(path, spec, plan: MeshPlan,
     holds whole, used where each rank computes a part.  Under `seq_split`
     that is every such leaf of the stack and the final norm (norms act on
     the rank's rows; every member computes its own rows' part); without
-    it, the router (each rank backpropagates its experts' part) and, where
-    the heads are split, the q/k norms and KV projections the rank's q
-    heads read."""
+    it, the router (each rank backpropagates its experts' part), the
+    Mamba2 leaves of `MAMBA_WHOLE` and, where the heads are split, the
+    q/k norms and KV projections the rank's q heads read."""
     if tp_of(plan)[0] == 1 or plan.tp in _used(spec):
         return False
     if seq_split(plan)[0] > 1:
         return "embed" not in path and "head" not in path
     name = str(path[-1])
-    if name == "router":
+    if name == "router" or (name in MAMBA_WHOLE and "mamba" in path):
         return True
     return plan.head_axis is not None and name in ("q_norm", "k_norm",
                                                    "wk", "wv")

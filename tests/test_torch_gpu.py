@@ -1063,3 +1063,102 @@ def test_two_rank_train_on_card_matches_cpu(arch):
                 assert off.float().mean() <= 1e-3, (k, int(off.sum()))
                 assert (d[off] <= 2 * 1e-3 * 2).all(), (k, float(d.max()))
             assert card[2] == cpu[2] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(1, 16, 2, 512, 4096, 128),
+                                  (1, 4, 1, 40, 24, 16)], ids=str)
+def test_cross_flash_attention_at_a_ranks_heads_on_card(case):
+    """The non-causal kernel at a rank's heads of the vision config's cross
+    layer on ``{"data": 2, "model": 4}`` -- one row, 16 q and 2 KV heads,
+    512 queries over 4096 image tokens -- and of its reduced config on 4
+    "model" ranks, bf16: its plain version's within `KERNEL_TOL`."""
+    _need_card()
+    B, H, KV, Sq, Skv, hd = case
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).cuda() for a in
+               make_attention_inputs(B, H, KV, Sq, Skv, hd, "bfloat16", 5))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_reference(q, k, v, causal=False)
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+#: the sequence-homed decode on the card: reduced qwen3-0.6b (float32),
+#: one slot, a cache of 8192 positions (over "data": the slot does not
+#: divide over 2 homes, 4096 slots a rank), a prompt spanning both blocks
+SEQ_CARD = dict(max_len=8192, S=4100, steps=3)
+
+
+def _seq_homed_decode(device, toks, fed):
+    """A rank of the card test below: its logits of the prefill and decode
+    steps, its log against `serve_schedule`, its cache block's shape."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import rank_params
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.models import LM
+    from repro_torch.obs.schedule import log_against_serve, serve_schedule
+    from repro_torch.sharding.partition import make_plan
+    from repro_torch.tree import tree_map
+    mesh = RankMesh({"data": 2}, device=device)
+    cfg = reduce_config(get_config("qwen3-0.6b"))
+    plan = make_plan(mesh, cfg, ShapeSpec("serve", SEQ_CARD["max_len"], 1,
+                                          "decode"))
+    assert plan.cache_seq_axis == "data"
+    params = tree_map(lambda t: t.to(mesh.device), rank_params(
+        LM(cfg).init(torch.Generator().manual_seed(0)), plan, cfg))
+    m = LM(cfg)
+    coll.reset_collectives()
+    last, caches = m.prefill(params, {"tokens": toks.to(mesh.device)},
+                             max_len=SEQ_CARD["max_len"], plan=plan)
+    logits = [last]
+    calls = [{"call": "prefill", "rows": 1, "seq": toks.shape[1]}]
+    for t in range(fed.shape[1]):
+        lg, caches = m.decode_step(params, caches, {
+            "tokens": fed[:, t:t + 1].to(mesh.device)}, toks.shape[1] + t,
+            plan=plan)
+        logits.append(lg)
+        calls.append({"call": "decode", "rows": 1, "seq": 1})
+    return {"logits": torch.stack(logits).cpu(),
+            "schedule": log_against_serve(coll.collective_log(),
+                                          serve_schedule(cfg, plan, calls)),
+            "block": tuple(caches["m0"]["k"].shape)}
+
+
+@pytest.mark.gpu
+def test_sequence_homed_decode_on_two_ranks_of_the_card():
+    """Two gloo ranks sharing the card, each holding half of the decode
+    cache's 8192 slots: a prefill whose keys span both blocks and decode
+    steps, merged across the ranks, give one process's logits on the card
+    within rtol 1e-4 / atol 1e-5 (float32), with every log equal to
+    `serve_schedule`."""
+    _need_card()
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import LM
+    cfg = reduce_config(get_config("qwen3-0.6b"))
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, SEQ_CARD["S"])))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (1, SEQ_CARD["steps"])))
+    from repro_torch.tree import tree_map
+    params = tree_map(lambda t: t.cuda(), LM(cfg).init(
+        torch.Generator().manual_seed(0)))
+    m = LM(cfg)
+    last, caches = m.prefill(params, {"tokens": toks.cuda()},
+                             max_len=SEQ_CARD["max_len"])
+    want = [last]
+    for t in range(fed.shape[1]):
+        lg, caches = m.decode_step(params, caches, {
+            "tokens": fed[:, t:t + 1].cuda()}, toks.shape[1] + t)
+        want.append(lg)
+    want = torch.stack(want).cpu()
+    for res in spawn(_seq_homed_decode, 2, "gloo", "cuda", toks, fed):
+        assert res["schedule"] == []
+        assert res["block"][2] == SEQ_CARD["max_len"] // 2
+        torch.testing.assert_close(res["logits"], want, rtol=1e-4,
+                                   atol=1e-5)
