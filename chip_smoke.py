@@ -265,11 +265,22 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 launch time (a one-element add_ in a CUDA graph), `check_workload` clean on the card for
                 both sort backends and the engine on {"data": 8} and
                 {"pod": 2, "data": 4}, the microbench and the attention
-                cells; the rules again over every launch recorded in the
+                cells (but for R4, which reports the input each returns
+                in fresh storage at n = 2^20, and with R10's peak by the
+                live scan and the CUDA allocator); the rules again over
+                every launch recorded in the
                 n = 100 M sorts, the 100 M Fig-1 run and the attention
-                cells; and, for every kernel call recorded, the Python
+                cells; for every kernel call recorded, the Python
                 launch plan against the C entry's dry-run twin and the
-                coverage probe of its output tile maps.
+                coverage probe of its output tile maps; then (a) R10's hog
+                fixture flagged at 32 MiB with 64 MiB by both the live scan
+                and the allocator, (b) `check_decode` clean on the card
+                with the CPU's R9 state count, (c) R4 and R10 on one decode
+                step of the serve phase's full-width server (its facts
+                taken there), (d) R11 over every rank's collective log of
+                each run of the serve_ranks, train_ranks and model_split
+                phases (each run's signature returned by its ranks), and
+                the three R11 fixtures on 2 gloo ranks of the card.
 
 Every path's counted run sets the launch counts to 0 just before it and
 reads them just after (`bitonic_sort`'s path is ``ops.chunked_sort``).
@@ -2530,6 +2541,15 @@ def phase_serve(seed: int) -> dict:
                         for t in tree_leaves(params)),
         prefill_shape=[SERVE_SLOTS, S])
     out["costs"] = costs
+    # (analysis phase, (c)) one decode step of this server under the
+    # memory facts: R4 (the cache re-homed by pin_tree comes back in fresh
+    # storage) and R10 run on them in the analysis phase
+    from repro_torch.analysis.mem_facts import call_facts
+    t0 = time.perf_counter()
+    _, facts = call_facts(srv._decode, params, caches, batch, S)
+    facts["seconds"] = time.perf_counter() - t0
+    facts["cache_bytes"] = cache_bytes
+    out["decode_facts"] = facts
     del caches, srv
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3435,6 +3455,7 @@ def rank_serve_run(cfg, params, plan, reqs, *, slots, max_len, pad,
     summary, event digest, collectives against `serve_schedule`, bytes,
     launches, peak and time, and the picks (`pick_recorder`)."""
     import torch.distributed as dist
+    from repro_torch.analysis.livecheck import log_signature
     from repro_torch.core import collectives as coll
     from repro_torch.kernels import ops
     from repro_torch.obs import Tracer
@@ -3476,7 +3497,7 @@ def rank_serve_run(cfg, params, plan, reqs, *, slots, max_len, pad,
         schedule=log_against_serve(log, serve_schedule(cfg, plan,
                                                        srv.calls)),
         collectives=len(log), wire=sum(r["wire_bytes"] for r in log),
-        staged=coll.staged_bytes(),
+        signature=log_signature(log), staged=coll.staged_bytes(),
         kinds=sorted({r["kind"] for r in log}),
         on_home=all(owners[p["slot"]] == p["home"] for p in places),
         peak_bytes=(torch.cuda.max_memory_allocated() - base) if cuda
@@ -3814,6 +3835,7 @@ def phase_serve_ranks(seed: int, smi: str) -> dict:
     need(all(r["jax_free"] for r in ranks), "serve_ranks: a rank imported "
                                             "JAX")
     out = {"spawn_s": spawn_s, "meshes": {}, "rank_launches": {},
+           "r11": r11_over_ranks(ranks),
            "kernel_checks": rank_kernel_checks(ranks, seed)}
     say("phase serve_ranks flash_attention at every shape the ranks "
         "launched it with, against its plain version: "
@@ -3906,6 +3928,8 @@ def phase_serve_ranks(seed: int, smi: str) -> dict:
         nccl = spawn(serve_rank_child, cards, "nccl", device, seed,
                      {"meshes": {"nccl": {"data": cards, "model": 1}},
                       "costs": False})
+        out["r11"].update({f"nccl/{k}": v
+                           for k, v in r11_over_ranks(nccl).items()})
         for run in nccl[0]["meshes"]["nccl"]["runs"]:
             rs = [r["meshes"]["nccl"]["runs"][run] for r in nccl]
             need(all(not r["schedule"] and r["on_home"] for r in rs)
@@ -4464,6 +4488,7 @@ def planted_train_fault(kind: str, mesh):
 def timed_step(fn, params, state, batch, device, sched=None, accept=None):
     """One train step on this rank: its host ms (between synchronises),
     metrics, collective log against `sched` and peak memory."""
+    from repro_torch.analysis.livecheck import log_signature
     from repro_torch.core import collectives
     from repro_torch.obs.schedule import log_against_train
     sync(device)
@@ -4478,7 +4503,7 @@ def timed_step(fn, params, state, batch, device, sched=None, accept=None):
         "ms": ms, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
         "step": float(m["step"]),
         "schedule": log_against_train(log, sched)[:3] if sched else None,
-        "collectives": len(log),
+        "collectives": len(log), "signature": log_signature(log),
         "wire": sum(r["wire_bytes"] for r in log),
         "inter_pod": sum(r["inter_pod_bytes"] for r in log),
         "staged": sum(r["staged_bytes"] for r in log),
@@ -4835,6 +4860,7 @@ def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
     need(all(r["jax_free"] for r in ranks), "train_ranks: a rank imported "
                                             "JAX")
     out = {"one_s": one_s, "spawn_s": spawn_s, "one": one,
+           "r11": r11_over_ranks(ranks),
            "flash_launches": [r["flash_launches"] for r in ranks]}
     need(not any(out["flash_launches"]), f"train_ranks: flash_attention "
          f"launched in training: {out['flash_launches']}")
@@ -5254,6 +5280,7 @@ def model_split_vision(mesh, seed: int) -> dict:
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.analysis.livecheck import log_signature
     from repro_torch.convert import rank_cut
     from repro_torch.core import collectives as coll
     from repro_torch.kernels import ops
@@ -5317,6 +5344,7 @@ def model_split_vision(mesh, seed: int) -> dict:
                schedule=log_against_serve(log, serve_schedule(cfg, plan,
                                                               calls))[:3],
                collectives=len(log), wire=sum(r["wire_bytes"] for r in log),
+               signature=log_signature(log),
                launches=ops.launch_counts()["flash_attention"])
     del params, caches
     release()
@@ -5513,7 +5541,8 @@ def phase_model_split(seed: int, smi: str) -> dict:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old_conf
-    out = {"one_s": t0 - t_phase, "spawn_s": time.perf_counter() - t0}
+    out = {"one_s": t0 - t_phase, "spawn_s": time.perf_counter() - t0,
+           "r11": r11_over_ranks(ranks)}
     need(all(r["jax_free"] for r in ranks), "model_split: a rank imported "
                                             "JAX")
 
@@ -5770,6 +5799,53 @@ def sched_events(tracer) -> list:
          for r in tracer.records() if r["cat"] in ("sched", "pool")]))
 
 
+def pop_log_signatures(tree, path: str = "") -> dict:
+    """Take every ``"signature"`` (a run's `livecheck.log_signature` on a
+    rank) out of a rank's result tree: ``{path: signature}``."""
+    out = {}
+    if isinstance(tree, dict):
+        if "signature" in tree:
+            out[path] = tree.pop("signature")
+        for k, v in tree.items():
+            out.update(pop_log_signatures(v, f"{path}/{k}" if path else k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            out.update(pop_log_signatures(v, f"{path}/{i}"))
+    return out
+
+
+def r11_over_ranks(ranks: list) -> dict:
+    """R11 over every run's collective logs of a spawn's ranks (their
+    signatures taken out of the results): ``{run: {"collectives": n,
+    "findings": [...]}}``; the analysis phase holds each run clean."""
+    from repro_torch.analysis import Report
+    from repro_torch.analysis.livecheck import r11_collective_control_flow
+    sigs = [pop_log_signatures(r) for r in ranks]
+    runs = set().union(*sigs)
+    need(all(set(s) == runs for s in sigs),
+         f"analysis R11: the ranks' runs differ: "
+         f"{[sorted(s) for s in sigs]}")
+    out = {}
+    for run in sorted(runs):
+        logs = [s[run] for s in sigs]
+        rep = Report(target=f"r11 {run}")
+        r11_collective_control_flow(rep, logs)
+        out[run] = {"collectives": max(len(log) for log in logs),
+                    "findings": [f.format() for f in rep.findings]}
+    return out
+
+
+#: the rank phases whose every run R11 holds (each must give runs)
+R11_PHASES = ("serve_ranks", "train_ranks", "model_split")
+
+#: the state count of `analysis.FAST_LATTICE`, the reference's
+#: (tests/test_torch_schedcheck.py holds the port's certificate to it)
+R9_FAST_STATES = 59169
+
+#: the hog fixture's peak at 4,194,304 f32, and the ceiling it is flagged at
+HOG_PEAK = 64 * 2 ** 20
+HOG_CEILING = 32 * 2 ** 20
+
 #: the reference's findings on its four fixtures (pinned against the
 #: reference's own rules in tests/test_torch_analysis.py), by rule,
 #: severity and kind, and the pallas_call line of each fixture
@@ -5805,7 +5881,8 @@ def signature(report):
                   for f in report.findings)
 
 
-def phase_analysis(seed: int, full_width: dict) -> dict:
+def phase_analysis(seed: int, full_width: dict, decode_facts: dict,
+                   r11_runs: dict) -> dict:
     """The analyser's path on the card (see the module docstring, 9)."""
     from repro_torch.analysis import record
     from repro_torch.analysis.fixtures import mutant_launches
@@ -5919,15 +5996,32 @@ def phase_analysis(seed: int, full_width: dict) -> dict:
         all_recorded += launches
         kernel = "localised_copy" if workload == "microbench" else "local_sort"
         need(counts[kernel] > 0, f"analysis {tag}: {kernel} not launched")
-        need(rep.clean, f"analysis {tag}: not clean:\n{rep.format()}")
-        out["workloads"][tag] = dict(launches=len(launches), counts={
-            k: v for k, v in counts.items() if v}, notes=rep.notes)
+        # R4 reports the input that comes back in fresh storage (the port's
+        # sorts and Fig 1 write a new output); every other rule is clean
+        r4 = [f for f in rep.findings if f.rule == "R4"]
+        need(len(r4) == len(rep.findings) and all(
+            f.severity.name == "WARN" and f.shape.startswith("0 ")
+            for f in r4), f"analysis {tag}: not clean:\n{rep.format()}")
+        need(any(n.startswith("R10: device-live-range ok") for n in rep.notes)
+             and "allocator_peak_bytes" in rep.context,
+             f"analysis {tag}: no R10 peak:\n{rep.format(verbose=True)}")
+        out["workloads"][tag] = dict(
+            launches=len(launches), counts={
+                k: v for k, v in counts.items() if v}, notes=rep.notes,
+            r4=[f.format() for f in r4], peak_bytes=rep.context["peak_bytes"],
+            allocator_peak_bytes=rep.context["allocator_peak_bytes"])
     for tag, launches in full_width["attention"].items():
         rep, _ = run_rules(launches)
         need(rep.clean, f"analysis attention {tag}:\n{rep.format()}")
         out["workloads"][f"attention-{tag}"] = dict(launches=len(launches))
-    say("phase analysis check_workload: clean on the card, launches "
-        + json.dumps({k: v["launches"] for k, v in out["workloads"].items()}))
+    say("phase analysis check_workload: clean on the card but for R4, "
+        "launches "
+        + json.dumps({k: v["launches"] for k, v in out["workloads"].items()})
+        + "; logn 20: R4 findings, R10 peak by the live scan / the CUDA "
+        "allocator (B) "
+        + json.dumps({k: [len(v["r4"]), v["peak_bytes"],
+                          v["allocator_peak_bytes"]]
+                      for k, v in out["workloads"].items() if "r4" in v}))
 
     # 4. the rules over every launch of the full-width runs
     full = [f for group in (full_width["flagship"], full_width["fig1"],
@@ -5980,6 +6074,7 @@ def phase_analysis(seed: int, full_width: dict) -> dict:
         f"C dry run launch for launch and the coverage probe exact; "
         f"[calls, launches, elements imaged] per kernel module "
         + json.dumps(per_kernel))
+    out.update(rules_r4_r9_r10_r11(decode_facts, r11_runs))
     out["seconds"] = time.perf_counter() - t0
     say(f"phase analysis: {out['seconds']:.2f} s")
     out["lines"] = [dict(
@@ -5994,6 +6089,132 @@ def phase_analysis(seed: int, full_width: dict) -> dict:
         floor_ms=floor_ms, library_ms=None,
         mismatches=out["mutants"][kind]["mismatches"])
         for kind, fn in fixtures.MUTANTS.items()]
+    return out
+
+
+def memory_and_scheduler_checks(decode_facts: dict, smi: str) -> dict:
+    """(a) R10 on the hog fixture, (b) check_decode on the card, (c) R4
+    and R10 on the serve phase's full-width decode step."""
+    from repro_torch.analysis import (FAST_LATTICE, certify_lattice,
+                                      check_artifacts, check_decode)
+    from repro_torch.analysis.fixtures import hbm_hog, hbm_hog_input
+    from repro_torch.analysis.mem_facts import call_facts
+    out = {}
+
+    # (a) R10 on the hog: the live scan and the allocator, both 64 MiB
+    _, hog = call_facts(hbm_hog, hbm_hog_input())
+    rep = check_artifacts("r10-hog", [], mem_facts=hog,
+                          hbm_ceiling=HOG_CEILING, rules=("R10",))
+    scan = hog["liveness"]["peak_bytes"]
+    stats = hog["memory_stats"]["allocated_bytes.all.peak"]
+    out["hog"] = dict(scan=scan, allocator=stats,
+                      findings=[f.format() for f in rep.findings])
+    need(scan == stats == HOG_PEAK and [
+        (f.rule, f.severity.name, f.actual_bytes) for f in rep.findings]
+        == [("R10", "ERROR", HOG_PEAK)],
+        f"analysis R10 hog: scan {scan}, allocator {stats}, "
+        f"findings:\n{rep.format()}")
+    say(f"phase analysis R10 hog: peak {scan:.0f} B by the live scan, "
+        f"{stats} B by the CUDA allocator, flagged at {HOG_CEILING} B: "
+        f"{rep.findings[0].format()} [{smi}]")
+
+    # (b) check_decode on the card at the CPU test's size
+    t0 = time.perf_counter()
+    states = sum(r["states"] for r in certify_lattice(FAST_LATTICE).values())
+    r9_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = check_decode()
+    out["decode"] = dict(
+        r9_states=states, r9_s=r9_s, s=time.perf_counter() - t0,
+        notes=rep.notes, findings=[f.format() for f in rep.findings],
+        peak_bytes=rep.context["peak_bytes"],
+        allocator_peak_bytes=rep.context["allocator_peak_bytes"],
+        launches=rep.context["launches"])
+    need(rep.clean and states == R9_FAST_STATES and any(
+        f"{R9_FAST_STATES} canonical states" in n for n in rep.notes)
+        and any(n.startswith("R10: device-live-range ok") for n in rep.notes),
+        f"analysis check_decode: {states} states:\n"
+        f"{rep.format(verbose=True)}")
+    say(f"phase analysis check_decode: clean on the card; R9 "
+        f"{states} canonical states (the CPU's {R9_FAST_STATES}) in "
+        f"{r9_s:.2f} s on this host; the step's {rep.context['launches']} "
+        f"kernel launches, peak {rep.context['peak_bytes']} B by the live "
+        f"scan, {rep.context['allocator_peak_bytes']} B by the allocator; "
+        f"check_decode {out['decode']['s']:.2f} s [{smi}]")
+
+    # (c) R4 and R10 on one decode step of the serve phase's server
+    rep = check_artifacts("serve[decode] full width", [],
+                          mem_facts=decode_facts, rules=("R4", "R10"))
+    r4 = [f for f in rep.findings if f.rule == "R4"]
+    out["full_width_decode"] = dict(
+        r4=[f.format() for f in r4],
+        r4_bytes=sum(f.actual_bytes for f in r4),
+        scan=decode_facts["liveness"]["peak_bytes"],
+        allocator=decode_facts["memory_stats"]["allocated_bytes.all.peak"],
+        cache_bytes=decode_facts["cache_bytes"], notes=rep.notes,
+        s=decode_facts["seconds"])
+    need(len(r4) == len(rep.findings) and all(
+        f.severity.name == "WARN" for f in r4)
+        and any(n.startswith("R10: device-live-range ok") for n in rep.notes)
+        and out["full_width_decode"]["allocator"] > 0,
+        f"analysis full-width decode step:\n{rep.format(verbose=True)}")
+    say(f"phase analysis full-width decode step ({SERVE_ARCH}, "
+        f"{SERVE_SLOTS} slots over HomeMesh data 8, cache "
+        f"{decode_facts['cache_bytes']} B): R4 {len(r4)} finding(s), "
+        f"{out['full_width_decode']['r4_bytes']:.0f} B a step copied ("
+        + "; ".join(f.shape for f in r4) + "); R10 peak "
+        f"{out['full_width_decode']['scan']:.0f} B by the live scan, "
+        f"{out['full_width_decode']['allocator']} B by the allocator; the "
+        f"step under the facts {decode_facts['seconds']:.2f} s [{smi}]")
+    return out
+
+
+def rules_r4_r9_r10_r11(decode_facts: dict, r11_runs: dict) -> dict:
+    """The analysis phase's checks of R4, R9, R10 and R11 on the card (see
+    the module docstring, 9): (a)-(c) in `memory_and_scheduler_checks`,
+    then (d) the rank phases' logs and the three R11 fixtures on 2 gloo
+    ranks, which run beside (a)-(c)."""
+    from repro_torch.analysis.fixtures import (R11_FIXTURES, r11_rank_logs,
+                                               r11_reports)
+    from repro_torch.launch.mesh import spawn
+    smi = smi_line()
+    with concurrent.futures.ThreadPoolExecutor(1) as beside:
+        t_fix = time.perf_counter()
+        fixture_ranks = beside.submit(spawn, r11_rank_logs, 2, "gloo",
+                                      "cuda")
+        out = memory_and_scheduler_checks(decode_facts, smi)
+        reports = r11_reports(fixture_ranks.result())
+    fixture_s = time.perf_counter() - t_fix
+
+    # (d) R11 over the rank phases' logs, and the fixtures on 2 gloo ranks:
+    # every phase gave runs, every run made collectives, and none differs
+    need(set(r11_runs) == set(R11_PHASES) and all(r11_runs.values()),
+         "analysis R11: runs a phase "
+         + json.dumps({ph: len(v) for ph, v in r11_runs.items()}))
+    empty = [f"{ph}/{run}" for ph, runs in r11_runs.items()
+             for run, r in runs.items() if r["collectives"] == 0]
+    need(not empty, f"analysis R11: runs with no collective: {empty}")
+    bad = {f"{ph}/{run}": r["findings"] for ph, runs in r11_runs.items()
+           for run, r in runs.items() if r["findings"]}
+    need(not bad, f"analysis R11 on the rank phases: {bad}")
+    out["r11_runs"] = {ph: {run: r["collectives"] for run, r in runs.items()}
+                       for ph, runs in r11_runs.items()}
+    got = {n: sorted((f.rule, f.severity.name) for f in r.findings)
+           for n, r in reports.items()}
+    out["r11_fixtures"] = dict(
+        signatures=got, s=fixture_s,
+        findings={n: [f.format() for f in r.findings]
+                  for n, r in reports.items()})
+    need(got == {n: want for n, (_, want) in R11_FIXTURES.items()},
+         f"analysis R11 fixtures: {got}")
+    say(f"phase analysis R11: every rank's log equal in "
+        + json.dumps({ph: len(v) for ph, v in out["r11_runs"].items()})
+        + " runs of the rank phases (collectives a run "
+        + json.dumps({ph: [min(v.values()), max(v.values())]
+                      for ph, v in out["r11_runs"].items() if v})
+        + "); the fixtures on 2 gloo ranks of the card "
+        + json.dumps(got) + f" in {out['r11_fixtures']['s']:.1f} s (beside "
+        f"(a)-(c))")
     return out
 
 
@@ -6071,7 +6292,11 @@ def main(argv=None) -> int:
         "attention": {**attention.pop("recorded"),
                       "serve": serve.pop("recorded"),
                       "stack": stack.pop("recorded")}}
-    analysis = phase_analysis(args.seed, full_width)
+    analysis = phase_analysis(
+        args.seed, full_width, serve.pop("decode_facts"),
+        {"serve_ranks": serve_ranks.pop("r11"),
+         "train_ranks": train_ranks.pop("r11"),
+         "model_split": model_split.pop("r11")})
     check_dtypes_on_cpu(dtypes, cpu_sorts)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -32,7 +32,7 @@ RULES = {
     "R3": "smem-budget: a kernel launch's static + dynamic shared memory "
           "exceeds the per-block ceiling",
     "R4": "donation-audit: large step-carried buffer copied across steps "
-          "(an output with the exact shape of a non-aliased input)",
+          "(an output with the exact shape of an input, in fresh storage)",
     "R5": "write-race/coverage: a kernel launch's output tile maps must "
           "partition the output over its blocks (overlap = race ERROR, "
           "gap = WARN) and input tiles must stay in bounds",
@@ -49,12 +49,12 @@ RULES = {
           "charged, starvation <= max_skip, work conservation, eviction "
           "never migrates, no double-booking, charges == replayed moves, "
           "minimal spill donor) over the small-config lattice",
-    "R10": "hbm-live-range: the compiled module's per-device peak live "
-           "HBM bytes exceed the declared ceiling "
+    "R10": "device-live-range: a call's peak live device bytes exceed "
+           "the declared ceiling "
            "(repro_torch.kernels.HBM_BYTES_PER_DEVICE)",
-    "R11": "collective-control-flow: a collective reachable only under "
-           "data-dependent control flow, or with inconsistent per-branch "
-           "ordering — deadlock once multi-process lands",
+    "R11": "collective-control-flow: ranks that issue different "
+           "collectives (deadlock), or whose collectives' count depends "
+           "on the data",
 }
 
 

@@ -1,4 +1,4 @@
-"""Rules R1, R2 and R3: the collectives of a rank, the launches of a call.
+"""Rules R1-R4: the collectives of a rank, the launches and buffers of a call.
 
 R1 surprise-collective and R2 home-leak are copies of the reference's
 (`repro/analysis/rules.py:42-125`, with `_varied_axes` and the R1
@@ -17,11 +17,20 @@ so each launch's static plus dynamic shared memory is checked against
 may opt into).  A launch above it would be refused by the card at run
 time; the rule refuses it from the plan.
 
-R4 reads the reference's HLO and waits for its own slice.
+R4 donation-audit is the counterpart of `r4_donation_audit`
+(`repro/analysis/rules.py:144-164`, with `R4_MIN_BYTES`).  The reference
+flags a large entry parameter whose type reappears among the outputs
+without a donation alias: XLA copies it every step.  The port's donation
+contract is `Locale.jit` / `core.localisation.donate_buffers` (a donated
+argument may have its storage reused); the facts are what the call did
+(`mem_facts.call_facts`'s aliasing): an argument of at least
+`R4_MIN_BYTES` that comes back same-shaped and same-typed in fresh
+storage only was copied, and one that comes back in its own storage was
+written in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
@@ -32,6 +41,8 @@ from repro_torch.analysis.launches import LaunchFacts
 # whisker for layout padding on other backends.
 R1_REL_TOL = 0.02
 R1_ABS_TOL = 4096.0
+
+R4_MIN_BYTES = float(1 << 20)           # audit buffers >= 1 MiB
 
 
 def r1_surprise_collective(report: Report, coll_ops: List[Dict],
@@ -125,3 +136,24 @@ def r3_smem_budget(report: Report, facts: Sequence[LaunchFacts],
                         f"(static {fc.smem_static:,} + dynamic "
                         f"{fc.smem_dynamic:,}) > the per-block ceiling "
                         f"{ceiling_bytes:,}"))
+
+
+def r4_donation_audit(report: Report, facts: Sequence[Dict],
+                      min_bytes: float = R4_MIN_BYTES,
+                      donated_ok: Optional[Sequence[int]] = None) -> None:
+    """Flag large arguments that come back same-shaped in fresh storage;
+    `facts` is `mem_facts.call_facts`'s ``facts["aliasing"]``, and
+    `donated_ok` exempts arguments by position."""
+    for a in facts:
+        if donated_ok and a["index"] in donated_ok:
+            continue
+        if a["bytes"] >= min_bytes and a["returned"] and not a["in_place"]:
+            report.add(Finding(
+                "R4", Severity.WARN, "argument",
+                shape=f"{a['path']} {a['dtype']}{list(a['shape'])}",
+                actual_bytes=float(a["bytes"]),
+                message=f"argument {a['path']} ({a['bytes']:,.0f}B) comes "
+                        f"back same-shaped in fresh storage — copied every "
+                        f"step; write it in place (a donated argument's "
+                        f"storage may be reused: Locale.jit(fn, "
+                        f"donate=(...,)))"))

@@ -312,21 +312,25 @@ class Locale:
 
     def check(self, workload: str = "sort", *, rules=None, suppress=(),
               **kw):
-        """Check a workload's kernel launches against this locale.
+        """Check a workload against this locale.
 
         The homecheck hook (`repro_torch.analysis.check_workload`): runs
         ``self.workload(workload, ...)`` once on a representative input
-        while recording every kernel launch it makes, and runs rules R3
-        (shared memory per block), R5 (write races, coverage, out-of-bounds
-        reads), R6 (exchange-network certification), R7 (index arithmetic,
-        sentinel) and R8 (dead ``blockIdx`` lanes) on them, and on a
+        while recording every kernel launch it makes and every buffer it
+        makes and returns, and runs rules R3 (shared memory per block),
+        R5 (write races, coverage, out-of-bounds reads), R6
+        (exchange-network certification), R7 (index arithmetic, sentinel)
+        and R8 (dead ``blockIdx`` lanes) on the launches, R4 (arguments
+        copied in place of written in place) and R10 (peak live device
+        bytes against the device's memory) on the buffers, and on a
         `RankMesh` R1 (this rank's collectives against
-        `collective_census`) and R2 (their groups against the locale's
-        axes) on the collectives it made.  Returns an
-        `analysis.Report`; ``report.clean`` is the contract.  `rules`
-        selects a subset (e.g. ``rules=("R5", "R6")``; None = all, the
-        rules without a port counterpart yet noted as skipped); `suppress`
-        drops findings by rule id.
+        `collective_census`), R2 (their groups against the locale's axes)
+        and R11 (every rank's collectives in one sequence); R9 (the
+        serving scheduler) is the decode target's (`check_decode`), noted
+        as skipped here.  Returns an `analysis.Report`;
+        ``report.clean`` is the contract.  `rules` selects a subset (e.g.
+        ``rules=("R5", "R6")``; None = all); `suppress` drops findings by
+        rule id.
         """
         from repro_torch.analysis import check_workload
         return check_workload(self, workload, rules=rules, suppress=suppress,

@@ -38,8 +38,11 @@ reference's rules R1/R2 read: ``kind`` (the HLO opcode,
 group, or a collective-permute's ``[src, dst]`` pairs over the whole
 mesh), ``mult`` (1), ``wire_bytes`` (the bytes this rank sent to other
 ranks), ``inter_pod_bytes`` / ``intra_pod_bytes`` (the same bytes split
-by whether the receiver sits in another pod, `mesh.POD_AXIS`) and
-``staged_bytes``.
+by whether the receiver sits in another pod, `mesh.POD_AXIS`),
+``staged_bytes`` and ``payload_bytes`` (the bytes of this rank's operand,
+which every rank of the group passes alike; None for `all_to_all_v`,
+whose counts differ by rank).  Rule R11 (`analysis.livecheck`) holds the
+ranks' logs to one sequence.
 
 Transport: a tensor goes as its bytes (uint8), so every sort dtype takes
 the same path.  On NCCL a CUDA tensor goes as it is.  gloo has no device
@@ -51,7 +54,7 @@ group's, chosen by the caller; nothing switches backend on a failure.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -110,15 +113,17 @@ def _transport(op: Callable, send: torch.Tensor, recv_numel: int,
 
 
 def _record(kind: str, mesh, axes, groups, sent: Dict[int, int],
-            staged: int) -> None:
+            staged: int, payload: Optional[int]) -> None:
     """Append one record: `sent` maps each receiving rank to the bytes
-    this rank sent it (itself excluded)."""
+    this rank sent it (itself excluded); `payload` is the operand's
+    bytes."""
     me = mesh.pod(mesh.rank)
     inter = sum(b for r, b in sent.items() if mesh.pod(r) != me)
     wire = sum(sent.values())
     LOG.append({"kind": kind, "axes": list(axes), "groups": groups,
                 "mult": 1, "wire_bytes": wire, "inter_pod_bytes": inter,
-                "intra_pod_bytes": wire - inter, "staged_bytes": staged})
+                "intra_pod_bytes": wire - inter, "staged_bytes": staged,
+                "payload_bytes": payload})
     STAGED["bytes"] += staged
 
 
@@ -138,14 +143,16 @@ def all_to_all(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
                          f"blocks, got shape {tuple(x.shape)}")
     send = _bytes(x)
     if g == 1:
-        _record("all-to-all", mesh, axes, mesh.partition(axes), {}, 0)
+        _record("all-to-all", mesh, axes, mesh.partition(axes), {}, 0,
+                send.numel())
         return x.clone()
     recv, staged = _transport(
         lambda r, s: dist.all_to_all_single(r, s, group=group), send,
         send.numel(), dist.get_backend(group))
     block = send.numel() // g
     _record("all-to-all", mesh, axes, mesh.partition(axes),
-            {r: block for r in ranks if r != mesh.rank}, staged)
+            {r: block for r in ranks if r != mesh.rank}, staged,
+            send.numel())
     return _view(recv, x)
 
 
@@ -165,7 +172,7 @@ def all_to_all_v(x: torch.Tensor, mesh, axes: Axis,
     item = x.element_size()
     send = _bytes(x)
     if len(ranks) == 1:
-        _record("all-to-all", mesh, axes, mesh.partition(axes), {}, 0)
+        _record("all-to-all", mesh, axes, mesh.partition(axes), {}, 0, None)
         return x.reshape(-1).clone()
     out_splits = [int(c) * item for c in recv_counts]
     in_splits = [int(c) * item for c in send_counts]
@@ -175,7 +182,7 @@ def all_to_all_v(x: torch.Tensor, mesh, axes: Axis,
         send, sum(out_splits), dist.get_backend(group))
     _record("all-to-all", mesh, axes, mesh.partition(axes),
             {r: b for r, b in zip(ranks, in_splits) if r != mesh.rank},
-            staged)
+            staged, None)
     return recv.view(x.dtype)
 
 
@@ -198,7 +205,8 @@ def ppermute(x: torch.Tensor, mesh, axis: str,
               if mesh.coords_of(r)[axis] == s]
     send = _bytes(x)
     if to == mesh.rank and frm == mesh.rank:
-        _record("collective-permute", mesh, (axis,), groups, {}, 0)
+        _record("collective-permute", mesh, (axis,), groups, {}, 0,
+                send.numel())
         return x.clone()
 
     def op(recv, s):
@@ -208,7 +216,7 @@ def ppermute(x: torch.Tensor, mesh, axis: str,
 
     recv, staged = _transport(op, send, send.numel(), mesh.backend)
     _record("collective-permute", mesh, (axis,), groups,
-            {to: send.numel()}, staged)
+            {to: send.numel()}, staged, send.numel())
     return _view(recv, x)
 
 
@@ -220,13 +228,15 @@ def all_gather(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     g = len(ranks)
     send = _bytes(x)
     if g == 1:
-        _record("all-gather", mesh, axes, mesh.partition(axes), {}, 0)
+        _record("all-gather", mesh, axes, mesh.partition(axes), {}, 0,
+                send.numel())
         return x[None].clone()
     recv, staged = _transport(
         lambda r, s: dist.all_gather_into_tensor(r, s, group=group), send,
         g * send.numel(), dist.get_backend(group))
     _record("all-gather", mesh, axes, mesh.partition(axes),
-            {r: send.numel() for r in ranks if r != mesh.rank}, staged)
+            {r: send.numel() for r in ranks if r != mesh.rank}, staged,
+            send.numel())
     return _view(recv, x, (g,))
 
 
@@ -243,14 +253,16 @@ def psum(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     group, ranks = mesh.group(axes)
     g = len(ranks)
     if g == 1:
-        _record("all-reduce", mesh, axes, mesh.partition(axes), {}, 0)
+        _record("all-reduce", mesh, axes, mesh.partition(axes), {}, 0,
+                x.numel() * x.element_size())
         return x.clone()
     send = _bytes(x)
     recv, staged = _transport(
         lambda r, s: dist.all_gather_into_tensor(r, s, group=group), send,
         g * send.numel(), dist.get_backend(group))
     _record("all-reduce", mesh, axes, mesh.partition(axes),
-            {r: send.numel() for r in ranks if r != mesh.rank}, staged)
+            {r: send.numel() for r in ranks if r != mesh.rank}, staged,
+            send.numel())
     parts = _view(recv, x, (g,))
     if not x.is_floating_point():
         return parts.sum(dim=0).to(x.dtype)
@@ -276,7 +288,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
         raise ValueError(f"reduce_scatter over {axes!r} takes dim 0 in {g} "
                          f"blocks, got shape {tuple(x.shape)}")
     if g == 1:
-        _record("reduce-scatter", mesh, axes, mesh.partition(axes), {}, 0)
+        _record("reduce-scatter", mesh, axes, mesh.partition(axes), {}, 0,
+                x.numel() * x.element_size())
         return x.clone()
     send = _bytes(x)
     recv, staged = _transport(
@@ -284,7 +297,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
         send.numel(), dist.get_backend(group))
     block = send.numel() // g
     _record("reduce-scatter", mesh, axes, mesh.partition(axes),
-            {r: block for r in ranks if r != mesh.rank}, staged)
+            {r: block for r in ranks if r != mesh.rank}, staged,
+            send.numel())
     parts = _view(recv, x).view(g, x.shape[0] // g, *x.shape[1:])
     if not x.is_floating_point():
         return parts.sum(dim=0).to(x.dtype)

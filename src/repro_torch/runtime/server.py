@@ -333,6 +333,23 @@ class DecodeServer:
         self.scheduler.submit(req)
 
     # ------------------------------------------------------- aligned waves
+    def prefill_wave(self, toks: np.ndarray) -> Tuple[np.ndarray, Dict]:
+        """Build an aligned wave's cache by one prefill of ``toks`` ((B,
+        plen) int64, every slot row, left-padded) and pick each row's first
+        token: returns ``(cur, caches)``."""
+        self.slots = max(self.max_len, toks.shape[1])  # the cache it builds
+        mine = self._mine(toks)
+        self._call("prefill", mine)
+        last, caches = self.model.prefill(
+            self.params, {"tokens": mine}, max_len=self.max_len,
+            plan=self.plan)
+        return self._pick(last), caches
+
+    def decode_batch(self, cur: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The decode step's batch for the picks ``cur`` (B,): this
+        home's rows."""
+        return {"tokens": self._mine(cur[:, None].astype(np.int64))}
+
     def _serve_wave(self, placements) -> Tuple[List[Request], float]:
         """Serve one aligned wave of slot-placed requests.
 
@@ -349,25 +366,19 @@ class DecodeServer:
         active = [r for r in reqs if r is not None]
         plen = (self.prompt_pad if self.prompt_pad is not None
                 else max(1, max(len(r.prompt) for r in active)))
-        self.slots = max(self.max_len, plen)     # the cache prefill builds
         toks = np.zeros((B, plen), np.int64)
         for i, r in enumerate(reqs):             # left-pad with token 0
             if r is not None:
                 toks[i, plen - len(r.prompt):] = r.prompt
-        mine = self._mine(toks)
-        self._call("prefill", mine)
-        last, caches = self.model.prefill(
-            self.params, {"tokens": mine}, max_len=self.max_len,
-            plan=self.plan)
+        cur, caches = self.prefill_wave(toks)
         pos = plen
-        cur = self._pick(last)
         for i, r in enumerate(reqs):
             if r is not None:
                 r.out.append(int(cur[i]))
         steps = 1
         max_new = max(r.max_new for r in active)
         for _ in range(max_new - 1):
-            batch = {"tokens": self._mine(cur[:, None].astype(np.int64))}
+            batch = self.decode_batch(cur)
             self._call("decode", batch["tokens"])
             logits, caches = self._decode(self.params, caches, batch, pos)
             cur = self._pick(logits)

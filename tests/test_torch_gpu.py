@@ -1162,3 +1162,42 @@ def test_sequence_homed_decode_on_two_ranks_of_the_card():
         assert res["block"][2] == SEQ_CARD["max_len"] // 2
         torch.testing.assert_close(res["logits"], want, rtol=1e-4,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# R10 and check_decode on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_r10_hog_with_the_allocator_on_the_card():
+    """The hog's live scan gives the CPU's 64 MiB on the card, and the
+    CUDA allocator's peak over the call agrees; both flag it at 32 MiB."""
+    _need_card()
+    from repro_torch.analysis import check_artifacts
+    from repro_torch.analysis.fixtures import hbm_hog, hbm_hog_input
+    from repro_torch.analysis.mem_facts import call_facts
+    _, card = call_facts(hbm_hog, hbm_hog_input())
+    _, cpu = call_facts(hbm_hog, hbm_hog_input("cpu"))
+    assert card["liveness"]["peak_bytes"] == cpu["liveness"]["peak_bytes"] \
+        == 64 * 2 ** 20
+    assert card["memory_stats"]["allocated_bytes.all.peak"] == 64 * 2 ** 20
+    rep = check_artifacts("r10-hog", [], mem_facts=card,
+                          hbm_ceiling=32 * 2 ** 20, rules="R10")
+    assert [f.rule for f in rep.errors] == ["R10"]
+    assert rep.errors[0].actual_bytes == 64 * 2 ** 20
+
+
+@pytest.mark.gpu
+def test_check_decode_on_the_card():
+    """`check_decode` at its defaults on the card: clean, the scheduler's
+    fast corner certified with the CPU's state count, the step's peak
+    read by the allocator too."""
+    _need_card()
+    from repro_torch.analysis import FAST_LATTICE, certify_lattice, \
+        check_decode
+    rep = check_decode()
+    assert rep.clean, rep.format(verbose=True)
+    assert rep.context["device"].startswith("cuda")
+    states = sum(r["states"] for r in certify_lattice(FAST_LATTICE).values())
+    assert states == 59169
+    assert any(f"{states} canonical states" in n for n in rep.notes)
+    assert any(n.startswith("R10: device-live-range ok") for n in rep.notes)
