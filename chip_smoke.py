@@ -117,17 +117,19 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 chunked form (bf16 and float32, within `LOGIT_TOL`) and
                 with the attention phase's two planted faults in the
                 kernel's place (outside it), and the costs of a wave:
-                prefill, a decode step, the `pin_tree` copy of the cache;
+                prefill, the server's steady decode step (on the homed
+                cache, no relayout), the one `pin_tree` copy of the
+                cache and, planted, the step on a never-homed cache;
   8f. serve_ranks — `DecodeServer` across 8 gloo ranks sharing the card,
                 each serving its home's slots with its blocks of the
-                parameters: qwen3-0.6b at full width, 7 of 28 layers (the
+                parameters: qwen3-0.6b at full width, 4 of 28 layers (the
                 serve phase's stream, 16 slots) on {"data": 8} (8 homes) and on
                 {"pod": 2, "data": 2, "model": 2} (4 homes of 2 ranks, the
                 heads, KV heads, MLP and vocabulary split), both modes,
                 both policies: every rank's collectives equal to
                 `serve_schedule` (no cache bytes), the scheduler replicas'
                 digests equal, the summary equal to `schedule_replay`'s,
-                every request on its home's ranks, 7 `flash_attention`
+                every request on its home's ranks, 4 `flash_attention`
                 launches a prefill wave on every rank, and the picks held
                 to the one-process runs on the same homes and depth
                 (`SERVE_RANK_TOL`;
@@ -249,6 +251,22 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 layer's (1, 16, 2, 512 x 4096, 128)) against its plain
                 version, timed beside SDPA and its bound; tokens/s, step
                 ms, collectives and bytes by rank;
+  8i. dryrun  — the cost model of one rank's step (`launch.dryrun`)
+                held to the card: (a) qwen3-0.6b at full width, no mesh,
+                the serve phase's first prefill wave (16, 753) in bf16,
+                run by `models.steps.make_prefill_step` under
+                `launch.step_cost` and `mem_facts.call_facts` on ``meta``
+                (predicted) and then on the card: the 28
+                `flash_attention` launches (`LaunchFacts`) equal launch
+                for launch, the card's counted FLOPs, HBM bytes and
+                live-scan peak equal the dry run's exactly, the
+                allocator's peak at least that, the logits through the
+                kernel within `LOGIT_TOL` of the plain chunked form, and
+                the prefill's milliseconds beside the H100 model's
+                compute and memory seconds; (b) the sweep's three
+                qwen3-0.6b cells of ``{"data": 16, "model": 16}``, run on
+                this host beside the build, equal to the committed
+                `results/dryrun_torch/` cells in every count;
   8d. dtypes  — int8, int16, uint8, uint16, uint32, float16 and bfloat16
                 through both backends on {"data": 8} at n = 2^24 + 5:
                 equal to torch.sort's values, and bit for bit the CPU
@@ -277,10 +295,13 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 and the allocator, (b) `check_decode` clean on the card
                 with the CPU's R9 state count, (c) R4 and R10 on one decode
                 step of the serve phase's full-width server (its facts
-                taken there), (d) R11 over every rank's collective log of
-                each run of the serve_ranks, train_ranks and model_split
-                phases (each run's signature returned by its ranks), and
-                the three R11 fixtures on 2 gloo ranks of the card.
+                taken there) on its steady-state cache, homed once by
+                `pin_tree`: R4 silent; planted, the same step on a cache
+                never homed: R4 reports the whole cache copied, (d) R11
+                over every rank's collective log of each run of the
+                serve_ranks, train_ranks and model_split phases (each
+                run's signature returned by its ranks), and the three
+                R11 fixtures on 2 gloo ranks of the card.
 
 Every path's counted run sets the launch counts to 0 just before it and
 reads them just after (`bitonic_sort`'s path is ``ops.chunked_sort``).
@@ -1943,13 +1964,16 @@ def phase_fig1(seed: int) -> dict:
     return out
 
 
-def attention_work(B, H, KV, S, hd, window, itemsize):
-    """(flops, bytes) the function needs: 4 hd flops per unmasked
-    (query, key) pair; q, k, v read once and out written once."""
-    q = torch.arange(S, dtype=torch.float64)
-    pairs = float((q + 1).clamp(max=window).sum()) if window else \
-        S * (S + 1) / 2
-    return 4 * hd * pairs * B * H, (2 * B * H + 2 * B * KV) * S * hd * itemsize
+def attention_work(q, k, causal: bool = True, window: int = 0):
+    """(flops, bytes) one `flash_attention` call on q, k needs:
+    `flash_attention.work`, the count the dry run's cost uses too."""
+    from repro_torch.analysis.launches import dtype_name
+    from repro_torch.kernels.flash_attention import work
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    w = work(B, H, KV, Sq, Skv, hd, ATTN_BLOCK, ATTN_BLOCK, causal, window,
+             dtype_name(q.dtype))
+    return w["flops"], w["bytes"]
 
 
 #: (B, H, KV, S, hd, window, dtype): the head layouts of
@@ -2135,8 +2159,7 @@ def phase_attention(seed: int) -> dict:
                                                       enable_gqa=True)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
-        flops, nbytes = attention_work(B, H, KV, S, hd, window,
-                                       q.element_size())
+        flops, nbytes = attention_work(q, k, window=window)
         rec.update(
             ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=20),
             plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, **kw),
@@ -2426,7 +2449,7 @@ def phase_serve(seed: int) -> dict:
     with untimed():
         got = ops.flash_attention(q, k, v, causal=True)
     plain = flash_attention_reference(q, k, v, causal=True)
-    flops, nbytes = attention_work(B, H, KV, S, hd, 0, 2)
+    flops, nbytes = attention_work(q, k)
     kern = dict(
         shape=[B, H, KV, S, hd], beyond=beyond(got, plain, rtol, atol),
         max_abs_err=float((got.float() - plain.float()).abs().max()),
@@ -2504,26 +2527,32 @@ def phase_serve(seed: int) -> dict:
              f"serve: a planted fault's {dt} prefill logits pass the "
              f"tolerance {LOGIT_TOL[dt]}: {rec['faults']}")
 
-    # the costs of one wave: prefill, a decode step, the pin_tree copy
+    # the costs of one wave: prefill, the server's steady decode step (on
+    # a cache pin_tree has homed, each step's cache, written in place and
+    # pinned again with nothing moved, threaded into the next), the one
+    # pin_tree copy into the homes and, planted, the step on the
+    # prefill's cache, never homed, which pin_tree copies every step
     srv = server("waves", "fifo")
     prefill = lambda: model.prefill(params, {"tokens": toks},  # noqa: E731
                                     max_len=SERVE_MAX_LEN)
     _, caches = prefill()
     batch = {"tokens": toks[:, -1:].contiguous()}
     reset_relayouts()
-    pinned = locale.pin_tree(caches, dim=1, size=SERVE_SLOTS)
+    steady = {"caches": locale.pin_tree(caches, dim=1, size=SERVE_SLOTS)}
     moved = relayout_counts()
-    del pinned
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(caches))
-    srv._decode(params, caches, batch, S)            # warm-up
+
+    def step():
+        _, steady["caches"] = srv._decode(params, steady["caches"], batch, S)
+    step()                                           # warm-up
+    reset_relayouts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
-        srv._decode(params, caches, batch, S)
+        step()
     torch.cuda.synchronize()
     host_step = (time.perf_counter() - t0) / 3 * 1e3
-    step = lambda: srv._decode(params, caches, batch, S)  # noqa: E731
     costs = dict(
         prefill_ms=cuda_ms(prefill, reps=3),
         prefill_busy_ms=device_busy_ms(prefill),
@@ -2533,22 +2562,40 @@ def phase_serve(seed: int) -> dict:
         decode_step_ms=cuda_ms(step, reps=5),
         decode_step_host_ms=host_step,
         decode_model_ms=cuda_ms(lambda: model.decode_step(
+            params, steady["caches"], batch, S), reps=5),
+        pin_tree_ms=cuda_ms(lambda: locale.pin_tree(
+            steady["caches"], dim=1, size=SERVE_SLOTS), reps=5),
+        steady_moved=relayout_counts(),
+        decode_step_unhomed_ms=cuda_ms(lambda: srv._decode(
             params, caches, batch, S), reps=5),
-        pin_tree_ms=cuda_ms(lambda: locale.pin_tree(caches, dim=1,
-                                                    size=SERVE_SLOTS), reps=5),
+        pin_tree_first_ms=cuda_ms(lambda: locale.pin_tree(
+            caches, dim=1, size=SERVE_SLOTS), reps=5),
         pin_tree_moved=moved, cache_bytes=cache_bytes,
         param_bytes=sum(t.numel() * t.element_size()
                         for t in tree_leaves(params)),
         prefill_shape=[SERVE_SLOTS, S])
+    need(costs["steady_moved"]["bytes"] == 0,
+         f"serve: the steady decode steps relaid out their homed cache "
+         f"{costs['steady_moved']}")
     out["costs"] = costs
     # (analysis phase, (c)) one decode step of this server under the
-    # memory facts: R4 (the cache re-homed by pin_tree comes back in fresh
-    # storage) and R10 run on them in the analysis phase
+    # memory facts, R4 and R10 run on them in the analysis phase: the
+    # server's steady state, a cache pin_tree has homed (written in place,
+    # pinned again with nothing moved), and, planted, the same step on the
+    # prefill's cache, never homed (pin_tree copies it into fresh storage)
     from repro_torch.analysis.mem_facts import call_facts
+    homed = steady.pop("caches")
+    reset_relayouts()
+    locale.pin_tree(homed, dim=1, size=SERVE_SLOTS)
+    again = relayout_counts()
+    need(again["bytes"] == 0, f"serve: pin_tree moved a homed cache {again}")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, facts = call_facts(srv._decode, params, caches, batch, S)
+    _, facts = call_facts(srv._decode, params, homed, batch, S)
     facts["seconds"] = time.perf_counter() - t0
     facts["cache_bytes"] = cache_bytes
+    del homed
+    _, facts["planted"] = call_facts(srv._decode, params, caches, batch, S)
     out["decode_facts"] = facts
     del caches, srv
     torch.cuda.empty_cache()
@@ -2561,9 +2608,13 @@ def phase_serve(seed: int) -> dict:
         f"{costs['decode_step_ms']:.2f} ms by CUDA events, "
         f"{costs['decode_step_host_ms']:.2f} ms by the host clock (the model "
         f"alone {costs['decode_model_ms']:.2f} ms; kernels busy "
-        f"{costs['decode_step_busy_ms']:.2f} ms of the step); pin_tree of the "
-        f"{cache_bytes} B cache {costs['pin_tree_ms']:.2f} ms, moved "
-        f"{json.dumps(moved)}; profiler saw {json.dumps(seen)} launches, the "
+        f"{costs['decode_step_busy_ms']:.2f} ms of the step; the relayouts "
+        f"of its steps {json.dumps(costs['steady_moved'])}); planted, the "
+        f"step on the never-homed cache {costs['decode_step_unhomed_ms']:.2f}"
+        f" ms; pin_tree of the {cache_bytes} B cache: first "
+        f"{costs['pin_tree_first_ms']:.2f} ms, moved {json.dumps(moved)}, "
+        f"homed {costs['pin_tree_ms']:.4f} ms; profiler saw "
+        f"{json.dumps(seen)} launches, the "
         f"wrapper counted {counted}; phase {out['seconds']:.1f} s")
     out["recorded"] = recorded
     out["line_launches"] = out["runs"]["waves-fifo"]["launches"].get(
@@ -2640,12 +2691,6 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def cross_work(B, H, KV, Sq, Skv, hd, itemsize):
-    """(flops, bytes) of non-causal attention: every (query, key) pair."""
-    return (4 * hd * Sq * Skv * B * H,
-            (2 * B * H * Sq + 2 * B * KV * Skv) * hd * itemsize)
-
-
 def kernel_cell(q, k, v, *, causal: bool, window: int = 0) -> dict:
     """The kernel against its plain version at one shape (untimed run
     first), then its time, the plain version's, SDPA's and the bound."""
@@ -2660,11 +2705,7 @@ def kernel_cell(q, k, v, *, causal: bool, window: int = 0) -> dict:
     with untimed():
         got = ops.flash_attention(q, k, v, **kw)
     plain = flash_attention_reference(q, k, v, **kw)
-    if causal:
-        flops, nbytes = attention_work(B, H, KV, Sq, hd, window,
-                                       q.element_size())
-    else:
-        flops, nbytes = cross_work(B, H, KV, Sq, Skv, hd, q.element_size())
+    flops, nbytes = attention_work(q, k, causal, window)
     mask = None
     if window:
         i = torch.arange(Sq, device="cuda")
@@ -3331,9 +3372,11 @@ def phase_stack(seed: int, smi: str) -> dict:
 #: 2 ranks with the heads, KV heads, MLP and vocabulary split over
 #: "model"; both modes, both policies.  Its depth is cut from 28 to
 #: `SERVE_RANK_LAYERS` for the script's time: on an H100 a pods222 run at
-#: 28 layers took 22-26 s (3,776 collectives), the phase 206 s of 1073
+#: 28 layers took 22-26 s (3,776 collectives), the phase 206 s of 1073;
+#: at 7 layers 5.9-7.4 s and 91 s, cut to 4 to make room for the dryrun
+#: phase
 SERVE_RANKS = 8
-SERVE_RANK_LAYERS = 7
+SERVE_RANK_LAYERS = 4
 SERVE_RANK_MESHES = {"data8": {"data": 8, "model": 1},
                      "pods222": {"pod": 2, "data": 2, "model": 2}}
 #: deepseek-moe-16b at full width on 2 homes of 4 ranks (16 of its 64
@@ -5881,6 +5924,148 @@ def signature(report):
                   for f in report.findings)
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the cost model of one rank's step, held to the card
+# ---------------------------------------------------------------------------
+#: (a)'s prefill: the serve phase's first wave, 16 slots of 753 tokens
+DRYRUN_PREFILL = (SERVE_SLOTS, 753)
+#: (b)'s cells: the sweep's qwen3-0.6b cells of the one-pod mesh
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+#: the processes this script starts beside its phases, stopped at exit
+CHILDREN = []
+
+
+def start_dryrun_cells(outdir: str) -> dict:
+    """(b)'s cells, each `launch.dryrun` in a process of its own on this
+    host, started here and read by `phase_dryrun`."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for shape in DRYRUN_CELLS:
+        path = os.path.join(outdir, f"{shape}.json")
+        with open(path + ".err", "w") as err:
+            procs[shape] = (path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", SERVE_ARCH, "--shape", shape, "--out", path],
+                env=env, stdout=subprocess.DEVNULL, stderr=err))
+        CHILDREN.append(procs[shape][1])
+    return procs
+
+
+def phase_dryrun(seed: int, smi: str, cells: dict) -> dict:
+    """The dry run held to the card (see the module docstring, 8i)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sweep import cell_path
+    from repro_torch.models import LM
+    from repro_torch.models.common import MetaGen
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.sharding.partition import NULL_PLAN
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    B, S = DRYRUN_PREFILL
+    shape = ShapeSpec("serve_prefill", S, B, "prefill")
+
+    # (a) predicted on meta, then run on the card
+    t0 = time.perf_counter()
+    step, args = dryrun.build_cell(cfg, shape, NULL_PLAN,
+                                   LM(cfg).init(MetaGen()))
+    _, pred, pfacts = dryrun.cost_step(step, args, grad=False)
+    trace_s = time.perf_counter() - t0
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    step, args = dryrun.build_cell(cfg, shape, NULL_PLAN, params,
+                                   gen=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["flash_attention"]
+    (logits, _), got, facts = dryrun.cost_step(step, args, grad=False)
+    launched = ops.launch_counts()["flash_attention"] - before
+    with torch.no_grad():
+        plain = make_prefill_step(LM(cfg, flash=False), cfg)(*args)[0]
+        ms = cuda_ms(lambda: step(*args), reps=3)
+    roof = dryrun.roofline(pred["flops"], pred["bytes"],
+                           pred["collective_split"])
+    rel = rel_err(logits, plain)
+    peak = facts["liveness"]["peak_bytes"]
+    alloc = facts["memory_stats"]["allocated_bytes.all.peak"]
+    tuples = [(f.launch_tuple(), f.call) for f in got["launches"]]
+    out = {"shape": [B, S], "trace_s": trace_s, "ms": ms, "rel": rel,
+           "launches": len(tuples), "launched": launched,
+           "kernel_launches": got["kernel_launches"],
+           "predicted": {k: pred[k] for k in ("flops", "bytes", "aten_flops",
+                                              "aten_bytes", "kernel_flops",
+                                              "kernel_bytes")},
+           "measured": {k: got[k] for k in ("flops", "bytes", "aten_flops",
+                                             "aten_bytes", "kernel_flops",
+                                             "kernel_bytes")},
+           "peak": {"predicted": pfacts["liveness"]["peak_bytes"],
+                    "scan": peak, "allocator": alloc},
+           "roofline": roof,
+           "ms_over_bound": ms / (1e3 * max(roof["compute_s"],
+                                            roof["memory_s"]))}
+    del params, args, logits, plain
+    need(tuples == [(f.launch_tuple(), f.call) for f in pred["launches"]]
+         and len(tuples) == launched == cfg.num_layers,
+         f"dryrun: the card's launches differ from the dry run's "
+         f"({len(tuples)} and {len(pred['launches'])} noted, {launched} "
+         f"launched)")
+    need(out["measured"] == out["predicted"],
+         f"dryrun: the card's counts differ from the dry run's: "
+         f"{out['measured']} against {out['predicted']}")
+    need(peak == out["peak"]["predicted"] and alloc >= peak,
+         f"dryrun: live-scan peak {peak} on the card, "
+         f"{out['peak']['predicted']} predicted, allocator {alloc}")
+    need(rel <= LOGIT_TOL["bfloat16"],
+         f"dryrun: the prefill's logits through the kernel differ from the "
+         f"plain chunked form by {rel} (tolerance {LOGIT_TOL['bfloat16']})")
+    say(f"phase dryrun (a) ({smi}): {SERVE_ARCH} prefill ({B}, {S}) bf16, "
+        f"no mesh; predicted on meta in {trace_s:.2f} s then run on the "
+        f"card: {launched} flash_attention launches equal to the dry run's "
+        f"LaunchFacts ({json.dumps(got['kernel_launches'])}); FLOPs "
+        f"{got['flops']} (kernel {got['kernel_flops']}), HBM bytes "
+        f"{got['bytes']} (kernel {got['kernel_bytes']}), live-scan peak "
+        f"{peak} B: each equal to the prediction; allocator peak {alloc} "
+        f"B; logits {rel:.3g} from the plain chunked form; {ms:.3f} ms "
+        f"measured against compute_s {roof['compute_s'] * 1e3:.3f} ms and "
+        f"memory_s {roof['memory_s'] * 1e3:.3f} ms "
+        f"({out['ms_over_bound']:.2f}x the larger)")
+
+    # (b) the sweep's cells, run on this host, against the committed ones
+    out["cells"] = {}
+    for name, (path, proc) in cells.items():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise SmokeFailure(f"dryrun: the {name} cell did not end")
+        with open(path + ".err") as f:
+            err = f.read()
+        need(proc.returncode == 0, f"dryrun: the {name} cell exited "
+             f"{proc.returncode}: {err[-2000:]}")
+        with open(path) as f:
+            cell = json.load(f)
+        with open(cell_path(str(ROOT / "results" / "dryrun_torch"),
+                            SERVE_ARCH, name, False)) as f:
+            committed = json.load(f)
+        diff = [k for k in dryrun.COUNT_KEYS if cell[k] != committed[k]]
+        need(not diff, f"dryrun: the {name} cell differs from the committed "
+                       f"one in {diff}")
+        out["cells"][name] = {k: cell[k] for k in (
+            "trace_s", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "per_device_hbm_bytes",
+            "roofline")}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase dryrun (b): the sweep's {SERVE_ARCH} cells on "
+        f"{{'data': 16, 'model': 16}}, run on this host, equal to the "
+        f"committed ones in every count " + json.dumps(
+            {n: {k: c[k] for k in ("trace_s", "flops_per_device",
+                                   "per_device_hbm_bytes")}
+             for n, c in out["cells"].items()})
+        + f"; phase {out['seconds']:.1f} s")
+    return out
+
+
 def phase_analysis(seed: int, full_width: dict, decode_facts: dict,
                    r11_runs: dict) -> dict:
     """The analyser's path on the card (see the module docstring, 9)."""
@@ -6142,30 +6327,46 @@ def memory_and_scheduler_checks(decode_facts: dict, smi: str) -> dict:
         f"scan, {rep.context['allocator_peak_bytes']} B by the allocator; "
         f"check_decode {out['decode']['s']:.2f} s [{smi}]")
 
-    # (c) R4 and R10 on one decode step of the serve phase's server
+    # (c) R4 and R10 on one decode step of the serve phase's server, on
+    # its steady-state cache (homed once by pin_tree, written in place):
+    # R4 silent; planted, the same step on a cache never homed: R4 reports
+    # the copy, the whole cache
     rep = check_artifacts("serve[decode] full width", [],
                           mem_facts=decode_facts, rules=("R4", "R10"))
-    r4 = [f for f in rep.findings if f.rule == "R4"]
+    planted = check_artifacts("serve[decode] full width, never homed", [],
+                              mem_facts=decode_facts["planted"],
+                              rules=("R4",))
+    r4 = [f for f in planted.findings if f.rule == "R4"]
     out["full_width_decode"] = dict(
-        r4=[f.format() for f in r4],
-        r4_bytes=sum(f.actual_bytes for f in r4),
+        findings=[f.format() for f in rep.findings],
+        planted_r4=[f.format() for f in r4],
+        planted_r4_bytes=sum(f.actual_bytes for f in r4),
         scan=decode_facts["liveness"]["peak_bytes"],
+        planted_scan=decode_facts["planted"]["liveness"]["peak_bytes"],
         allocator=decode_facts["memory_stats"]["allocated_bytes.all.peak"],
         cache_bytes=decode_facts["cache_bytes"], notes=rep.notes,
         s=decode_facts["seconds"])
-    need(len(r4) == len(rep.findings) and all(
+    fw = out["full_width_decode"]
+    need(not rep.findings
+         and any(n.startswith("R10: device-live-range ok") for n in rep.notes)
+         and fw["allocator"] > 0,
+         f"analysis full-width decode step on a homed cache:\n"
+         f"{rep.format(verbose=True)}")
+    need(len(r4) == len(planted.findings) and all(
         f.severity.name == "WARN" for f in r4)
-        and any(n.startswith("R10: device-live-range ok") for n in rep.notes)
-        and out["full_width_decode"]["allocator"] > 0,
-        f"analysis full-width decode step:\n{rep.format(verbose=True)}")
+        and fw["planted_r4_bytes"] == fw["cache_bytes"],
+        f"analysis full-width decode step on a cache never homed: R4 "
+        f"{fw['planted_r4_bytes']:.0f} B, the cache {fw['cache_bytes']} B:\n"
+        f"{planted.format(verbose=True)}")
     say(f"phase analysis full-width decode step ({SERVE_ARCH}, "
         f"{SERVE_SLOTS} slots over HomeMesh data 8, cache "
-        f"{decode_facts['cache_bytes']} B): R4 {len(r4)} finding(s), "
-        f"{out['full_width_decode']['r4_bytes']:.0f} B a step copied ("
-        + "; ".join(f.shape for f in r4) + "); R10 peak "
-        f"{out['full_width_decode']['scan']:.0f} B by the live scan, "
-        f"{out['full_width_decode']['allocator']} B by the allocator; the "
-        f"step under the facts {decode_facts['seconds']:.2f} s [{smi}]")
+        f"{fw['cache_bytes']} B): on the homed cache R4 silent, R10 peak "
+        f"{fw['scan']:.0f} B by the live scan, {fw['allocator']} B by the "
+        f"allocator, the step under the facts {fw['s']:.2f} s; planted, "
+        f"never homed: R4 {len(r4)} finding(s), "
+        f"{fw['planted_r4_bytes']:.0f} B a step copied ("
+        + "; ".join(f.shape for f in r4) + f"), R10 peak "
+        f"{fw['planted_scan']:.0f} B [{smi}]")
     return out
 
 
@@ -6248,6 +6449,10 @@ def main(argv=None) -> int:
     say(f"phase device: {kind} ({smi}); torch {torch.__version__} "
         f"cuda {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
+    # the dryrun phase's cells run on the host beside the build, which
+    # times nothing of the port's
+    cells_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    cells = start_dryrun_cells(cells_dir)
     secs, reports = _build.build_all()
     regs = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
             if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
@@ -6275,6 +6480,8 @@ def main(argv=None) -> int:
     serve = phase_serve(args.seed)
     serve_ranks = phase_serve_ranks(args.seed, smi)
     stack = phase_stack(args.seed, smi)
+    dryrun = phase_dryrun(args.seed, smi, cells)
+    shutil.rmtree(cells_dir, ignore_errors=True)
     # the dtypes check's CPU sorts run beside the train phase, whose child
     # keeps the card busy while the host mostly waits on it; they end
     # before train_ranks' 8 ranks take the host
@@ -6364,7 +6571,7 @@ def main(argv=None) -> int:
              "serve": serve, "serve_ranks": serve_ranks, "stack": stack,
              "train": train, "train_ranks": train_ranks,
              "model_split": model_split, "dtypes": dtypes,
-             "analysis": analysis},
+             "dryrun": dryrun, "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))
     say(smi)
@@ -6374,9 +6581,19 @@ def main(argv=None) -> int:
     return 0
 
 
+def stop_children() -> None:
+    """Stop the processes this script started beside its phases."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)
+    finally:
+        stop_children()

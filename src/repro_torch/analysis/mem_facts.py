@@ -21,6 +21,9 @@ live in:
   same shape and dtype comes back, and whether one of those lives in the
   argument's own storage (written in place, the counterpart of a
   donation alias) or in a fresh one (a copy the call makes every time).
+  Storages are told apart by identity, never by address: every ``meta``
+  storage has address 0, and a dry run (`launch.dryrun`) takes these
+  facts on ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -55,13 +58,27 @@ def _tensors(tree) -> List[torch.Tensor]:
 
 class _Tracker(TorchDispatchMode):
     """Opens a record for each new storage an op returns; samples the
-    live bytes after every op."""
+    live bytes after every op that opened one.
+
+    The peak is exact at op granularity, but a sample scans every live
+    record only when it could rise: `bound` holds the live bytes at most
+    (exact after a full scan, then every record opened since added and
+    only the young records' deaths taken off).  The young records, opened
+    since the last full scan, where a step's temporaries die, are
+    pruned at every sample; while `bound` stays at or under the peak, the
+    peak cannot move and the older records are left unscanned.
+    """
+
+    #: young records kept apart at most; more join the older ones
+    YOUNG = 256
 
     def __init__(self, held: Dict[int, StorageWeakRef], base: int):
         super().__init__()
         self.held = held              # cdata -> weak ref: known storages
+        self.base = base              # the arguments' bytes
         self.live: List[list] = []    # [bytes, name, op, weak ref]
-        self.current = base           # the arguments' bytes, then the live
+        self.young: List[list] = []   # records opened since the last scan
+        self.bound = base             # the live bytes at most
         self.peak = base
         self.at_peak: List[Tuple[int, str, str]] = []
         self.n_buffers = 0
@@ -83,21 +100,28 @@ class _Tracker(TorchDispatchMode):
             ref = StorageWeakRef(st)
             self.held[key] = ref
             self.n_buffers += 1
-            self.live.append([st.nbytes(), f"%{self.n_buffers}",
-                              func.overloadpacket.__name__, ref])
-            self.current += st.nbytes()
+            self.young.append([st.nbytes(), f"%{self.n_buffers}",
+                               func.overloadpacket.__name__, ref])
+            self.bound += st.nbytes()
             fresh = True
         if fresh:
             self._sample()
         return out
 
     def _sample(self) -> None:
-        gone = [r for r in self.live if r[3].expired()]
-        if gone:
-            self.live = [r for r in self.live if not r[3].expired()]
-            self.current -= sum(r[0] for r in gone)
-        if self.current > self.peak:
-            self.peak = self.current
+        alive = [r for r in self.young if not r[3].expired()]
+        self.bound -= sum(r[0] for r in self.young) - sum(r[0] for r in alive)
+        self.young = alive
+        if len(self.young) > self.YOUNG:
+            self.live += self.young
+            self.young = []
+        if self.bound <= self.peak:
+            return
+        self.live = [r for r in self.live + self.young if not r[3].expired()]
+        self.young = []
+        self.bound = self.base + sum(r[0] for r in self.live)
+        if self.bound > self.peak:
+            self.peak = self.bound
             self.at_peak = [(r[0], r[1], r[2]) for r in self.live]
 
 
@@ -155,13 +179,12 @@ def call_facts(fn, *args) -> Tuple[Any, Dict]:
         nbytes = t.numel() * t.element_size()
         same = [o for _, o in outs
                 if o.shape == t.shape and o.dtype == t.dtype]
-        ptr = t.untyped_storage().data_ptr()
+        key = t.untyped_storage()._cdata
         aliasing.append(dict(
             index=int(path.split(".")[0]), path=path, shape=tuple(t.shape),
             dtype=str(t.dtype).replace("torch.", ""), bytes=nbytes,
             returned=bool(same),
-            in_place=any(o.untyped_storage().data_ptr() == ptr
-                         and o.device == t.device for o in same)))
+            in_place=any(o.untyped_storage()._cdata == key for o in same)))
     liveness = {"peak_bytes": float(tracker.peak),
                 "param_bytes": float(param_bytes),
                 "n_buffers": len(named) + tracker.n_buffers,

@@ -46,6 +46,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from repro_torch.core.homing import (Axis, Homing, Layout, axis_size,
                                      axis_tuple, check_divisible,
@@ -102,6 +103,32 @@ def register_workload(name: str):
 def workload_names() -> Tuple[str, ...]:
     """The registered workload names."""
     return tuple(sorted(_WORKLOADS))
+
+
+#: storages that `Locale.pin_tree` homed on a `HomeMesh`: the storage's
+#: ``_cdata`` -> (a weak reference to it, the homing and view it was given)
+_HOMED: Dict[int, Tuple[StorageWeakRef, tuple]] = {}
+
+
+def _view(x: torch.Tensor) -> tuple:
+    """What makes two tensors of one storage the same view."""
+    return (tuple(x.shape), tuple(x.stride()), x.storage_offset(), x.dtype)
+
+
+def _homed(x: torch.Tensor) -> Optional[tuple]:
+    """The homing and view `pin_tree` gave `x`'s storage, if it homed it
+    and the storage is still the one it homed."""
+    got = _HOMED.get(x.untyped_storage()._cdata)
+    if got is None or got[0].expired():
+        return None
+    return got[1]
+
+
+def _note_homed(y: torch.Tensor, key: tuple) -> None:
+    for k in [k for k, (ref, _) in _HOMED.items() if ref.expired()]:
+        del _HOMED[k]
+    st = y.untyped_storage()
+    _HOMED[st._cdata] = (StorageWeakRef(st), key)
 
 
 @dataclass(frozen=True)
@@ -219,6 +246,14 @@ class Locale:
         the homes are left alone.  No-op without a mesh or under
         ``static_mapping=False``.
 
+        On a `HomeMesh` data is copied into its home once: a leaf that an
+        earlier `pin_tree` homed (the same view of the storage it returned,
+        homed along the same `dim` over the same homes) comes back as it
+        is, uncounted -- the reference's sharding constraint on a value
+        that already has the sharding.  A decode step writes the cache in
+        place, so its storage stays homed from step to step; a leaf that an
+        op rebuilt in fresh storage is relaid out and counted again.
+
         On a `RankMesh` (the server across ranks) a rank holds its home's
         rows only, home h of the locale's axes owning rows ``[h*size/N,
         (h+1)*size/N)`` of `dim` (`size`, the whole count, is required):
@@ -246,8 +281,13 @@ class Locale:
                 return x
             if ranks:                   # this home's rows, on this rank
                 return x.narrow(dim, h * size // N, size // N)
+            key = (repr(self.mesh), axis_tuple(self.axis), dim, N) + _view(x)
+            if _homed(x) == key:
+                return x
             runs = math.prod(x.shape[:dim])
-            return relayout(x, self.mesh, Layout("runs", N, runs))
+            y = relayout(x, self.mesh, Layout("runs", N, runs))
+            _note_homed(y, key[:4] + _view(y))
+            return y
 
         def walk(t):
             if isinstance(t, dict):

@@ -39,9 +39,11 @@ group, or a collective-permute's ``[src, dst]`` pairs over the whole
 mesh), ``mult`` (1), ``wire_bytes`` (the bytes this rank sent to other
 ranks), ``inter_pod_bytes`` / ``intra_pod_bytes`` (the same bytes split
 by whether the receiver sits in another pod, `mesh.POD_AXIS`),
-``staged_bytes`` and ``payload_bytes`` (the bytes of this rank's operand,
-which every rank of the group passes alike; None for `all_to_all_v`,
-whose counts differ by rank).  Rule R11 (`analysis.livecheck`) holds the
+``inter_node_bytes`` / ``intra_node_bytes`` (split by whether it sits on
+another node of `mesh.NODE_RANKS` ranks), ``staged_bytes`` and
+``payload_bytes`` (the bytes of this rank's operand, which every rank of
+the group passes alike; None for `all_to_all_v`, whose counts differ by
+rank).  Rule R11 (`analysis.livecheck`) holds the
 ranks' logs to one sequence.
 
 Transport: a tensor goes as its bytes (uint8), so every sort dtype takes
@@ -50,6 +52,11 @@ transport: there, and only in `_transport`, a CUDA tensor is staged
 through pinned host buffers, and the bytes copied each way are counted
 in ``staged_bytes``, never as wire bytes.  The backend is the process
 group's, chosen by the caller; nothing switches backend on a failure.
+
+On an `AbstractRankMesh` (no process group, ``meta`` tensors) every
+collective, forward and backward, appends the record a real rank appends
+(``staged_bytes`` 0) and returns an empty ``meta`` result of its shape:
+the shape-only route of a dry run (`launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -88,6 +95,12 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().reshape(-1).view(torch.uint8)
 
 
+def _backend(mesh, group) -> str:
+    """The backend a collective over `group` runs on (``"meta"`` on an
+    `AbstractRankMesh`)."""
+    return mesh.backend if group is None else dist.get_backend(group)
+
+
 def _transport(op: Callable, send: torch.Tensor, recv_numel: int,
                backend: str) -> Tuple[torch.Tensor, int]:
     """Run ``op(recv, send)`` on uint8 buffers; returns ``(recv on send's
@@ -95,8 +108,16 @@ def _transport(op: Callable, send: torch.Tensor, recv_numel: int,
 
     The one place a CUDA tensor is staged: on gloo it is copied into a
     pinned host buffer, the op runs on host buffers, and the result is
-    copied back to the card.
+    copied back to the card.  On an `AbstractRankMesh` (``"meta"``) the
+    shape-only route: nothing runs and `recv` is an empty ``meta`` buffer.
     """
+    if backend == "meta" or send.is_meta:
+        if not (backend == "meta" and send.is_meta):
+            raise ValueError(f"a collective of a {send.device.type} tensor "
+                             f"on a {backend!r} mesh: only an abstract mesh "
+                             f"takes meta tensors, and it takes meta tensors "
+                             f"only")
+        return torch.empty(recv_numel, dtype=torch.uint8, device="meta"), 0
     if send.is_cuda and backend == "gloo":
         host_send = torch.empty(send.numel(), dtype=torch.uint8,
                                 pin_memory=True)
@@ -119,11 +140,15 @@ def _record(kind: str, mesh, axes, groups, sent: Dict[int, int],
     bytes."""
     me = mesh.pod(mesh.rank)
     inter = sum(b for r, b in sent.items() if mesh.pod(r) != me)
+    node = mesh.node(mesh.rank)
+    inter_node = sum(b for r, b in sent.items() if mesh.node(r) != node)
     wire = sum(sent.values())
     LOG.append({"kind": kind, "axes": list(axes), "groups": groups,
                 "mult": 1, "wire_bytes": wire, "inter_pod_bytes": inter,
-                "intra_pod_bytes": wire - inter, "staged_bytes": staged,
-                "payload_bytes": payload})
+                "intra_pod_bytes": wire - inter,
+                "inter_node_bytes": inter_node,
+                "intra_node_bytes": wire - inter_node,
+                "staged_bytes": staged, "payload_bytes": payload})
     STAGED["bytes"] += staged
 
 
@@ -148,7 +173,7 @@ def all_to_all(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
         return x.clone()
     recv, staged = _transport(
         lambda r, s: dist.all_to_all_single(r, s, group=group), send,
-        send.numel(), dist.get_backend(group))
+        send.numel(), _backend(mesh, group))
     block = send.numel() // g
     _record("all-to-all", mesh, axes, mesh.partition(axes),
             {r: block for r in ranks if r != mesh.rank}, staged,
@@ -179,7 +204,7 @@ def all_to_all_v(x: torch.Tensor, mesh, axes: Axis,
     recv, staged = _transport(
         lambda r, s: dist.all_to_all_single(r, s, out_splits, in_splits,
                                             group=group),
-        send, sum(out_splits), dist.get_backend(group))
+        send, sum(out_splits), _backend(mesh, group))
     _record("all-to-all", mesh, axes, mesh.partition(axes),
             {r: b for r, b in zip(ranks, in_splits) if r != mesh.rank},
             staged, None)
@@ -233,7 +258,7 @@ def all_gather(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
         return x[None].clone()
     recv, staged = _transport(
         lambda r, s: dist.all_gather_into_tensor(r, s, group=group), send,
-        g * send.numel(), dist.get_backend(group))
+        g * send.numel(), _backend(mesh, group))
     _record("all-gather", mesh, axes, mesh.partition(axes),
             {r: send.numel() for r in ranks if r != mesh.rank}, staged,
             send.numel())
@@ -259,7 +284,7 @@ def psum(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     send = _bytes(x)
     recv, staged = _transport(
         lambda r, s: dist.all_gather_into_tensor(r, s, group=group), send,
-        g * send.numel(), dist.get_backend(group))
+        g * send.numel(), _backend(mesh, group))
     _record("all-reduce", mesh, axes, mesh.partition(axes),
             {r: send.numel() for r in ranks if r != mesh.rank}, staged,
             send.numel())
@@ -294,7 +319,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Axis) -> torch.Tensor:
     send = _bytes(x)
     recv, staged = _transport(
         lambda r, s: dist.all_to_all_single(r, s, group=group), send,
-        send.numel(), dist.get_backend(group))
+        send.numel(), _backend(mesh, group))
     block = send.numel() // g
     _record("reduce-scatter", mesh, axes, mesh.partition(axes),
             {r: block for r in ranks if r != mesh.rank}, staged,

@@ -99,6 +99,11 @@ class HomeMesh:
 #: differs from the sender's are inter-pod bytes
 POD_AXIS = "pod"
 
+#: ranks of one node, an HGX H100 board of 8 cards joined by NVLink: ranks
+#: ``8 k .. 8 k + 7`` share node k, and a collective's bytes to a rank of
+#: another node are inter-node bytes (InfiniBand)
+NODE_RANKS = 8
+
 
 def rank_device(device) -> torch.device:
     """The device of this rank: ``"cuda"`` without an index is
@@ -224,6 +229,36 @@ class RankMesh:
         """`rank`'s coordinate on the pod axis (None without one)."""
         return self.coords_of(rank).get(POD_AXIS)
 
+    @staticmethod
+    def node(rank: int) -> int:
+        """The node `rank` sits on (`NODE_RANKS` consecutive ranks a node)."""
+        return rank // NODE_RANKS
+
     def __repr__(self) -> str:
-        return (f"RankMesh({self._shape!r}, rank={self.rank}, "
+        return (f"{type(self).__name__}({self._shape!r}, rank={self.rank}, "
                 f"device={str(self.device)!r})")
+
+
+class AbstractRankMesh(RankMesh):
+    """One rank's view of a `RankMesh` with no process group and no data:
+    its shape, rank, coordinates and the ranks of every group, on the
+    ``meta`` device.  Every branch that takes a `RankMesh` takes it, so
+    the rank's own program runs on ``meta`` tensors of its blocks, and
+    each collective (`core.collectives`) appends the record a real rank
+    would and returns an empty result of its shape, moving nothing: the
+    dry run of one rank's step (`launch.dryrun`) at any mesh size, in one
+    process."""
+
+    def __init__(self, shape: Mapping[str, int], rank: int = 0):
+        self._shape = _check_shape(shape, "RankMesh")
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not a rank of {self._shape}")
+        self.rank = rank
+        self.coords = self.coords_of(rank)
+        self.device = torch.device("meta")
+        self.backend = "meta"
+        big = tuple(a for a, s in self._shape.items() if s > 1)
+        self._groups = {
+            axes: (None, next(g for g in self.partition(axes) if rank in g))
+            for k in range(1, len(big) + 1)
+            for axes in itertools.combinations(big, k)}

@@ -322,6 +322,25 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
                          window, dtype) + (() if scale is None else (scale,))))]
 
 
+def work(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
+         block_q: int, block_k: int, causal: bool, window: int, dtype: str,
+         scale: Optional[float] = None) -> Dict[str, int]:
+    """What one call must do, whatever its tiles and scale (it takes
+    `plan`'s arguments, so a recorded call's is ``work(*call[1])``):
+    ``flops``, 4 hd for each unmasked (query, key) pair (q k and p v, a
+    multiply and an add each), and ``bytes``, q, k, v read once and out
+    written once.  Query i sees keys ``j < Skv`` with ``j <= i`` (causal)
+    and ``j > i - window`` (window).  The one count behind
+    `chip_smoke.py`'s bound and the dry run's (`launch.step_cost`)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    item = getattr(torch, dtype).itemsize
+    return {"flops": 4 * hd * pairs * B * H,
+            "bytes": (2 * B * H * Sq + 2 * B * KV * Skv) * hd * item}
+
+
 def c_plan(B, H, KV, Sq, Skv, hd, block_q, block_k, causal, window, dtype,
            scale=None):
     """`plan`'s launch as the C entry's dry-run twin gives it (card)."""
@@ -377,7 +396,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CPU tensors: `flash_attention_reference`.  CUDA tensors: the kernel,
     counted in ``flash_attention.launches``; it takes contiguous inputs,
     hd in `HEAD_DIMS`, blocks up to `MAX_BLOCK` and, in bfloat16, q, k and
-    v on 16-byte boundaries (TMA's rule).
+    v on 16-byte boundaries (TMA's rule).  ``meta`` tensors (a dry run):
+    the card's checks and its launch noted as on the card, then an empty
+    result, uncounted; nothing is computed, so no value comes from it.
     """
     if needs_grad(q, k, v):
         raise RuntimeError(
@@ -388,7 +409,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     note(lambda: plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                       k.shape[2], q.shape[3], block_q, block_k, causal,
                       window, dtype_name(q.dtype), scale))
-    if _device(q, "flash_attention") == "cpu":
+    kind = "meta" if q.is_meta else _device(q, "flash_attention")
+    if kind == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, window=window,
                                          block_q=block_q, block_k=block_k,
                                          scale=scale)
@@ -405,6 +427,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: the kernel takes blocks of 1 to "
                          f"{MAX_BLOCK}, got ({block_q}, {block_k})")
     dtype = dtype_name(q.dtype)
+    if kind == "meta":                   # shapes and costs: nothing runs
+        return torch.empty_like(q)
     if dtype == "bfloat16" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the bfloat16 kernel loads q, k, v "
                          "by TMA, which needs 16-byte aligned tensors")

@@ -23,7 +23,7 @@ import math
 import os
 import pickle
 import tempfile
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -38,12 +38,19 @@ def _world() -> int:
     return dist.get_world_size()
 
 
+def production_shape(multi_pod: bool = False) -> Dict[str, int]:
+    """The production mesh's axes: ``{"data": 16, "model": 16}``, or with
+    a leading ``"pod": 2`` (the reference's `make_production_mesh`)."""
+    return ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> RankMesh:
     """``{"data": 16, "model": 16}``, or with a leading ``"pod": 2``; the
     world must have exactly its 256 (512) ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    prod = production_shape(multi_pod)
+    shape, axes = tuple(prod.values()), tuple(prod)
     n = _world()
     if n != math.prod(shape):
         raise ValueError(f"the production mesh {dict(zip(axes, shape))} "

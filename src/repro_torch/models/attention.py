@@ -187,16 +187,17 @@ def prefill_attention(q, k, v, *, positions, kv_positions=None,
     sliding `window` or not, or cross attention (``causal=False``, keys
     at 0 .. Skv-1).
 
-    On a CUDA tensor (with `flash`): the `flash_attention` kernel.
-    Otherwise -- any CPU tensor, or ``flash=False`` on the card -- the
-    plain `chunked_attention`.  The two round differently: the kernel
-    keeps P as a bfloat16 hi + lo pair where the chunked form rounds it
-    once, so in bfloat16 they differ by about one step of the output.
+    On a CUDA tensor (with `flash`): the `flash_attention` kernel (on a
+    ``meta`` tensor, a dry run, its shape-only route).  Otherwise -- any
+    CPU tensor, or ``flash=False`` -- the plain `chunked_attention`.  The
+    two round differently: the kernel keeps P as a bfloat16 hi + lo pair
+    where the chunked form rounds it once, so in bfloat16 they differ by
+    about one step of the output.
     The kernel has no backward pass: with `flash` under autograd this
     raises on either device (`flash_attention.needs_grad`), so train on
     ``flash=False``, as the reference trains on its chunked form.
     """
-    if flash and (q.is_cuda or needs_grad(q, k, v)):
+    if flash and (q.is_cuda or q.is_meta or needs_grad(q, k, v)):
         return flash_prefill_attention(q, k, v, causal=causal, window=window)
     return chunked_attention(
         q, k, v, q_positions=positions,

@@ -15,11 +15,16 @@ vocabulary rows (a lookup of its range, zeros elsewhere, then one exact
 `psum`) and ``head_w`` its vocabulary columns, so the logits the methods
 return are the rank's vocabulary block (`runtime.server.greedy` picks
 across them; `models.steps.vocab_nll` takes the loss from them).
-Training (`forward` under autograd) also reads the plan's ``seq_axis``
-and ``fsdp_axes``: the embedding's lookup is reduce-scattered onto the
-rank's rows of the sequence in place of the `psum`, the final norm acts
-on those rows and the head gathers the sequence back, and the FSDP-cut
-``tok_embed`` and ``head_w`` are gathered over the dp axes before use.
+A whole-sequence call (training, `forward`, `prefill`) reads the
+plan's ``seq_axis``, as the reference's does: the embedding's lookup is
+reduce-scattered onto the rank's rows of the sequence in place of the
+`psum`, the members gather the sequence and scatter their outputs back
+(`partition.enter_region`/`exit_region`), the final norm acts on the
+rank's rows and the head gathers them back (`prefill`: the last position
+only, from the last rank of "model").  Training (`forward` under
+autograd) also reads ``fsdp_axes``: the FSDP-cut ``tok_embed`` and
+``head_w`` are gathered over the dp axes before use.  Decode plans have
+no ``seq_axis`` (`partition.make_plan`).
 """
 from __future__ import annotations
 
@@ -72,7 +77,10 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------------- embed
     def _embed(self, params, batch, plan=None, train: bool = False):
-        Ms, i_s = seq_split(plan) if train else (1, 0)
+        """The residual's input, cut to the rank's rows under
+        `partition.seq_split` (never in decode: its plans have no
+        ``seq_axis``)."""
+        Ms, i_s = seq_split(plan)
         if not self.cfg.embed_input:
             x = batch["embeds"].to(dt(self.cfg))
             S = x.shape[1] // Ms
@@ -98,8 +106,8 @@ class LM(nn.Module):
     def _head(self, params, x, plan=None, train: bool = False):
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         head = params["head"]
+        x = enter_region(x, plan)
         if train:
-            x = enter_region(x, plan)
             head = fsdp_gather(head, plan, self.cfg)
         return x @ head["head_w"].to(x.dtype)
 
@@ -136,7 +144,9 @@ class LM(nn.Module):
         head runs on the last position only: the reference computes every
         position's logits and keeps the last, the same per-row product."""
         x, caches, _ = self._stack(params, batch, True, max_len, plan)
-        return self._head(params, x[:, -1:])[:, 0], caches
+        # under `seq_split` the last position is the last rank's last row
+        last = enter_region(x[:, -1:], plan)[:, -1:]
+        return self._head(params, last)[:, 0], caches
 
     def decode_step(self, params, caches, batch, pos, plan=None,
                     cache_slots=None):

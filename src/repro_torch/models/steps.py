@@ -360,12 +360,19 @@ def init_opt_state(cfg: ArchConfig, optimizer: AdamW, params,
 
 
 def make_prefill_step(model: LM, cfg: ArchConfig, plan: MeshPlan = NULL_PLAN):
+    """The prefill of one rank of `plan` (every model-axis sum it implies
+    included), as the reference's ``prefill_step``."""
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, plan=plan)
     return prefill_step
 
 
-def make_decode_step(model: LM, cfg: ArchConfig, plan: MeshPlan = NULL_PLAN):
+def make_decode_step(model: LM, cfg: ArchConfig, plan: MeshPlan = NULL_PLAN,
+                     cache_slots: Optional[int] = None):
+    """One decode step of one rank of `plan`, as the reference's
+    ``decode_step``; `cache_slots` is the whole cache's slots where the
+    plan homes it by sequence (`LM.decode_step`)."""
     def decode_step(params, caches, batch, pos):
-        return model.decode_step(params, caches, batch, pos)
+        return model.decode_step(params, caches, batch, pos, plan=plan,
+                                 cache_slots=cache_slots)
     return decode_step

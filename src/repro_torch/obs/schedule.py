@@ -55,10 +55,13 @@ def _record(kind: str, axes, nbytes: int, plan) -> Dict:
 def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
     """The collectives, in order, of the model calls `calls` on one rank
     of `plan`'s `RankMesh` (records of `_record`'s form: kind, axes, wire,
-    inter- and intra-pod bytes)."""
+    inter- and intra-pod bytes).  A prefill on a plan with ``seq_axis``
+    (made for a prefill shape) carries the residual sequence-sharded, as
+    training does: each member gathers the sequence and reduce-scatters
+    its sums back, and the last position is gathered for the head."""
     from repro_torch.models.attention import rank_heads
     from repro_torch.models.blocks import num_superblocks, superblock_spec
-    from repro_torch.sharding.partition import homes_of, tp_of
+    from repro_torch.sharding.partition import homes_of, seq_split, tp_of
     par = getattr(torch, cfg.param_dtype).itemsize
     act = getattr(torch, cfg.dtype).itemsize
     M, n = tp_of(plan)[0], homes_of(plan)[0]
@@ -76,24 +79,36 @@ def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
             if n > 1:
                 out.append(_record("all-gather", homes, r * S * 8, plan))
             continue
+        Ms = seq_split(plan)[0] if c["call"] == "prefill" else 1
         x = r * S * D * act               # a (rows, seq, D) activation sum
-        if M > 1 and cfg.embed_input:
-            out.append(_record("all-reduce", tp, r * S * D * par, plan))
+        shard = r * (S // Ms) * D * act   # the rank's rows of it
+
+        def summed():                     # a member's sum over "model"
+            return (_record("reduce-scatter", tp, shard, plan) if Ms > 1
+                    else _record("all-reduce", tp, x, plan))
+        if M > 1 and cfg.embed_input:     # the lookup's sum, in its dtype
+            emb = r * S * D * par
+            out.append(_record("reduce-scatter", tp, emb // Ms, plan)
+                       if Ms > 1 else _record("all-reduce", tp, emb, plan))
         group = PREFILL_GROUP if c["call"] == "prefill" else r * n
         for _ in range(num_superblocks(cfg)):
             for m in members:
+                if Ms > 1:
+                    out.append(_record("all-gather", tp, shard, plan))
                 if m.mixer == "mamba":
                     if M > 1:
                         out.append(_record("all-reduce", tp, r * S * 4, plan))
-                        out.append(_record("all-reduce", tp, x, plan))
+                        out.append(summed())
                 else:
                     if m.mixer == "attn" and c["call"] != "prefill" \
                             and rh.seq[0] > 1:
                         out += _merge_records(rh, plan, r, S, hd, act)
                     if M > 1 and rh.split:
-                        out.append(_record("all-reduce", tp, x, plan))
+                        out.append(summed())
+                if m.ffn != "none" and Ms > 1:
+                    out.append(_record("all-gather", tp, shard, plan))
                 if m.ffn == "mlp" and M > 1:
-                    out.append(_record("all-reduce", tp, x, plan))
+                    out.append(summed())
                 elif m.ffn == "moe":
                     T = r * S * n
                     gs = min(group, T)
@@ -101,9 +116,11 @@ def serve_schedule(cfg: ArchConfig, plan, calls: Sequence[Dict]) -> List[Dict]:
                         out.append(_record("all-gather", homes,
                                            (T // gs) * K * E * 4, plan))
                     if M > 1:
-                        out.append(_record("all-reduce", tp, x, plan))
+                        out.append(summed())
                         if cfg.num_shared_experts:
-                            out.append(_record("all-reduce", tp, x, plan))
+                            out.append(summed())
+        if Ms > 1:
+            out.append(_record("all-gather", tp, r * D * act, plan))
     return out
 
 

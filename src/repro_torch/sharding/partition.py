@@ -29,7 +29,8 @@ What reads a plan:
 * Serving cuts the parameters with ``fsdp_axes`` and ``zero1_axes``
   cleared (`serving_plan`), as the reference never shards parameters
   over the data axes when it serves; its decode plan has no
-  ``seq_axis``.  Where it sets ``cache_seq_axis`` (caches of 8192
+  ``seq_axis``, and a prefill on a plan made for a prefill shape carries
+  the residual sequence-sharded, as training does.  Where it sets ``cache_seq_axis`` (caches of 8192
   positions or more whose batch does not divide over the homes, or
   whose KV heads do not divide over "model") each rank keeps a block of
   the self-attention cache's slots (`cache_block`) and decode merges
@@ -167,9 +168,9 @@ def psum_model(x: torch.Tensor, plan: Optional[MeshPlan]) -> torch.Tensor:
 
 
 def seq_split(plan: Optional[MeshPlan]) -> Tuple[int, int]:
-    """``(model-axis size, this rank's index)`` where training shards the
-    residual's sequence over ``seq_axis`` across ranks; ``(1, 0)``
-    otherwise."""
+    """``(model-axis size, this rank's index)`` where a whole-sequence
+    call (training, prefill) shards the residual's sequence over
+    ``seq_axis`` across ranks; ``(1, 0)`` otherwise."""
     M, i = tp_of(plan)
     if M == 1 or plan.seq_axis is None:
         return 1, 0

@@ -230,10 +230,18 @@ def test_flash_attention_rejects_bad_shapes():
         ops.flash_attention(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.flash_attention(q.double(), q.double(), q.double())
-    with pytest.raises(ValueError, match="meta"):
-        m = q.to("meta")
-        ops.flash_attention(m, m, m)
+    # meta (a dry run's shapes): the same checks as on the card, then an
+    # empty result, uncounted
+    m = q.to("meta")
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.flash_attention(m, torch.zeros(1, 3, 8, 16, device="meta"),
+                            torch.zeros(1, 3, 8, 16, device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        t = m.transpose(2, 3)
+        ops.flash_attention(t, t, t)
     ops.reset_launches()
+    out = ops.flash_attention(m, m, m)
+    assert out.is_meta and out.shape == q.shape
     ops.flash_attention(q, q, q)
     assert ops.launch_counts()["flash_attention"] == 0      # CPU: plain
 

@@ -394,6 +394,11 @@ def test_pin_tree_homes_each_leaf_along_dim():
                            Layout("runs", 8, 2))
     assert per_leaf > 0
     assert relayout_counts()["elems"] == 2 * per_leaf
+    # a second pin of its result: already homed, nothing moves
+    reset_relayouts()
+    again = locale.pin_tree(out, dim=1, size=16)
+    assert relayout_counts()["elems"] == 0
+    assert again["k"] is out["k"] and again["v"][0] is out["v"][0]
     # along dim 0 a leaf already is chunk-contiguous: nothing moves
     reset_relayouts()
     locale.pin_tree({"x": torch.zeros(8, 4)})

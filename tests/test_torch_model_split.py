@@ -37,7 +37,6 @@ The rank processes import this module, which imports torch, numpy and
 the port only; JAX comes in inside the subprocesses.
 """
 import hashlib
-import itertools
 import json
 import os
 import subprocess
@@ -48,7 +47,7 @@ import pytest
 import torch
 
 from repro_torch.configs import base
-from repro_torch.core.mesh import RankMesh
+from repro_torch.core.mesh import AbstractRankMesh, RankMesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5
@@ -647,24 +646,6 @@ def test_train_logs_and_replicas(runs, name):
 # ---------------------------------------------------------------------------
 # the plan grid: every config on three meshes and four shapes
 # ---------------------------------------------------------------------------
-class _GridMesh(RankMesh):
-    """One rank's view of a mesh for the plan grid, with no process
-    group: what the plan, the heads, the cache and the schedules read
-    (shape, coordinates, the ranks of each group)."""
-
-    def __init__(self, shape, rank):
-        self._shape = dict(shape)
-        self.rank = rank
-        self.coords = self.coords_of(rank)
-        self.device = torch.device("meta")
-        self.backend = "gloo"
-        big = tuple(a for a, s in self._shape.items() if s > 1)
-        self._groups = {
-            axes: (None, next(g for g in self.partition(axes) if rank in g))
-            for k in range(1, len(big) + 1)
-            for axes in itertools.combinations(big, k)}
-
-
 def grid_shape(name):
     return (base.ShapeSpec("serve", 96, 16, "decode") if name == "serve"
             else base.SHAPES[name])
@@ -690,7 +671,7 @@ def test_every_plan_runs_on_ranks(arch):
         for sname in GRID_SHAPES:
             sh = grid_shape(sname)
             for rank in range(size):
-                mesh = _GridMesh(shape, rank)
+                mesh = AbstractRankMesh(shape, rank)
                 plan = partition.make_plan(mesh, cfg, sh)
                 if members - {"mamba"}:
                     rh = rank_heads(cfg, plan)
