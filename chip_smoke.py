@@ -8,10 +8,12 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
 
   1. device   — the card's name and `nvidia-smi` name and power limit;
   2. build    — every kernel of ``src/repro_torch/csrc`` built with nvcc,
-                with `-Xptxas -v`'s registers and spills; the bf16
-                attention kernel's (`fa_wgmma`) registers, spills and
-                shared memory by instance, and its SASS (`cuobjdump`),
-                which must hold HGMMA (wgmma) and UTMALDG (TMA loads);
+                with `-Xptxas -v`'s registers and spills; the attention
+                kernels' registers, spills and shared memory by instance
+                (`fa_wgmma` bf16 and f16, `fa_kernel` f32), and their SASS
+                (`cuobjdump`): `fa_wgmma` must hold HGMMA (wgmma) and
+                UTMALDG (TMA loads), `fa_kernel` FFMA and LDGSTS
+                (cp.async) and no HGMMA;
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bit for bit (floats as bit patterns), on the property grid
                 (with row lengths that take `local_sort` through 1, 2, 3
@@ -90,16 +92,19 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 `localised_copy` launch of R passes on (8, 12.5 M) f32 and
                 bf16 against R launches of one pass;
   8. attention — `ops.flash_attention` at the head layouts of qwen3-0.6b
-                (S = 4096, causal, bf16, f32 and f16) and mixtral-8x7b
-                (S = 8192, causal, window 4096, bf16) against its plain
-                blocked version (and the dense one at the qwen shape)
-                within `KERNEL_TOL` (bf16: one rounding step), the kernel
-                each dtype ran (`fa_wgmma` bf16, `fa_kernel` f32 and
-                f16), a non-default `scale` (0.1) at qwen3-0.6b bf16 and
-                f32, the bf16 kernel with P rounded once (no hi + lo
-                split: its time and how far it leaves the tolerance), and
-                two planted faults, a dropped KV tile and a scale 1 % off,
-                that must fall outside it on the long rows;
+                (S = 4096, causal, bf16, f32 and f16), the serve prefill
+                (16 x 753, f16), mixtral-8x7b (S = 8192, causal, window
+                4096, bf16 and f32) and the vision cross layer (512 rows
+                over 4096 image tokens, f32) against its plain blocked
+                version (and the dense one at the qwen shape) within
+                `KERNEL_TOL` (bf16: one rounding step), the kernel each
+                dtype ran (`fa_wgmma` bf16 and f16, `fa_kernel` f32) with
+                its time, bound and share of it beside SDPA's in the same
+                dtype, a non-default `scale` (0.1) at qwen3-0.6b bf16 and
+                f32, `fa_wgmma` with P rounded once (no hi + lo split: its
+                time and how far it leaves the tolerance, bf16 and f16),
+                and two planted faults, a dropped KV tile and a scale 1 %
+                off, that must fall outside it on the long rows;
   8b. serve   — the serving stack at qwen3-0.6b's full width in bf16
                 (28 layers, seeded parameters) through `DecodeServer` with
                 16 slots homed over {"data": 8} and a 1024-token cache: 32
@@ -114,7 +119,8 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 `torch.profiler` sees; the kernel at the prefill's shape
                 against its plain version within `KERNEL_TOL`, the
                 prefill's logits through the kernel against the plain
-                chunked form (bf16 and float32, within `LOGIT_TOL`) and
+                chunked form (bf16 on `fa_wgmma` and float32 on
+                `fa_kernel`, 28 launches each, within `LOGIT_TOL`) and
                 with the attention phase's two planted faults in the
                 kernel's place (outside it), and the costs of a wave:
                 prefill, the server's steady decode step (on the homed
@@ -174,7 +180,10 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 and the causal one at the prompt's shape against their
                 plain versions first, then a prefill of (2, 512) (4 causal
                 and 1 cross launch) and 4 decode steps through the static
-                cross cache; for both, the prefill's last logits through
+                cross cache, then the prefill again on float32 image
+                embeddings (the data pipeline's), whose cross launch runs
+                `fa_kernel` at float32, against the plain route within the
+                bf16 `LOGIT_TOL`; for both, the prefill's last logits through
                 the kernel against the plain chunked form in float32
                 within `LOGIT_TOL`, and outside it with a planted fault
                 in the windowed (a dropped tile, a scale 1 % off) or the
@@ -203,7 +212,7 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 sequence-sharded residual, remat), the train phase's rows
                 and schedule through `Trainer`, with a checkpoint from
                 which a second trainer replays the last step bit for bit;
-                (b) granite-20b at full width, 2 of 52 layers, on {"pod":
+                (b) granite-20b at full width, 1 of 52 layers, on {"pod":
                 2, "data": 2, "model": 2} with FSDP over ("pod", "data")
                 and 4 microbatches; (c) both at `reduce_config` in float32,
                 card ranks against CPU ranks.  Every rank's collectives
@@ -314,6 +323,7 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -437,6 +447,15 @@ LOCAL_SORT_KERNELS = {"block_sort": "tile pass", "merge_partition":
                       "partition", "merge_pass": "merge pass"}
 
 
+#: seconds the host idles on each side of the recorded step: a session
+#: has lost the first kernels of that step (7 of 27 sort launches, and
+#: once a rank's first kernel), as if their card timestamps fell before
+#: the step's start
+PROFILE_GAP_S = 0.05
+#: sessions `kernel_breakdown` takes at most to see a call's launches
+PROFILE_TRIES = 3
+
+
 def profile_call(fn, warm=None, cpu: bool = False):
     """`torch.profiler` (device activity, and the host's with `cpu`) over
     one call of fn(), after a warm-up step that launches 64 small kernels
@@ -453,8 +472,10 @@ def profile_call(fn, warm=None, cpu: bool = False):
             warm()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(PROFILE_GAP_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
         prof.step()
     return prof
 
@@ -481,25 +502,33 @@ def kernel_breakdown(fn, kernels: dict) -> dict:
 
     The call runs twice under the profiler, a warm-up step and the active
     one (`profile_call`).  The launches seen must number those the
-    wrappers record for the active call (`kernels` names them all)."""
+    wrappers record for the active call (`kernels` names them all), in
+    one of `PROFILE_TRIES` sessions: a session that loses launches is
+    taken again, and the sessions taken are kept under each kernel."""
     from repro_torch.analysis import record
     fn()
     torch.cuda.synchronize()
-    recorded = []
+    for tries in range(1, PROFILE_TRIES + 1):
+        recorded = []
 
-    def active():
-        with record() as launches:
-            fn()
-        recorded.extend(launches)
-    prof = profile_call(active, warm=fn, cpu=True)
-    out = device_ms_by(prof, kernels)
-    if not out:
-        return {"whole": {"ms": cuda_ms(fn, reps=1), "launches": None,
-                          "note": "the profiler showed no device time"}}
-    seen = sum(rec["launches"] for rec in out.values())
+        def active():
+            with record() as launches:
+                fn()
+            recorded.extend(launches)
+        prof = profile_call(active, warm=fn, cpu=True)
+        out = device_ms_by(prof, kernels)
+        if not out:
+            return {"whole": {"ms": cuda_ms(fn, reps=1), "launches": None,
+                              "note": "the profiler showed no device time"}}
+        seen = sum(rec["launches"] for rec in out.values())
+        if seen == len(recorded):
+            break
     need(seen == len(recorded), f"the profiler saw {seen} launches of "
                                 f"{list(kernels)}, the wrappers made "
-                                f"{len(recorded)}")
+                                f"{len(recorded)}, in each of {tries} "
+                                f"sessions")
+    for rec in out.values():
+        rec["sessions"] = tries
     return out
 
 
@@ -601,22 +630,41 @@ def ptxas_entries(report: str) -> dict:
     return out
 
 
-def wgmma_instances(entries: dict) -> dict:
-    """The `fa_wgmma<HD, BK>` entries of `ptxas_entries`, by "HD/BK"."""
+#: the mangled flash-attention kernels' instances: `fa_wgmma<T, HD, BK>`
+#: ("bf16/HD/BK", "f16/HD/BK") and `fa_kernel<HD>` ("f32/HD")
+FA_INSTANCE = (r"fa_wgmmaI\d+(__nv_bfloat16|__half)Li(\d+)ELi(\d+)E"
+               r"|fa_kernelILi(\d+)E")
+
+
+def fa_instance(name: str):
+    """"bf16/HD/BK", "f16/HD/BK" or "f32/HD" of a kernel's mangled name,
+    or None."""
     import re
+    m = re.search(FA_INSTANCE, name)
+    if not m:
+        return None
+    if m.group(4):
+        return f"f32/{m.group(4)}"
+    kind = "f16" if m.group(1) == "__half" else "bf16"
+    return f"{kind}/{m.group(2)}/{m.group(3)}"
+
+
+def wgmma_instances(entries: dict) -> dict:
+    """The flash-attention entries of `ptxas_entries` (`fa_instance`)."""
     out = {}
     for name, rec in entries.items():
-        m = re.search(r"fa_wgmmaILi(\d+)ELi(\d+)E", name)
-        if m:
-            out[f"{m.group(1)}/{m.group(2)}"] = rec
+        key = fa_instance(name)
+        if key:
+            out[key] = rec
     return out
 
 
 def sass_check() -> dict:
     """`cuobjdump -sass` of the built flash-attention library: each
-    `fa_wgmma` instance must hold tensor-core (HGMMA) and TMA (UTMALDG)
-    instructions, or the bf16 kernel never reached them."""
-    import re
+    `fa_wgmma` instance (bf16 and f16, 8 each) must hold tensor-core
+    (HGMMA) and TMA (UTMALDG) instructions, or the 16-bit kernel never
+    reached them; each `fa_kernel` instance (4) fp32 FMAs (FFMA) and
+    cp.async copies (LDGSTS) and no tensor-core instruction."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     r = subprocess.run([str(tool), "-sass", str(_build._target(
@@ -624,14 +672,21 @@ def sass_check() -> dict:
     need(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()[:400]}")
     found = {}
     for part in r.stdout.split("Function : ")[1:]:
-        m = re.search(r"fa_wgmmaILi(\d+)ELi(\d+)E", part.split("\n", 1)[0])
-        if m:
-            found[f"{m.group(1)}/{m.group(2)}"] = {
-                op: part.count(op) for op in ("HGMMA", "UTMALDG")}
-    need(len(found) == 8, f"cuobjdump: fa_wgmma instances {sorted(found)}")
-    for key, n in found.items():
+        key = fa_instance(part.split("\n", 1)[0])
+        if key:
+            found[key] = {op: part.count(op) for op in
+                          ("HGMMA", "UTMALDG", "FFMA", "LDGSTS")}
+    wg = {k: n for k, n in found.items() if not k.startswith("f32")}
+    f32 = {k: n for k, n in found.items() if k.startswith("f32")}
+    need(len(wg) == 16 and len(f32) == 4,
+         f"cuobjdump: flash-attention instances {sorted(found)}")
+    for key, n in wg.items():
         need(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
              f"fa_wgmma<{key}> SASS lacks HGMMA or UTMALDG: {n}")
+    for key, n in f32.items():
+        need(n["FFMA"] > 0 and n["LDGSTS"] > 0 and n["HGMMA"] == 0,
+             f"fa_kernel<{key}> SASS lacks FFMA or LDGSTS, or holds HGMMA: "
+             f"{n}")
     return found
 
 
@@ -1976,12 +2031,20 @@ def attention_work(q, k, causal: bool = True, window: int = 0):
     return w["flops"], w["bytes"]
 
 
-#: (B, H, KV, S, hd, window, dtype): the head layouts of
-#: src/repro/configs/qwen3_0_6b.py and mixtral_8x7b.py, causal
-ATTN_CELLS = {"qwen3-0.6b_bf16": (1, 16, 8, 4096, 128, 0, "bfloat16"),
-              "qwen3-0.6b_f32": (1, 16, 8, 4096, 128, 0, "float32"),
-              "qwen3-0.6b_f16": (1, 16, 8, 4096, 128, 0, "float16"),
-              "mixtral-8x7b_bf16": (1, 32, 8, 8192, 128, 4096, "bfloat16")}
+#: (B, H, KV, Sq, Skv, hd, causal, window, dtype): the head layouts of
+#: src/repro/configs/qwen3_0_6b.py and mixtral_8x7b.py, causal; the serve
+#: phase's prefill (16 slots of 753 tokens, qwen3-0.6b); the cross layer
+#: of llama_3_2_vision_90b.py, 512 text rows over its 4096 image tokens
+#: (float32: what the data pipeline's float32 image embeddings promote it
+#: to)
+ATTN_CELLS = {
+    "qwen3-0.6b_bf16": (1, 16, 8, 4096, 4096, 128, True, 0, "bfloat16"),
+    "qwen3-0.6b_f32": (1, 16, 8, 4096, 4096, 128, True, 0, "float32"),
+    "qwen3-0.6b_f16": (1, 16, 8, 4096, 4096, 128, True, 0, "float16"),
+    "serve-prefill_f16": (16, 16, 8, 753, 753, 128, True, 0, "float16"),
+    "mixtral-8x7b_bf16": (1, 32, 8, 8192, 8192, 128, True, 4096, "bfloat16"),
+    "mixtral-8x7b_f32": (1, 32, 8, 8192, 8192, 128, True, 4096, "float32"),
+    "vision-cross_f32": (2, 64, 8, 512, 4096, 128, False, 0, "float32")}
 #: a non-default scale, checked against the plain version in these cells
 ATTN_SCALE = 0.1
 ATTN_SCALE_CELLS = ("qwen3-0.6b_bf16", "qwen3-0.6b_f32")
@@ -2052,18 +2115,20 @@ def phase_attention(seed: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions: f32
     torch.backends.cudnn.allow_tf32 = False
-    # the peak of each input type (float16's tensor-core rate, although
-    # this port's float16 kernel runs on the fp32 pipe)
+    # the peak of each input type: bfloat16 and float16 run on the tensor
+    # cores (fa_wgmma), float32 on the fp32 pipe (fa_kernel)
     peak = {"float32": OPS_32BIT_PER_S, "bfloat16": 989e12,
             "float16": 989e12}
     out = {}
     counted = None
     recorded = {}
-    for tag, (B, H, KV, S, hd, window, dt) in ATTN_CELLS.items():
+    faults = planted_faults()
+    for tag, (B, H, KV, S, Skv, hd, causal, window, dt) in \
+            ATTN_CELLS.items():
         q, k, v = (torch.from_numpy(a).to(getattr(torch, dt)).cuda() for a in
-                   make_attention_inputs(B, H, KV, S, S, hd, dt, seed))
+                   make_attention_inputs(B, H, KV, S, Skv, hd, dt, seed))
         rtol, atol = KERNEL_TOL[q.dtype]
-        kw = dict(causal=True, window=window, block_q=ATTN_BLOCK,
+        kw = dict(causal=causal, window=window, block_q=ATTN_BLOCK,
                   block_k=ATTN_BLOCK)
         ops.reset_launches()                   # the path's counted run
         with record() as recorded[tag]:
@@ -2078,16 +2143,17 @@ def phase_attention(seed: int) -> dict:
         if tag == "qwen3-0.6b_bf16":
             counted = counts
         plain = flash_attention_reference(q, k, v, **kw)
-        rec = {"kernel": ran[0],
+        rec = {"kernel": ran[0], "launches": counts["flash_attention"],
                "max_abs_err": float((got.float() - plain.float()).abs().max()),
                "rtol": rtol, "atol": atol,
                "beyond": beyond(got, plain, rtol, atol)}
-        if dt == "bfloat16":
-            # the design not taken: P rounded once to bf16 before P V
+        if ran[0] == "fa_wgmma" and tag != "mixtral-8x7b_bf16":
+            # the design not taken: P rounded once to the 16-bit type
+            # before P V
             one = torch.empty_like(q)
 
             def single():
-                _launch(q, k, v, one, True, window, ATTN_BLOCK, ATTN_BLOCK,
+                _launch(q, k, v, one, causal, window, ATTN_BLOCK, ATTN_BLOCK,
                         p_split=False)
             single()
             torch.cuda.synchronize()
@@ -2118,12 +2184,8 @@ def phase_attention(seed: int) -> dict:
         # outputs are smallest: each must fall outside the tolerance
         late = slice(S // 2, None)
         rec["faults"] = {}
-        for fault, wrong in (
-                ("dropped_tile", lambda: dropped_tile_attention(
-                    q, k, v, window, ATTN_BLOCK)),
-                ("scale_1pct", lambda: flash_attention_reference(
-                    q, k, v, scale=1.01 * hd ** -0.5, **kw))):
-            w = wrong()
+        for fault, wrong in faults.items():
+            w = wrong(q, k, v, causal=causal, window=window)
             rec["faults"][fault] = dict(
                 late_max_abs_err=float((w[..., late, :].float()
                                         - plain[..., late, :].float())
@@ -2155,11 +2217,11 @@ def phase_attention(seed: int) -> dict:
 
         def library():
             if mask is None:
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
-        flops, nbytes = attention_work(q, k, window=window)
+        flops, nbytes = attention_work(q, k, causal=causal, window=window)
         rec.update(
             ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=20),
             plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, **kw),
@@ -2171,27 +2233,28 @@ def phase_attention(seed: int) -> dict:
         rec["bound_by"] = ("operations" if rec["ops_ms"] >= rec["bytes_ms"]
                            else "bytes")
         rec["bound_fraction"] = rec["bound_ms"] / rec["ms"]
-        ref_live = live_tiles(S, S, causal=True, window=window,
+        ref_live = live_tiles(S, Skv, causal=causal, window=window,
                               block_q=ATTN_BLOCK, block_k=ATTN_BLOCK)
-        kb = kernel_tiles(S, S, ATTN_BLOCK, ATTN_BLOCK, dt)
-        ker_live = live_tiles(S, S, causal=True, window=window,
+        kb = kernel_tiles(S, Skv, ATTN_BLOCK, ATTN_BLOCK, dt)
+        ker_live = live_tiles(S, Skv, causal=causal, window=window,
                               block_q=kb[0], block_k=kb[1])
         rec["tiles"] = dict(live=int(ref_live.sum()),
                             skipped=int((~ref_live).sum()),
                             kernel_live=int(ker_live.sum()),
                             kernel_skipped=int((~ker_live).sum()))
         # the products the kernel issues: every live tile whole, P V twice
-        # in bf16 (the hi + lo split of P)
+        # in fa_wgmma (the hi + lo split of P)
         issued = (int(ker_live.sum()) * B * H * 2 * kb[0] * kb[1] * hd
-                  * (3 if dt == "bfloat16" else 2))
+                  * (3 if ran[0] == "fa_wgmma" else 2))
         rec["tflops"] = dict(needed=flops / rec["ms"] / 1e9,
                              issued=issued / rec["ms"] / 1e9)
         rec["profile"] = kernel_breakdown(
             lambda: ops.flash_attention(q, k, v, **kw),
             {name: name for name in KERNELS.values()})
         out[tag] = rec
-        say(f"phase attention {tag}: B={B} H={H} KV={KV} S={S} hd={hd} "
-            f"causal window={window} {dt}: kernel {rec['kernel']} "
+        say(f"phase attention {tag}: B={B} H={H} KV={KV} Sq={S} Skv={Skv} "
+            f"hd={hd} causal={causal} window={window} {dt}: kernel "
+            f"{rec['kernel']} "
             f"{rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
@@ -2199,7 +2262,7 @@ def phase_attention(seed: int) -> dict:
             + f"TFLOP/s needed / issued {rec['tflops']['needed']:.1f} / "
             f"{rec['tflops']['issued']:.1f}; profiler "
             + json.dumps(rec["profile"]) + "; "
-            + (f"one bf16 P (no split): {json.dumps(rec['single_p'])}; "
+            + (f"one {dt} P (no split): {json.dumps(rec['single_p'])}; "
                if "single_p" in rec else "")
             + (f"scale={ATTN_SCALE}: {json.dumps(rec['scale'])}; "
                if "scale" in rec else "") + f"max err "
@@ -2220,7 +2283,15 @@ def phase_attention(seed: int) -> dict:
         bound_by=q["bound_by"], library_ms=q["library_ms"],
         shape=list(ATTN_CELLS["qwen3-0.6b_bf16"][:4]),
         mismatches=sum(v["beyond"] + v.get("dense_beyond", 0)
-                       for v in out.values()))
+                       for v in out.values()),
+        # each dtype's kernel at the qwen3-0.6b shape, its launches that
+        # cell's counted run
+        dtype_cells={dt: {"kernel": c["kernel"], "launches": c["launches"],
+                          **{k: c[k] for k in (
+                              "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err", "bound_fraction")}}
+                     for dt, c in ((ATTN_CELLS[t][-1], c) for t, c in
+                                   out.items() if t.startswith("qwen"))})
     out["recorded"] = recorded
     return out
 
@@ -2497,8 +2568,10 @@ def phase_serve(seed: int) -> dict:
     faults = planted_faults()
     out["logits"] = {}
     for dt, (flash_lm, plain_lm, prm, batch) in runs.items():
-        with untimed():
+        ops.reset_launches()                 # the prefill's counted run
+        with untimed(), record() as ran:
             a, _ = flash_lm.prefill(prm, batch, max_len=SERVE_MAX_LEN)
+        launches = ops.launch_counts()["flash_attention"]
         b, _ = plain_lm.prefill(prm, batch, max_len=SERVE_MAX_LEN)
         a, b = a.float(), b.float()
         scale = float(b.abs().max())
@@ -2506,7 +2579,13 @@ def phase_serve(seed: int) -> dict:
             max_abs_err=float((a - b).abs().max()), max_abs_logit=scale,
             tol=LOGIT_TOL[dt], argmax_agree=float(
                 (a.argmax(-1) == b.argmax(-1)).float().mean()),
-            finite=bool(torch.isfinite(a).all()), faults={})
+            finite=bool(torch.isfinite(a).all()), faults={},
+            kernel=KERNELS[dt], launches=launches,
+            kernels=dict(collections.Counter(f.name for f in ran)))
+        need(launches == cfg.num_layers
+             and rec["kernels"] == {KERNELS[dt]: cfg.num_layers},
+             f"serve: the {dt} prefill launched {launches} "
+             f"({rec['kernels']}), not {cfg.num_layers} {KERNELS[dt]}")
         rec["rel"] = rec["max_abs_err"] / scale
         for fault, wrong in faults.items():
             with mock.patch.object(ops, "flash_attention", wrong):
@@ -3337,6 +3416,50 @@ def phase_stack(seed: int, smi: str) -> dict:
          f"stack vision: launches {counts}")
     need(any(not c[8] and c[3] != c[4] for c in calls),
          f"stack vision: no non-causal launch with Sq != Skv: {calls}")
+    # the data pipeline's float32 image embeddings: the bf16 cross layer's
+    # K/V promote to float32 and its launch runs fa_kernel at float32 (one
+    # a cross layer), the self layers fa_wgmma.  The last logits against
+    # the same model with the cross layer on its plain route (the chunked
+    # form in float32), within the bf16 bound; against the all-plain
+    # model they also carry the self layers' bf16 difference (the
+    # kernel's hi + lo P against the chunked form's one rounding), which
+    # the bf16 embeddings' `bf16_kernel_vs_plain` reports beside it
+    b32 = dict(batch, image_embeds=batch["image_embeds"].float())
+    ops.reset_launches()
+    with untimed(), record() as ran:
+        last32, _ = model.prefill(params, b32, max_len=S)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["flash_attention"]
+    real_prefill = attention.prefill_attention
+
+    def plain_cross(q, k, v, **kw):
+        return real_prefill(q, k, v, **dict(kw, flash=kw["causal"]))
+    with untimed(), mock.patch.object(attention, "prefill_attention",
+                                      plain_cross):
+        cross32, _ = model.prefill(params, b32, max_len=S)
+    plain32, _ = LM(cfg, flash=False).prefill(params, b32, max_len=S)
+    n_cross = sum(1 for c in calls if not c[8])
+    vis["f32_image_embeds"] = dict(
+        kernels=dict(collections.Counter(
+            (f.name, f.call[1][10]) for f in ran)),
+        launches=launched,
+        rel=rel_err(last32, cross32), tol=LOGIT_TOL["bfloat16"],
+        rel_all_plain=rel_err(last32, plain32),
+        bf16_embeds_kernel_vs_plain=vis["logits"]["bf16_kernel_vs_plain"],
+        finite=bool(torch.isfinite(last32.float()).all()),
+        ms=cuda_ms(lambda: model.prefill(params, b32, max_len=S), reps=2))
+    vis["f32_image_embeds"]["kernels"] = {
+        f"{k[0]} {k[1]}": n for k, n in
+        vis["f32_image_embeds"]["kernels"].items()}
+    need(vis["f32_image_embeds"]["kernels"] == {
+        "fa_kernel float32": n_cross,
+        "fa_wgmma bfloat16": cfg.num_layers - n_cross}
+         and vis["f32_image_embeds"]["launches"] == cfg.num_layers
+         and vis["f32_image_embeds"]["finite"]
+         and vis["f32_image_embeds"]["rel"] <= LOGIT_TOL["bfloat16"],
+         f"stack vision: float32 image embeddings: "
+         f"{vis['f32_image_embeds']}")
+    del b32, last32, cross32, plain32
     need(vis["cross_cache_static"] and vis["finite"],
          f"stack vision: the cross cache moved or logits not finite: {vis}")
     out["llama-3.2-vision-90b"] = vis
@@ -3347,7 +3470,12 @@ def phase_stack(seed: int, smi: str) -> dict:
         f"against its plain version on its inputs (rtol={rtol:.3g} "
         f"atol={atol:.3g}) {json.dumps(cross)}, last logits against "
         f"the plain chunked form, as the largest difference over the "
-        f"largest |logit| {json.dumps(vis['logits'])}, "
+        f"largest |logit| {json.dumps(vis['logits'])}, float32 image "
+        f"embeddings through the kernel route (launches by kernel and "
+        f"dtype; logits against the cross layer's plain route, bounded, "
+        f"and against the all-plain model beside the bf16 embeddings' "
+        f"kernel-vs-plain; prefill ms) "
+        f"{json.dumps(vis['f32_image_embeds'])}, "
         f"{STACK_DECODE} decode steps through the static cross cache; "
         f"kernel cells " + json.dumps(out["cells"]) + f" [{smi}]")
     del params, caches, last, lg, before, batch
@@ -4408,15 +4536,16 @@ TRAIN_RANKS = 8
 TRAIN_RANK_QWEN = dict(mesh={"data": 2, "model": 4}, steps=2, ckpt_at=1)
 #: (a)'s planted fault on a fresh step 1 (another costs a step, ~16 s)
 TRAIN_RANK_PLANTED = ("dp_skip",)
-#: (b) granite-20b at full width, 2 of its 52 layers (52 layers' float32
+#: (b) granite-20b at full width, 1 of its 52 layers (52 layers' float32
 #: AdamW state alone is 160 GB), FSDP over ("pod", "data"), its own
 #: knobs (SP, remat, 4 microbatches); global batch 16 (one row a home a
-#: microbatch), S cut from 4096 to 1024 and 1 step (cut from 2) for the
-#: phase's time: a step takes 40-60 s, the FSDP gathers' 13.9 GB a rank
-#: through gloo; before it, the planted wrong-home gather's forward (the
-#: loss alone: a whole step read 8.7e-4 in the loss, 2.9e-3 in the norm,
-#: and took another 54 s on an H100)
-TRAIN_RANK_GRANITE = dict(arch="granite-20b", layers=2, batch=16, seq=1024,
+#: microbatch), S cut from 4096 to 1024, 1 step (cut from 2) and 1 layer
+#: (cut from 2) for the phase's time: at 2 layers a step took 40-60 s,
+#: the FSDP gathers' 13.9 GB a rank through gloo; before it, the planted
+#: wrong-home gather's forward (the loss alone: at 2 layers a whole step
+#: read 8.7e-4 in the loss, 2.9e-3 in the norm, and took another 54 s on
+#: an H100)
+TRAIN_RANK_GRANITE = dict(arch="granite-20b", layers=1, batch=16, seq=1024,
                           mesh={"pod": 2, "data": 2, "model": 2}, steps=1)
 #: the ranks' bf16 losses (each step) and step 1's gradient norm against
 #: one process's on the same rows, relative.  The split products' partial
@@ -6460,11 +6589,11 @@ def main(argv=None) -> int:
         + " | ".join(regs))
     wgmma = wgmma_instances(ptxas_entries(reports.get("flash_attention",
                                                       "")))
-    say("phase build fa_wgmma<HD/BK> (registers, spill bytes, static smem, "
-        "ptxas warnings): " + (json.dumps(wgmma) if wgmma else
-                               "not rebuilt in this run"))
+    say("phase build fa_wgmma<T/HD/BK> and fa_kernel<HD> (registers, spill "
+        "bytes, static smem, ptxas warnings): " + (
+            json.dumps(wgmma) if wgmma else "not rebuilt in this run"))
     sass = sass_check()
-    say("phase build fa_wgmma SASS (cuobjdump): " + json.dumps(sass))
+    say("phase build flash-attention SASS (cuobjdump): " + json.dumps(sass))
 
     kernels = phase_kernels(args.seed)
     engine = phase_engine(args.seed)
@@ -6532,6 +6661,12 @@ def main(argv=None) -> int:
     attention["line"]["max_abs_err"] = max(
         attention["line"]["max_abs_err"],
         *(c["max_abs_err"] for c in stack["cells"].values()))
+    # the serve phase's prefill logits check, each dtype's kernel and
+    # the launches of its counted prefill (bf16 fa_wgmma, float32
+    # fa_kernel, once a layer)
+    attention["line"]["serve_logits_launches"] = {
+        dt: {k: rec[k] for k in ("kernel", "launches")}
+        for dt, rec in serve["logits"].items()}
     rows += [kernels["bitonic_sort"], fig1["line"], attention["line"]]
     rows += analysis.pop("lines")
     # each kernel's launches by rank, {path: [launches of rank 0..7]}, in
@@ -6559,7 +6694,7 @@ def main(argv=None) -> int:
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
              "floor_ms", "rank_launches", "stack_launches", "stack_cells",
-             "model_split_cells",
+             "model_split_cells", "dtype_cells", "serve_logits_launches",
              *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:

@@ -345,7 +345,7 @@ def gather_dim(x: torch.Tensor, mesh, axes: Axis, dim: int) -> torch.Tensor:
     """`all_gather` of every home's `x` over `axes`, concatenated along
     `dim` in the homes' linear order (no autograd)."""
     parts = all_gather(_lead(x, dim), mesh, axes)
-    whole = parts.reshape(-1, *parts.shape[2:])
+    whole = parts.flatten(0, 1)
     return whole.movedim(0, dim) if dim else whole
 
 

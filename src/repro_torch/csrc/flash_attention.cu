@@ -26,26 +26,46 @@
 // bytes of q, k, v and out over 3.35 TB/s, whichever is larger.  At the
 // model shapes both are bound by operations.
 //
-// float32 and float16: `fa_kernel`, on the fp32 pipe (TF32 would miss the
-// 2e-5 tolerance).  A float16 input is widened to f32 as it enters shared
-// memory, the math is the f32 kernel's, and the output is rounded to f16 on
-// store (the tensor cores are left to a later float16 kernel).  bq / 16 warps (bq a multiple of 16, at most 128); warp w owns
-// query rows [16 w, 16 w + 16) of the tile.  Shared memory holds the q tile
-// and one K and one V tile, rows padded by one word against bank conflicts:
-// (bq + 2 bk) (HD + 1) 4 bytes, 198,144 B at bq = bk = HD = 128.  Per KV
-// tile a warp takes its rows four at a time: lane t scores keys t, t + 32,
-// ... (bk a multiple of 32, at most 128), the row max and sum are warp
-// shuffles, and for P V each key's p is broadcast by shuffle while lane t
-// accumulates output dims t, t + 32, ...
+// float32: `fa_kernel`, on the fp32 pipe (TF32 would miss the 2e-5
+// tolerance), register-blocked as an SGEMM is.  bq / 16 warps (bq a multiple
+// of 16, at most 128), warp w owning query rows [16 w, 16 w + 16) of the
+// tile; a KV tile is BK = 64 keys.  Lane (rg, kg) = (lane / 8, lane % 8)
+// holds rows rg + 4 i (i < 4) of its warp's slice:
 //
-// bfloat16: `fa_wgmma`, both products on the tensor cores (PTX wgmma), the
+//   * S = Q K^T: the lane scores its 4 rows against keys 8 kg .. 8 kg + 7,
+//     a 4 x 8 micro-tile, taking hd in chunks of 4 floats: per chunk 4 + 8
+//     float4 reads of shared memory feed 128 FMAs (the former kernel read 2
+//     floats a FMA).  A warp's read of a q chunk touches 4 rows, of a k
+//     chunk 8 rows: both are laid out row-major and XOR-swizzled by chunk
+//     (q by row % 4, k by row / 8), so each read is free of bank conflicts
+//     without padding.
+//   * Online softmax on the micro-tile: the row max is a shuffle over the 8
+//     lanes of a row (xor 1, 2, 4); each lane keeps its own part of the row
+//     sum l, summed over the 8 lanes once at the end.
+//   * O += P V: P leaves the registers through a 16 x 64 slice of shared
+//     memory a warp (float4 along keys, swizzled by row % 4); the lane's O
+//     is its 4 rows x hd / 8 dims (dims 4 kg + 32 e), so per 4 keys 4 float4
+//     reads of P and hd / 8 of V feed 2 hd FMAs: 256 for 20 reads at hd 128.
+//   * K and V tiles come by 16-byte cp.async into a ring of two stages, so
+//     the next tile's loads overlap this tile's products; rows past Skv (or
+//     Sq for q) are zero-filled by the copy.
+//   * Shared memory: the q tile, two K+V stages and P, (bq + 4 BK) HD 4 +
+//     bq BK 4 bytes: 229,376 B at bq = HD = 128, under the 232,448 B a block
+//     may have, so one block of 256 threads an SM.  Blocks take their q tile
+//     by `block_coords`, heaviest first, as `fa_wgmma` does; a warp skips a
+//     tile in which causal masking hides every key from all its rows (what
+//     it would add is exactly nothing).
+//
+// bfloat16 and float16: `fa_wgmma<T>`, one template over the 16-bit type T
+// (wgmma and TMA take both; only the instruction's type, P's packing and the
+// output's rounding differ), both products on the tensor cores (PTX wgmma), the
 // tiles brought by the Tensor Memory Accelerator (TMA).  bq = 64 or 128
 // query rows, bk = 64 or 128 keys.  A block is bq / 64 consumer warpgroups
 // (64 query rows each) and one producer warpgroup, whose first thread
 // issues every TMA load; `setmaxnreg` leaves the producer 24 registers a
 // thread and gives the consumers 240 (at 384 threads, 65,536 registers are
 // 168 a thread on average; a consumer holds S, 64 f32, O, 64, and P as hi
-// and lo bf16 pairs, 64).
+// and lo T pairs, 64).
 //
 //   * Shared memory: the q tile, loaded once, and a ring of STAGES = 3 K+V
 //     stages, each signalled by mbarriers (full K, full V, empty), so the
@@ -53,20 +73,23 @@
 //     alignment slack + bq HD 2 + 3 (2 bk HD 2) + the barriers: 230,480 B at
 //     bq = bk = HD = 128, under the 232,448 B a block may have.
 //   * S = Q K^T: wgmma m64n{bk}k16, both operands in shared memory, K-major
-//     (the reduction dim, hd, contiguous).  bf16 products are exact in f32,
-//     so S differs from the plain version only in summation order.
+//     (the reduction dim, hd, contiguous).  bf16 and f16 products are exact
+//     in f32, so S differs from the plain version only in summation order.
 //   * Softmax on the accumulator layout, in registers: a thread holds two
 //     rows' slices; the row max is a quad shuffle (xor 1, 2); the scale is
 //     folded with log2(e) into one multiply and exp2f.  Only the tiles cut
 //     by the diagonal, the window's edge or Skv evaluate the mask.
 //   * O += P V: wgmma m64n{HD}k16, A = P from registers, B = V in shared
 //     memory with hd contiguous (the transposed, N-major descriptor).  P's
-//     A fragment is S's accumulator fragment converted in place to bf16x2
+//     A fragment is S's accumulator fragment converted in place to T x2
 //     pairs (no trip through shared memory).  P rounded once to bf16 misses
 //     the kernel's tolerance (one bf16 step of the output, KERNEL_TOL) on
-//     the long rows, so P is split into hi = bf16(p) and lo = bf16(p - hi)
-//     and P V is two wgmmas a k-step: 2^-17 of relative error instead of
-//     2^-9, at 1.5x the tensor work.
+//     the long rows, so P is split into hi = T(p) and lo = T(p - hi) and
+//     P V is two wgmmas a k-step: 2^-17 of relative error instead of 2^-9,
+//     at 1.5x the tensor work.  One f16 rounding (2^-11) misses too: the
+//     outputs near zero leave one f16 step plus 1e-5 by the thousand at
+//     qwen3-0.6b's and the serve prefill's shapes (PERF.md), so f16
+//     splits as well.
 //   * The next tile's S = Q K^T is issued right behind this tile's P V
 //     (into S's registers, free once P is formed), so the tensor cores
 //     wait for the softmax only; the two consumer warpgroups fill each
@@ -105,6 +128,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "launch_plan.cuh"
 
@@ -113,180 +137,281 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 // dtype codes of the C entry (`DTYPE_CODES` in kernels/flash_attention.py)
 constexpr int DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2;
-constexpr int ROWS_PER_WARP = 16;
-constexpr int ROWS_PER_STEP = 4;
-constexpr int MAX_SLOTS = 4;  // bk <= 128 = MAX_SLOTS * 32
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__half* p, float v) {
-  *p = __float2half_rn(v);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
+// Block (x, y, z) of the (nq, H, B) grid takes the linear index
+// x + nq (y + H z); the q tile is taken from the slowest-varying part,
+// last tile first, so the heaviest causal tiles of every head start in
+// the first wave.
+__device__ __forceinline__ void block_coords(int H, int& iq, int& h, int& b) {
+  const int per = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  iq = gridDim.x - 1 - lin / per;
+  h = (lin % per) % H;
+  b = (lin % per) / H;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
+// ---------------------------------------------------------------------------
+// f32: fa_kernel, register-blocked on the fp32 pipe (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int F32_BK = 64;         // keys of a KV tile
+constexpr int F32_WARP_ROWS = 16;  // query rows of a warp
+constexpr int F32_RPT = 4;         // rows a lane holds: rg + 4 i
+constexpr int F32_KPT = 8;         // keys a lane scores: 8 kg + j
+
+// 16 bytes global -> shared, zeros when `in` is false (src-size 0)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(256)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int H, int KV, int Sq,
-          int Skv, int bq, int bk, int causal, int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int DPL = (HD + 31) / 32;  // output dims per lane
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + bq * LD;
-  float* sv = sk + bk * LD;
+// Rows [row0, row0 + rows) of a (*, HD) f32 matrix into shared memory, row
+// r's 16-byte chunk c at chunk c ^ swz(r) of its row; rows at or past
+// `limit` read as zeros.  Every thread of the block takes part.
+template <int HD, class Swz>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int rows, int limit,
+                                          Swz swz) {
+  constexpr int C = HD / 4;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int r = i / C, c = i % C;
+    const bool in = row0 + r < limit;
+    const float* g = src + (in ? (long long)(row0 + r) * HD + 4 * c : 0);
+    cp_async16(smem_u32(dst + r * HD + 4 * (c ^ swz(r))), g, in);
+  }
+}
 
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+template <int N>
+__device__ __forceinline__ void ld_vec(const float* p, float (&w)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float* w, float by) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) =
+        make_float4(w[0] / by, w[1] / by, w[2] / by, w[3] / by);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(w[0] / by, w[1] / by);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256, 1)
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int H, int KV,
+          int Sq, int Skv, int causal, int window, float scale) {
+  constexpr int C = HD / 4;                  // 16-byte chunks of a row
+  constexpr int BK = F32_BK;
+  constexpr int KSW = (C < 8 ? C : 8) - 1;   // K's swizzle mask
+  constexpr int VEC = HD >= 32 ? 4 : 2;      // output dims side by side
+  constexpr int NV = HD / (8 * VEC);         // such groups a lane holds
+  const int nwarp = blockDim.x / 32, bq = nwarp * F32_WARP_ROWS;
+  extern __shared__ float4 smem_f4[];
+  float* const sq = reinterpret_cast<float*>(smem_f4);
+  float* const skv = sq + bq * HD;           // stage s: K, then V
+  float* const sp = skv + 2 * 2 * BK * HD;   // P: 16 x BK a warp
+
+  int iq, h, b;
+  block_coords(H, iq, h, b);
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31;
-  const int row0 = (tid >> 5) * ROWS_PER_WARP;
   const int q0 = iq * bq;
-  const int nslots = bk / 32;
-  const T* qb = q + (long long)(b * H + h) * Sq * HD;
-  const T* kb = k + (long long)(b * KV + kvh) * Skv * HD;
-  const T* vb = v + (long long)(b * KV + kvh) * Skv * HD;
+  // the live KV tiles [lo, hi) of rows [q0, q0 + bq), as in fa_wgmma
+  const int nk = (Skv + BK - 1) / BK;
+  const int hi = causal ? min(nk, (q0 + bq - 1) / BK + 1) : nk;
+  const int first = q0 - window + 1;
+  const int lo = window && first > 0 ? first / BK : 0;
+  const int n = max(hi - lo, 0);
+  const float* qb = q + (long long)(b * H + h) * Sq * HD;
+  const float* kb = k + (long long)(b * KV + kvh) * Skv * HD;
+  const float* vb = v + (long long)(b * KV + kvh) * Skv * HD;
 
-  for (int i = tid; i < bq * HD; i += nthr) {
-    const int r = i / HD, d = i % HD;
-    sq[r * LD + d] =
-        q0 + r < Sq ? to_f(qb[(long long)(q0 + r) * HD + d]) : 0.f;
+  // q rows read together differ in row % 4, k rows in row / 8 (mod 8)
+  auto q_swz = [](int r) { return r & 3; };
+  auto k_swz = [](int r) { return (r >> 3) & KSW; };
+  auto v_swz = [](int) { return 0; };
+  auto load_kv = [&](int it) {
+    float* sk = skv + (it & 1) * 2 * BK * HD;
+    const int k0 = (lo + it) * BK;
+    load_rows<HD>(sk, kb, k0, BK, Skv, k_swz);
+    load_rows<HD>(sk + BK * HD, vb, k0, BK, Skv, v_swz);
+  };
+  // groups: q and tile 0, then one a tile (empty past the last), so that
+  // waiting for all but the newest group always lands tile it
+  load_rows<HD>(sq, qb, q0, bq, Sq, q_swz);
+  if (n > 0) load_kv(0);
+  cp_async_commit();
+  if (n > 1) load_kv(1);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane >> 3, kg = lane & 7;   // kg: also the dims group
+  const int wrow0 = q0 + warp * F32_WARP_ROWS;
+  const float* qs = sq + (warp * F32_WARP_ROWS + rg) * HD;  // + 4 i HD
+  float* ps = sp + (warp * F32_WARP_ROWS + rg) * BK;        // + 4 i BK
+  float o[F32_RPT][NV * VEC], m[F32_RPT], l[F32_RPT];
+#pragma unroll
+  for (int i = 0; i < F32_RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NV * VEC; ++e) o[i][e] = 0.f;
   }
 
-  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], acc[ROWS_PER_WARP][DPL];
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();  // tile it is in, from every thread's copies
+    const float* sk = skv + (it & 1) * 2 * BK * HD;
+    const float* sv = sk + BK * HD;
+    const int k0 = (lo + it) * BK;
+    // causal masking hides every key of this tile from all the warp's rows
+    if (!(causal && k0 > wrow0 + F32_WARP_ROWS - 1)) {
+      // S = Q K^T, a 4 x 8 micro-tile, hd in 16-byte chunks
+      float s[F32_RPT][F32_KPT];
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
+      for (int i = 0; i < F32_RPT; ++i)
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-  }
-
-  const int nk = (Skv + bk - 1) / bk;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * bk;
-    if (causal && k0 > q0 + bq - 1) break;             // this and later: dead
-    if (window && k0 + bk - 1 <= q0 - window) continue;  // left of the window
-    __syncthreads();  // the previous tile is consumed (and sq is written)
-    for (int i = tid; i < bk * HD; i += nthr) {
-      const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < Skv;
-      const long long g = (long long)(k0 + r) * HD + d;
-      sk[r * LD + d] = in ? to_f(kb[g]) : 0.f;
-      sv[r * LD + d] = in ? to_f(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
+        for (int j = 0; j < F32_KPT; ++j) s[i][j] = 0.f;
+      const float* ks = sk + 8 * kg * HD;  // key 8 kg + j: + j HD
+#pragma unroll 8
+      for (int c = 0; c < C; ++c) {
+        float4 qv[F32_RPT], kv[F32_KPT];
 #pragma unroll
-    for (int grp = 0; grp < ROWS_PER_WARP / ROWS_PER_STEP; ++grp) {
-      float s[ROWS_PER_STEP][MAX_SLOTS];
+        for (int i = 0; i < F32_RPT; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + 4 * i * HD +
+                                                   4 * (c ^ rg));
 #pragma unroll
-      for (int r = 0; r < ROWS_PER_STEP; ++r)
+        for (int j = 0; j < F32_KPT; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(ks + j * HD +
+                                                   4 * (c ^ (kg & KSW)));
 #pragma unroll
-        for (int c = 0; c < MAX_SLOTS; ++c) s[r][c] = 0.f;
-      const float* qrow = sq + (row0 + grp * ROWS_PER_STEP) * LD;
-#pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float qd[ROWS_PER_STEP];
+        for (int i = 0; i < F32_RPT; ++i)
 #pragma unroll
-        for (int r = 0; r < ROWS_PER_STEP; ++r) qd[r] = qrow[r * LD + d];
-#pragma unroll
-        for (int c = 0; c < MAX_SLOTS; ++c) {
-          if (c < nslots) {
-            const float kd = sk[(c * 32 + lane) * LD + d];
-#pragma unroll
-            for (int r = 0; r < ROWS_PER_STEP; ++r)
-              s[r][c] = fmaf(qd[r], kd, s[r][c]);
+          for (int j = 0; j < F32_KPT; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
           }
-        }
       }
+
+      // online softmax; only tiles cut by the diagonal, the window's edge
+      // or Skv evaluate the mask
+      const bool edge =
+          k0 + BK > Skv || (causal && k0 + BK - 1 > wrow0) ||
+          (window && wrow0 + F32_WARP_ROWS - 1 - k0 >= window);
 #pragma unroll
-      for (int r = 0; r < ROWS_PER_STEP; ++r) {
-        const int ri = grp * ROWS_PER_STEP + r;
-        const int qpos = q0 + row0 + ri;
+      for (int i = 0; i < F32_RPT; ++i) {
+        const int r = wrow0 + rg + 4 * i;
         float mx = NEG_INF;
 #pragma unroll
-        for (int c = 0; c < MAX_SLOTS; ++c) {
-          if (c < nslots) {
-            const int kpos = k0 + c * 32 + lane;
-            const bool ok = qpos < Sq && kpos < Skv &&
-                            (!causal || kpos <= qpos) &&
-                            (!window || qpos - kpos < window);
-            s[r][c] = ok ? s[r][c] * scale : NEG_INF;
-            mx = fmaxf(mx, s[r][c]);
+        for (int j = 0; j < F32_KPT; ++j) {
+          float x = s[i][j] * scale;
+          if (edge) {
+            const int c = k0 + 8 * kg + j;
+            const bool ok = c < Skv && (!causal || c <= r) &&
+                            (!window || r - c < window);
+            x = ok ? x : NEG_INF;
           }
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
         }
-        const float m_new = fmaxf(m[ri], warp_max(mx));
-        const float corr = expf(m[ri] - m_new);
-        float ps = 0.f;
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 4));
+        const float m_new = fmaxf(m[i], mx);
+        const float corr = expf(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.f;
 #pragma unroll
-        for (int c = 0; c < MAX_SLOTS; ++c) {
-          if (c < nslots) {
-            s[r][c] = expf(s[r][c] - m_new);
-            ps += s[r][c];
-          }
+        for (int j = 0; j < F32_KPT; ++j) {
+          s[i][j] = expf(s[i][j] - m_new);
+          sum += s[i][j];
         }
-        l[ri] = l[ri] * corr + warp_sum(ps);
-        m[ri] = m_new;
+        l[i] = l[i] * corr + sum;
 #pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[ri][e] *= corr;
+        for (int e = 0; e < NV * VEC; ++e) o[i][e] *= corr;
+        // P row rg + 4 i, keys 8 kg .. 8 kg + 7: chunks 2 kg and 2 kg + 1
+        float* pr = ps + 4 * i * BK;
+        *reinterpret_cast<float4*>(pr + 4 * ((2 * kg) ^ rg)) =
+            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        *reinterpret_cast<float4*>(pr + 4 * ((2 * kg + 1) ^ rg)) =
+            make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
       }
+      __syncwarp();
+
+      // O += P V: 4 keys a step, dims VEC kg + 8 VEC e of each
+      const float* vs = sv + VEC * kg;
+#pragma unroll 4
+      for (int c = 0; c < BK / 4; ++c) {
+        float4 pv[F32_RPT];
 #pragma unroll
-      for (int c = 0; c < MAX_SLOTS; ++c) {
-        if (c < nslots) {
-          for (int src = 0; src < 32; ++src) {
-            float pj[ROWS_PER_STEP];
+        for (int i = 0; i < F32_RPT; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(ps + 4 * i * BK +
+                                                   4 * (c ^ rg));
 #pragma unroll
-            for (int r = 0; r < ROWS_PER_STEP; ++r)
-              pj[r] = __shfl_sync(FULL, s[r][c], src);
-            const float* vrow = sv + (c * 32 + src) * LD;
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* vrow = vs + (4 * c + kk) * HD;
 #pragma unroll
-            for (int e = 0; e < DPL; ++e) {
-              const int d = lane + 32 * e;
-              if (d < HD) {
-                const float vd = vrow[d];
+          for (int e = 0; e < NV; ++e) {
+            float w[VEC];
+            ld_vec<VEC>(vrow + 8 * VEC * e, w);
 #pragma unroll
-                for (int r = 0; r < ROWS_PER_STEP; ++r)
-                  acc[grp * ROWS_PER_STEP + r][e] =
-                      fmaf(pj[r], vd, acc[grp * ROWS_PER_STEP + r][e]);
-              }
+            for (int i = 0; i < F32_RPT; ++i) {
+              const float p = kk == 0 ? pv[i].x : kk == 1 ? pv[i].y
+                              : kk == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+              for (int t = 0; t < VEC; ++t)
+                o[i][e * VEC + t] = fmaf(p, w[t], o[i][e * VEC + t]);
             }
           }
         }
       }
     }
+    __syncthreads();  // stage it & 1 and every warp's P are consumed
+    if (it + 2 < n) load_kv(it + 2);
+    cp_async_commit();
   }
 
-  T* ob = out + (long long)(b * H + h) * Sq * HD;
+  // out = O / max(l, 1e-20), rows past Sq not written
+  float* ob = out + (long long)(b * H + h) * Sq * HD;
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int qpos = q0 + row0 + r;
-    if (qpos < Sq) {
-      const float lc = fmaxf(l[r], 1e-20f);
+  for (int i = 0; i < F32_RPT; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(FULL, li, 1);
+    li += __shfl_xor_sync(FULL, li, 2);
+    li += __shfl_xor_sync(FULL, li, 4);
+    li = fmaxf(li, 1e-20f);
+    const int r = wrow0 + rg + 4 * i;
+    if (r < Sq) {
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane + 32 * e;
-        if (d < HD) store(&ob[(long long)qpos * HD + d], acc[r][e] / lc);
-      }
+      for (int e = 0; e < NV; ++e)
+        st_vec<VEC>(ob + (long long)r * HD + VEC * kg + 8 * VEC * e,
+                    &o[i][e * VEC], li);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16: fa_wgmma, tensor cores fed by TMA (see the note at the top)
+// bf16 and f16: fa_wgmma<T>, tensor cores fed by TMA (see the note at the top)
 // ---------------------------------------------------------------------------
 constexpr int WG = 128;           // threads of a warpgroup
 constexpr int WG_ROWS = 64;       // query rows of one consumer warpgroup
@@ -294,9 +419,8 @@ constexpr int STAGES = 3;         // K/V stages of the ring
 constexpr int SMEM_ALIGN = 1024;  // a swizzle pattern's period
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+template <typename T>
+constexpr bool IS_F16 = std::is_same<T, __half>::value;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -376,138 +500,146 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two floats rounded to T, `lo` in the low half; and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (IS_F16<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t x) {
+  if constexpr (IS_F16<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 // D (64 x N, f32) (+)= A (64 x 16) B (16 x N), A and B K-major in shared
-// memory (S = Q K^T: A the q rows, B the key rows).
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                         int scale_d);
-// D (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N), B N-major in
+// memory (S = Q K^T: A the q rows, B the key rows), of element type T.
+// The instruction strings differ by type only: one macro a shape, TY its
+// PTX type.
+#define FA_WGMMA_SS64(TY)                                                                                        \
+  asm volatile(                                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                        \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])   \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define FA_WGMMA_SS128(TY)                                                                                       \
+  asm volatile(                                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                         \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                        \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])   \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define FA_WGMMA_RS16(TY)                                                                               \
+  asm volatile(                                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                                                      \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "                                                               \
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define FA_WGMMA_RS32(TY)                                                                                     \
+  asm volatile(                                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"                                            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "                               \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define FA_WGMMA_RS64(TY)                                                                                        \
+  asm volatile(                                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                        \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define FA_WGMMA_RS128(TY)                                                                                       \
+  asm volatile(                                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                         \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                        \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64) {
+    if constexpr (IS_F16<T>) FA_WGMMA_SS64("f16"); else FA_WGMMA_SS64("bf16");
+  } else {
+    if constexpr (IS_F16<T>) FA_WGMMA_SS128("f16"); else FA_WGMMA_SS128("bf16");
+  }
+}
+
+// D (64 x N, f32) += A (64 x 16, T registers) B (16 x N), B N-major in
 // shared memory (O += P V: B the value rows, transposed descriptor).
-template <int N>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_rs: N is 16, 32, 64 or 128");
+  if constexpr (N == 16) {
+    if constexpr (IS_F16<T>) FA_WGMMA_RS16("f16"); else FA_WGMMA_RS16("bf16");
+  } else if constexpr (N == 32) {
+    if constexpr (IS_F16<T>) FA_WGMMA_RS32("f16"); else FA_WGMMA_RS32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (IS_F16<T>) FA_WGMMA_RS64("f16"); else FA_WGMMA_RS64("bf16");
+  } else {
+    if constexpr (IS_F16<T>) FA_WGMMA_RS128("f16"); else FA_WGMMA_RS128("bf16");
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Block (x, y, z) of the (nq, H, B) grid takes the linear index
-// x + nq (y + H z); the q tile is taken from the slowest-varying part,
-// last tile first, so the heaviest causal tiles of every head start in
-// the first wave.
-__device__ __forceinline__ void block_coords(int H, int& iq, int& h, int& b) {
-  const int per = gridDim.y * gridDim.z;
-  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  iq = gridDim.x - 1 - lin / per;
-  h = (lin % per) % H;
-  b = (lin % per) / H;
-}
-
-template <int HD, int BK>
+template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(3 * WG, 1)
 fa_wgmma(const __grid_constant__ CUtensorMap tq,
          const __grid_constant__ CUtensorMap tk,
-         const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+         const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
          int H, int KV, int Sq, int Skv, int causal, int window, float scale2,
          int p_split) {
   constexpr int ROWB = (HD < 64 ? HD : 64) * 2;  // bytes of one box row
@@ -587,7 +719,7 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
     const uint32_t qa = sq + wg * WG_ROWS * ROWB;
     mbar_wait(q_full, 0);
 
-    // S = Q K^T of tile `it` on the tensor cores, f32 (bf16 products are
+    // S = Q K^T of tile `it` on the tensor cores, f32 (16-bit products are
     // exact), committed as one wgmma group
     float sc[BK / 2];
     auto issue_s = [&](int it) {
@@ -598,7 +730,7 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t x = kk * 32 / ROWB, off = kk * 32 % ROWB;
-        wgmma_ss<BK>(sc, gmma_desc(qa + x * bq * ROWB + off, 16, GROUP, SWZ),
+        wgmma_ss<T, BK>(sc, gmma_desc(qa + x * bq * ROWB + off, 16, GROUP, SWZ),
                      gmma_desc(sk + x * BK * ROWB + off, 16, GROUP, SWZ),
                      kk > 0);
       }
@@ -643,7 +775,7 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
         m[e] = m_new;
         l[e] *= corr[e];
       }
-      // P = exp2(S - m) as bf16 hi + lo pairs in the A-fragment layout
+      // P = exp2(S - m) as T hi + lo pairs in the A-fragment layout
       // (elements 2i and 2i + 1 of the accumulator are one register)
       uint32_t ph[BK / 4], pl[BK / 4];
 #pragma unroll
@@ -652,9 +784,9 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
         const float p0 = exp2f(sc[2 * i] - m[e]);
         const float p1 = exp2f(sc[2 * i + 1] - m[e]);
         l[e] += p0 + p1;
-        ph[i] = pack_bf16(p0, p1);
-        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&ph[i]);
-        pl[i] = pack_bf16(p0 - __low2float(hv), p1 - __high2float(hv));
+        ph[i] = pack2<T>(p0, p1);
+        const float2 hv = unpack2<T>(ph[i]);
+        pl[i] = pack2<T>(p0 - hv.x, p1 - hv.y);
       }
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
@@ -668,11 +800,11 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
         const uint64_t dv = gmma_desc(sv + kk * 2 * GROUP, BK * ROWB, GROUP, SWZ);
         const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
                                 ph[4 * kk + 3]};
-        wgmma_rs<HD>(o, ah, dv);
+        wgmma_rs<T, HD>(o, ah, dv);
         if (p_split) {
           const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
                                   pl[4 * kk + 3]};
-          wgmma_rs<HD>(o, al, dv);
+          wgmma_rs<T, HD>(o, al, dv);
         }
       }
       wgmma_commit();
@@ -703,17 +835,15 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
       l[e] += __shfl_xor_sync(FULL, l[e], 2);
       l[e] = fmaxf(l[e], 1e-20f);
     }
-    __nv_bfloat16* ob = out + (long long)(b * H + h) * Sq * HD;
+    T* ob = out + (long long)(b * H + h) * Sq * HD;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = qrow + 8 * e;
       if (r < Sq) {
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r * HD + 8 * j +
-                                             col) =
-              __floats2bfloat162_rn(o[4 * j + 2 * e] / l[e],
-                                    o[4 * j + 2 * e + 1] / l[e]);
+          *reinterpret_cast<uint32_t*>(ob + (long long)r * HD + 8 * j + col) =
+              pack2<T>(o[4 * j + 2 * e] / l[e], o[4 * j + 2 * e + 1] / l[e]);
       }
     }
   }
@@ -722,22 +852,23 @@ fa_wgmma(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // host code, once for launching and for planning (launch_plan.cuh)
 // ---------------------------------------------------------------------------
-template <typename T, int HD, class Exec>
-int run_typed(Exec& ex, const void* q, const void* k, const void* v, void* out,
-              int B, int H, int KV, int Sq, int Skv, int bq, int bk, int causal,
-              int window, float scale, cudaStream_t st) {
-  const size_t smem = (size_t)(bq + 2 * bk) * (HD + 1) * sizeof(float);
+template <int HD, class Exec>
+int run_f32(Exec& ex, const void* q, const void* k, const void* v, void* out,
+            int B, int H, int KV, int Sq, int Skv, int bq, int causal,
+            int window, float scale, cudaStream_t st) {
+  const size_t smem =
+      ((size_t)(bq + 4 * F32_BK) * HD + (size_t)bq * F32_BK) * sizeof(float);
   const dim3 grid((unsigned)((Sq + bq - 1) / bq), (unsigned)H, (unsigned)B);
-  const int threads = (bq / ROWS_PER_WARP) * 32;
-  return ex("fa_kernel", (const void*)fa_kernel<T, HD>, grid, threads, smem,
+  const int threads = (bq / F32_WARP_ROWS) * 32;
+  return ex("fa_kernel", (const void*)fa_kernel<HD>, grid, threads, smem,
             [&] {
               const cudaError_t e = cudaFuncSetAttribute(
-                  fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  fa_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                   (int)smem);
               if (e != cudaSuccess) return e;
-              fa_kernel<T, HD><<<grid, threads, smem, st>>>(
-                  (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KV, Sq,
-                  Skv, bq, bk, causal, window, scale);
+              fa_kernel<HD><<<grid, threads, smem, st>>>(
+                  (const float*)q, (const float*)k, (const float*)v,
+                  (float*)out, H, KV, Sq, Skv, causal, window, scale);
               return cudaSuccess;
             });
 }
@@ -769,10 +900,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (hd, rows, heads) bf16 tensor cut into (min(hd, 64), box_rows, 1) boxes,
-// rows of a box swizzled across its width; reads past `rows` are zeros.
-bool encode(CUtensorMap* map, const void* base, int hd, int rows, int heads,
-            int box_rows) {
+// A (hd, rows, heads) tensor of 16-bit `type` cut into (min(hd, 64),
+// box_rows, 1) boxes, rows of a box swizzled across its width; reads past
+// `rows` are zeros.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+            int hd, int rows, int heads, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const int inner = hd < 64 ? hd : 64;
@@ -785,13 +917,13 @@ bool encode(CUtensorMap* map, const void* base, int hd, int rows, int heads,
   const CUtensorMapSwizzle swizzle =
       inner == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
       : inner == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  return fn(map, type, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int BK, class Exec>
+template <typename T, int HD, int BK, class Exec>
 int run_wgmma(Exec& ex, const void* q, const void* k, const void* v,
               void* out, int B, int H, int KV, int Sq, int Skv, int bq,
               int causal, int window, float scale, int p_split,
@@ -800,33 +932,56 @@ int run_wgmma(Exec& ex, const void* q, const void* k, const void* v,
                       (size_t)STAGES * 2 * BK * HD * 2 + 8 * (1 + 3 * STAGES);
   const dim3 grid((unsigned)((Sq + bq - 1) / bq), (unsigned)H, (unsigned)B);
   const int threads = (bq / WG_ROWS + 1) * WG;
-  return ex("fa_wgmma", (const void*)fa_wgmma<HD, BK>, grid, threads, smem,
+  const CUtensorMapDataType type = IS_F16<T>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return ex("fa_wgmma", (const void*)fa_wgmma<T, HD, BK>, grid, threads, smem,
             [&] {
               CUtensorMap tq, tk, tv;
-              if (!encode(&tq, q, HD, Sq, B * H, bq) ||
-                  !encode(&tk, k, HD, Skv, B * KV, BK) ||
-                  !encode(&tv, v, HD, Skv, B * KV, BK))
+              if (!encode(&tq, type, q, HD, Sq, B * H, bq) ||
+                  !encode(&tk, type, k, HD, Skv, B * KV, BK) ||
+                  !encode(&tv, type, v, HD, Skv, B * KV, BK))
                 return cudaErrorInvalidValue;
               const cudaError_t e = cudaFuncSetAttribute(
-                  fa_wgmma<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                  (int)smem);
+                  fa_wgmma<T, HD, BK>,
+                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
               if (e != cudaSuccess) return e;
-              fa_wgmma<HD, BK><<<grid, threads, smem, st>>>(
-                  tq, tk, tv, (__nv_bfloat16*)out, H, KV, Sq, Skv, causal,
-                  window, scale * LOG2E, p_split);
+              fa_wgmma<T, HD, BK><<<grid, threads, smem, st>>>(
+                  tq, tk, tv, (T*)out, H, KV, Sq, Skv, causal, window,
+                  scale * LOG2E, p_split);
               return cudaSuccess;
             });
 }
 
-template <int HD, class Exec>
-int run_bf16(Exec& ex, const void* q, const void* k, const void* v, void* out,
-             int B, int H, int KV, int Sq, int Skv, int bq, int bk, int causal,
-             int window, float scale, int p_split, cudaStream_t st) {
+template <typename T, int HD, class Exec>
+int run_16(Exec& ex, const void* q, const void* k, const void* v, void* out,
+           int B, int H, int KV, int Sq, int Skv, int bq, int bk, int causal,
+           int window, float scale, int p_split, cudaStream_t st) {
   if (bk == 64)
-    return run_wgmma<HD, 64>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, causal,
-                             window, scale, p_split, st);
-  return run_wgmma<HD, 128>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, causal,
-                            window, scale, p_split, st);
+    return run_wgmma<T, HD, 64>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                causal, window, scale, p_split, st);
+  return run_wgmma<T, HD, 128>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                               causal, window, scale, p_split, st);
+}
+
+template <typename T, class Exec>
+int run_hd16(Exec& ex, const void* q, const void* k, const void* v, void* out,
+             int B, int H, int KV, int Sq, int Skv, int hd, int bq, int bk,
+             int causal, int window, float scale, int p_split,
+             cudaStream_t st) {
+  if ((bq != 64 && bq != 128) || (bk != 64 && bk != 128))
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return run_16<T, 16>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
+                                  causal, window, scale, p_split, st);
+    case 32: return run_16<T, 32>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
+                                  causal, window, scale, p_split, st);
+    case 64: return run_16<T, 64>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
+                                  causal, window, scale, p_split, st);
+    case 128: return run_16<T, 128>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                    bk, causal, window, scale, p_split, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <class Exec>
@@ -836,50 +991,23 @@ int run(Exec& ex, const void* q, const void* k, const void* v, void* out,
         cudaStream_t st) {
   if (H % KV || dtype < DT_F32 || dtype > DT_F16)
     return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16) {
-    if ((bq != 64 && bq != 128) || (bk != 64 && bk != 128))
-      return (int)cudaErrorInvalidValue;
-    switch (hd) {
-      case 16: return run_bf16<16>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                   causal, window, scale, p_split, st);
-      case 32: return run_bf16<32>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                   causal, window, scale, p_split, st);
-      case 64: return run_bf16<64>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq, bk,
-                                   causal, window, scale, p_split, st);
-      case 128: return run_bf16<128>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
-                                     bk, causal, window, scale, p_split, st);
-    }
+  if (dtype == DT_BF16)
+    return run_hd16<__nv_bfloat16>(ex, q, k, v, out, B, H, KV, Sq, Skv, hd,
+                                   bq, bk, causal, window, scale, p_split, st);
+  if (dtype == DT_F16)
+    return run_hd16<__half>(ex, q, k, v, out, B, H, KV, Sq, Skv, hd, bq, bk,
+                            causal, window, scale, p_split, st);
+  if (bq % F32_WARP_ROWS || bq > 128 || bq < F32_WARP_ROWS || bk != F32_BK)
     return (int)cudaErrorInvalidValue;
-  }
-  if (bq % ROWS_PER_WARP || bq > 128 || bq < 16 || bk % 32 || bk > 128 ||
-      bk < 32)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == DT_F16) {
-    switch (hd) {
-      case 16: return run_typed<__half, 16>(ex, q, k, v, out, B, H, KV, Sq,
-                                            Skv, bq, bk, causal, window,
-                                            scale, st);
-      case 32: return run_typed<__half, 32>(ex, q, k, v, out, B, H, KV, Sq,
-                                            Skv, bq, bk, causal, window,
-                                            scale, st);
-      case 64: return run_typed<__half, 64>(ex, q, k, v, out, B, H, KV, Sq,
-                                            Skv, bq, bk, causal, window,
-                                            scale, st);
-      case 128: return run_typed<__half, 128>(ex, q, k, v, out, B, H, KV, Sq,
-                                              Skv, bq, bk, causal, window,
-                                              scale, st);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
   switch (hd) {
-    case 16: return run_typed<float, 16>(ex, q, k, v, out, B, H, KV, Sq, Skv,
-                                         bq, bk, causal, window, scale, st);
-    case 32: return run_typed<float, 32>(ex, q, k, v, out, B, H, KV, Sq, Skv,
-                                         bq, bk, causal, window, scale, st);
-    case 64: return run_typed<float, 64>(ex, q, k, v, out, B, H, KV, Sq, Skv,
-                                         bq, bk, causal, window, scale, st);
-    case 128: return run_typed<float, 128>(ex, q, k, v, out, B, H, KV, Sq, Skv,
-                                           bq, bk, causal, window, scale, st);
+    case 16: return run_f32<16>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                causal, window, scale, st);
+    case 32: return run_f32<32>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                causal, window, scale, st);
+    case 64: return run_f32<64>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                causal, window, scale, st);
+    case 128: return run_f32<128>(ex, q, k, v, out, B, H, KV, Sq, Skv, bq,
+                                  causal, window, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -890,11 +1018,11 @@ extern "C" const char* repro_flash_attention_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// dtype: DT_F32, DT_BF16 or DT_F16.  Tile sides: float32 and float16 bq a
-// multiple of 16 and bk a multiple of 32, both <= 128; bfloat16 bq and bk
-// 64 or 128.  hd in {16, 32, 64, 128}; bfloat16
-// q, k, v 16-byte aligned.  `p_split` 0 rounds P once to bfloat16 before
-// P V (a measurement of what the hi + lo split buys; the wrapper passes 1).
+// dtype: DT_F32, DT_BF16 or DT_F16.  Tile sides: float32 bq a multiple of
+// 16 up to 128 and bk 64; bfloat16 and float16 bq and bk 64 or 128.  hd in
+// {16, 32, 64, 128}; q, k, v 16-byte aligned (cp.async and TMA).  `p_split`
+// 0 rounds P once to the 16-bit type before P V (a measurement of what the
+// hi + lo split buys).
 // Launches on `stream`, does not synchronise, returns a CUDA error code (0
 // on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,

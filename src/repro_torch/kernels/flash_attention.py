@@ -28,20 +28,22 @@ masked entries of its live tiles, as the reference does; that value
 depends on the tile sides, which the kernel rounds up (`kernel_tiles`).
 Every other row's masked entries are wiped by its first real score.
 
-Two kernels: float32 and float16 run ``fa_kernel`` on the fp32 pipe (a
-float16 input widened to float32 on load, the output rounded to float16
-on store), bfloat16 ``fa_wgmma``, both products on the tensor cores
-(wgmma) with the q tile and a 3-stage K/V ring brought by TMA, P V taken as two products of a
-bfloat16 hi + lo split of P (one rounding of P to bfloat16 misses
-`KERNEL_TOL`).  Their tile sides and shared memory differ
-(`kernel_tiles`, `smem_bytes`); ``fa_wgmma`` needs 16-byte aligned q, k, v.
+Two kernels: float32 runs ``fa_kernel`` on the fp32 pipe, register-blocked
+(each lane a 4 x 8 micro-tile of the scores and 4 rows of the output, a
+two-stage cp.async K/V ring, 64-key tiles); bfloat16 and float16 run
+``fa_wgmma``, one template over the 16-bit type, both products on the
+tensor cores (wgmma) with the q tile and a 3-stage K/V ring brought by
+TMA, P V taken as two products of a hi + lo split of P (one rounding of
+P to bfloat16 or float16 misses `KERNEL_TOL`).  Their tile sides and
+shared memory differ (`kernel_tiles`, `smem_bytes`); both need 16-byte
+aligned q, k, v (cp.async and TMA).
 
 `plan` states the kernel's one launch: a (q tiles, H, B) grid -- the
 reference's KV grid axis is a loop inside the block here -- with the KV
 tiles each block reads (its live ones), and the block's shared memory
 (`smem_bytes`); `c_plan` reads the same launch from the C entry's
-dry-run twin on the card.  ``fa_wgmma`` takes its q tile from the
-block's linear index, last tile first (`wgmma_block_tiles`).
+dry-run twin on the card.  Both kernels take their q tile from the
+block's linear index, last tile first (`block_tiles`).
 
 Neither kernel has a backward pass, and neither has the reference's (JAX
 refuses to differentiate its `pallas_call`): under autograd, with any of
@@ -76,18 +78,22 @@ MAX_BLOCK = 128
 
 #: the kernel each dtype launches
 KERNELS = {"float32": "fa_kernel", "bfloat16": "fa_wgmma",
-           "float16": "fa_kernel"}
+           "float16": "fa_wgmma"}
+#: the dtypes ``fa_wgmma`` takes
+WGMMA_DTYPES = ("bfloat16", "float16")
 #: ``fa_wgmma``: query rows of a consumer warpgroup (wgmma's M), threads of
 #: a warpgroup, K/V stages of its ring, alignment slack of its tiles
 WG_ROWS, WG, STAGES, SMEM_ALIGN = 64, 128, 3, 1024
+#: ``fa_kernel``: query rows of a warp, keys of a KV tile
+F32_WARP_ROWS, F32_BK = 16, 64
 
 #: (rtol, atol) of the kernel against its plain version.  Its float32 sums
 #: run in another order, so float32 agrees to 2e-5.  A bfloat16 output may
 #: round the other way: one bfloat16 step, at most 2**-7 of its value; the
 #: 1e-5 covers the float32 sums of outputs near zero.  At long rows the
 #: outputs are about 0.02, so an absolute 2e-2 would pass a wrong kernel.
-#: A float16 output is the float32 kernel's rounded once to float16: one
-#: float16 step, at most 2**-10 of its value, and the same 1e-5.
+#: A float16 output likewise: one float16 step, at most 2**-10 of its
+#: value, and the same 1e-5.
 KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5),
               torch.float16: (2.0 ** -10, 1e-5)}
 
@@ -230,36 +236,38 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 def kernel_tiles(Sq: int, Skv: int, block_q: int, block_k: int,
                  dtype: str = "float32"):
-    """The kernel's tile sides: the reference's, rounded up -- float32 to a
-    whole number of 16-row warp slices (q) and 32-key lane slices (k),
-    bfloat16 to whole 64-row wgmma tiles (q) and 64-key tiles (k)."""
+    """The kernel's tile sides: float32 the reference's q side rounded up
+    to whole 16-row warp slices and ``F32_BK`` keys (its one KV tile);
+    bfloat16 and float16 the reference's rounded up to whole 64-row wgmma
+    tiles (q) and 64-key tiles (k)."""
     bq, bk, _, _ = tiles(Sq, Skv, block_q, block_k)
-    if dtype == "bfloat16":
+    if dtype in WGMMA_DTYPES:
         return -(-bq // WG_ROWS) * WG_ROWS, -(-bk // 64) * 64
-    return -(-bq // 16) * 16, -(-bk // 32) * 32
+    return -(-bq // F32_WARP_ROWS) * F32_WARP_ROWS, F32_BK
 
 
 def smem_bytes(bq: int, bk: int, hd: int, dtype: str = "float32") -> int:
-    """Dynamic shared memory of one block.  float32: the q tile and one K
-    and one V tile, rows padded by one word against bank conflicts.
-    bfloat16: alignment slack, the q tile, `STAGES` K+V stages and the
-    mbarriers (q, then full K, full V and empty per stage)."""
-    if dtype == "bfloat16":
+    """Dynamic shared memory of one block.  float32: the q tile, two K+V
+    stages and a 16 x bk slice of P a warp, unpadded (the tiles are
+    XOR-swizzled).  bfloat16 and float16: alignment slack, the q tile,
+    `STAGES` K+V stages and the mbarriers (q, then full K, full V and
+    empty per stage)."""
+    if dtype in WGMMA_DTYPES:
         return (SMEM_ALIGN + bq * hd * 2 + STAGES * 2 * bk * hd * 2
                 + 8 * (1 + 3 * STAGES))
-    return (bq + 2 * bk) * (hd + 1) * 4
+    return ((bq + 4 * bk) * hd + bq * bk) * 4
 
 
 def threads(bq: int, dtype: str = "float32") -> int:
     """Threads of one block: a warp per 16 rows (float32); a consumer
-    warpgroup per 64 rows and one producer warpgroup (bfloat16)."""
-    if dtype == "bfloat16":
+    warpgroup per 64 rows and one producer warpgroup (bfloat16, float16)."""
+    if dtype in WGMMA_DTYPES:
         return (bq // WG_ROWS + 1) * WG
-    return (bq // 16) * 32
+    return (bq // F32_WARP_ROWS) * 32
 
 
-def wgmma_block_tiles(nq: int, H: int, B: int, bx, by, bz):
-    """``(iq, h, b)`` of ``fa_wgmma``'s blocks: the linear block index
+def block_tiles(nq: int, H: int, B: int, bx, by, bz):
+    """``(iq, h, b)`` of a block of either kernel: the linear block index
     ``bx + nq (by + H bz)`` read with the q tile slowest-varying, last
     tile first, so the heaviest causal tiles of every head start first."""
     lin = bx + nq * (by + H * bz)
@@ -275,11 +283,10 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
     The launch does not depend on `scale`; a call that gives one keeps it
     in its ``call``, so that the probe repeats it.
 
-    The block that takes (iq, h, b) -- block (iq, h, b) itself in
-    float32, `wgmma_block_tiles` in bfloat16 -- reads q tile iq of head h,
-    the live KV tiles of KV head h // (H / KV) -- those that neither the
-    causal mask nor the window empties for its rows, as the kernel's loop
-    skips them -- and writes out tile iq of head h.
+    The block that takes (iq, h, b) (`block_tiles`) reads q tile iq of
+    head h, the live KV tiles of KV head h // (H / KV) -- those that
+    neither the causal mask nor the window empties for its rows, as the
+    kernel's loop skips them -- and writes out tile iq of head h.
     """
     if B * H * Sq == 0 or Skv == 0:
         return []
@@ -294,17 +301,12 @@ def plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
         live &= first_k + bk - 1 > first_q - window
     G = H // KV
 
-    def coords(bx, by, bz):
-        if dtype == "bfloat16":
-            return wgmma_block_tiles(nq, H, B, bx, by, bz)
-        return bx, by, bz
-
     def q_tile(bx, by, bz):
-        iq, h, b = coords(bx, by, bz)
+        iq, h, b = block_tiles(nq, H, B, bx, by, bz)
         return stack_tiles(iq, b, h, iq, 0)
 
     def kv_tiles(bx, by, bz):
-        iq, h, b = coords(bx, by, bz)
+        iq, h, b = block_tiles(nq, H, B, bx, by, bz)
         blk, ik = np.nonzero(live[iq])
         return blk, stack_tiles(blk, b[blk], h[blk] // G, ik, 0)
 
@@ -355,8 +357,9 @@ def _launch(q, k, v, out, causal: bool, window: int, block_q: int,
             scale: Optional[float] = None) -> None:
     """Run the C entry on CUDA tensors (uncounted, unrecorded), scores
     scaled by `scale` (default ``hd ** -0.5``).  ``p_split=False`` makes
-    ``fa_wgmma`` round P once to bfloat16 (outside `KERNEL_TOL`; only a
-    measurement of what the split costs uses it)."""
+    ``fa_wgmma`` round P once to the 16-bit type (outside `KERNEL_TOL`;
+    only a measurement of what the split costs uses it); ``fa_kernel``
+    ignores it."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     bq, bk = kernel_tiles(Sq, Skv, block_q, block_k, dtype_name(q.dtype))
@@ -395,8 +398,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Raises under autograd (`needs_grad`): there is no backward pass.
     CPU tensors: `flash_attention_reference`.  CUDA tensors: the kernel,
     counted in ``flash_attention.launches``; it takes contiguous inputs,
-    hd in `HEAD_DIMS`, blocks up to `MAX_BLOCK` and, in bfloat16, q, k and
-    v on 16-byte boundaries (TMA's rule).  ``meta`` tensors (a dry run):
+    hd in `HEAD_DIMS`, blocks up to `MAX_BLOCK` and q, k and v on 16-byte
+    boundaries (the rule of cp.async's 16-byte copies and of TMA).  ``meta`` tensors (a dry run):
     the card's checks and its launch noted as on the card, then an empty
     result, uncounted; nothing is computed, so no value comes from it.
     """
@@ -429,9 +432,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     dtype = dtype_name(q.dtype)
     if kind == "meta":                   # shapes and costs: nothing runs
         return torch.empty_like(q)
-    if dtype == "bfloat16" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the bfloat16 kernel loads q, k, v "
-                         "by TMA, which needs 16-byte aligned tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernels load q, k, v by "
+                         "cp.async or TMA, which need 16-byte aligned "
+                         "tensors")
     out = torch.empty_like(q)
     if q.numel() == 0 or Skv == 0:
         return out.zero_()

@@ -170,13 +170,21 @@ def flash_prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
     or (``causal=False``) cross attention over Skv != Sq keys.  q: (B, Sq,
     KV, Gq, hd) -> the kernel's contiguous (B, H, Sq, hd) with head ``h =
     kv * Gq + g``, which reads KV head ``h // Gq``, the kernel's grouping;
-    k, v: (B, Skv, KV, hd) -> (B, KV, Skv, hd).  Returns (B, Sq, H, hd)."""
+    k, v: (B, Skv, KV, hd) -> (B, KV, Skv, hd).  Returns (B, Sq, H, hd)
+    in q's dtype.
+
+    q, k and v of different dtypes (a cross layer fed float32 image
+    embeddings promotes its K/V, as the reference's einsum does) run the
+    kernel at their promoted dtype, as the reference's `chunked_attention`
+    computes them, and the output is cast back to q's dtype: K/V are not
+    rounded down to q's."""
     B, S, KV, Gq, hd = q.shape
-    qh = q.reshape(B, S, KV * Gq, hd).transpose(1, 2).contiguous()
-    kh = k.transpose(1, 2).contiguous()
-    vh = v.transpose(1, 2).contiguous()
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    qh = q.reshape(B, S, KV * Gq, hd).transpose(1, 2).to(dt).contiguous()
+    kh = k.transpose(1, 2).to(dt).contiguous()
+    vh = v.transpose(1, 2).to(dt).contiguous()
     out = ops.flash_attention(qh, kh, vh, causal=causal, window=window)
-    return out.transpose(1, 2).reshape(B, S, KV * Gq, hd)
+    return out.transpose(1, 2).reshape(B, S, KV * Gq, hd).to(q.dtype)
 
 
 def prefill_attention(q, k, v, *, positions, kv_positions=None,

@@ -15,11 +15,15 @@ counted collective of `core.collectives`:
 * `_micro_split` homes each microbatch over the batch axes, as the
   reference's ``ws`` does: one `all_to_all_v` a batch leaf from the
   batch's homing (home h: rows h*GB/n ..) to the microbatches' (home h:
-  rows i*GB/m + h*GB/(m n) .. of microbatch i).
-* Each home differentiates its rows' loss over the number of homes (the
-  batch mean is the homes' mean).  The loss takes its nll from the
-  rank's vocabulary block (`vocab_nll`: each rank's log-sum-exp and
-  target logit, one all-gather over "model").
+  its block of rows of microbatch i, `partition.micro_rows`: GB/(m n)
+  rows where the homes divide the microbatch, else blocks of
+  ceil(GB/(m n)) in home order, the last short or empty, as GSPMD pads).
+* Each home differentiates its rows' loss weighted by its share of the
+  microbatch's rows (1/n where the homes divide it), so that the homes'
+  sum is the batch mean; a home with no rows adds exactly 0 (its nll
+  is the empty sum, not the NaN of an empty mean).  The loss takes its
+  nll from the rank's vocabulary block (`vocab_nll`: each rank's
+  log-sum-exp and target logit, one all-gather over "model").
 * Gradients follow `_constrain_like_params`: an FSDP leaf's is
   reduce-scattered over the dp axes by its gather's backward, each
   microbatch, into the float32 accumulator of the rank's block.  Every
@@ -49,11 +53,17 @@ from repro_torch.optim.adamw import AdamW, RankLeaves
 from repro_torch.optim.compression import error_feedback_update
 from repro_torch.sharding.partition import (NULL_PLAN, MeshPlan,
                                             grad_partial_over_model, homes_of,
-                                            owns, param_specs, tp_of,
-                                            zero1_dim)
+                                            micro_home, micro_rows, owns,
+                                            param_specs, tp_of, zero1_dim)
 from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 AUX_WEIGHT = 0.01
+
+
+def _mean(nll: torch.Tensor) -> torch.Tensor:
+    """The mean of the tokens' nll; of no token (a home given no rows of a
+    microbatch, `partition.micro_rows`), the empty sum, 0."""
+    return nll.mean() if nll.numel() else nll.sum()
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor,
@@ -67,7 +77,7 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor,
     lf = torch.where(live, lf, -1e30)
     lse = torch.logsumexp(lf, dim=-1)
     tl = lf.gather(-1, targets[..., None].long())[..., 0]
-    return (lse - tl).mean()
+    return _mean(lse - tl)
 
 
 class _VocabNLL(torch.autograd.Function):
@@ -125,8 +135,8 @@ def vocab_nll(logits: torch.Tensor, targets: torch.Tensor, vocab_size: int,
     if M == 1:
         return token_nll(logits, targets, vocab_size)
     lo = i * logits.shape[-1]
-    return _VocabNLL.apply(logits, targets, lo, vocab_size, plan.mesh,
-                           (plan.tp,)).mean()
+    return _mean(_VocabNLL.apply(logits, targets, lo, vocab_size, plan.mesh,
+                                 (plan.tp,)))
 
 
 def make_loss_fn(model: LM, cfg: ArchConfig, plan: MeshPlan = NULL_PLAN):
@@ -143,8 +153,9 @@ def make_loss_fn(model: LM, cfg: ArchConfig, plan: MeshPlan = NULL_PLAN):
 def _micro_split(batch, m: int, plan: Optional[MeshPlan] = None):
     """(GB, ...) -> m microbatches of (GB/m, ...), in order.  Across ranks
     the batch holds the home's rows and each microbatch returned is the
-    home's rows of it, moved there by one counted `all_to_all_v` a leaf
-    (see the module docstring)."""
+    home's block of it (`partition.micro_rows`, possibly empty), moved
+    there by one counted `all_to_all_v` a leaf (see the module
+    docstring)."""
     n, h = homes_of(plan)
     if m == 1:
         return [batch]
@@ -157,13 +168,12 @@ def _micro_split(batch, m: int, plan: Optional[MeshPlan] = None):
     from repro_torch.core import collectives
     b = tree_leaves(batch)[0].shape[0]
     GB = b * n
-    piece = GB // (m * n)
-    if piece * m * n != GB:
-        raise ValueError(f"{GB} rows do not split into {m} microbatches "
-                         f"over {n} homes")
+    if GB % m:
+        raise ValueError(f"{GB} rows do not split into {m} microbatches")
+    piece = micro_rows(GB, m, plan)
 
     def dest(rows):
-        return (rows % (GB // m)) // piece
+        return micro_home(rows, GB, m, n)
 
     mine = dest(np.arange(h * b, (h + 1) * b))
     order = torch.as_tensor(np.argsort(mine, kind="stable"))
@@ -275,6 +285,22 @@ def make_train_step(model: LM, cfg: ArchConfig, plan: MeshPlan,
         leaves = tree_leaves(params)
         if on_ranks and "g" not in layout:
             layout["g"] = RankGrads(params, plan, cfg)
+        # this home's share of each microbatch's rows, n times over: 1
+        # where the homes divide the microbatch (`partition.micro_rows`)
+        w = 1.0
+        if on_ranks and M > 1 and n > 1:
+            GB = tree_leaves(batch)[0].shape[0] * n
+            w = micro_rows(GB, M, plan) * n / (GB // M)
+            if w != 1.0 and cfg.is_moe:
+                raise ValueError(
+                    f"{GB // M} rows a microbatch do not divide over {n} "
+                    f"homes: the MoE layers' token groups and load-balance "
+                    f"loss take equal homes")
+
+        def weighted(loss):
+            # even homes skip the multiply: exact either way, but one more
+            # elementwise op in the counts `launch.dryrun` holds
+            return loss if w == 1.0 else loss * w
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
@@ -295,7 +321,7 @@ def make_train_step(model: LM, cfg: ArchConfig, plan: MeshPlan,
                 nlls = []
                 for one in _micro_split(batch, M, plan):
                     loss, one_nll = loss_fn(params, one)
-                    (loss / M / n).backward()
+                    (weighted(loss) / M / n).backward()
                     nlls.append(one_nll.detach())
                 grads = [p.grad for p in leaves]
                 for p in leaves:
@@ -306,8 +332,8 @@ def make_train_step(model: LM, cfg: ArchConfig, plan: MeshPlan,
                 nlls = []
                 for one in _micro_split(batch, M, plan):
                     loss, one_nll = loss_fn(params, one)
-                    for a, g in zip(acc, torch.autograd.grad(loss / n,
-                                                             leaves)):
+                    for a, g in zip(acc, torch.autograd.grad(
+                            weighted(loss) / n, leaves)):
                         a += g.to(accum_dtype)
                     nlls.append(one_nll.detach())
                 grads = [a / M for a in acc]
@@ -316,7 +342,8 @@ def make_train_step(model: LM, cfg: ArchConfig, plan: MeshPlan,
             grads = layout["g"].reduce(grads)
             if n > 1:
                 from repro_torch.core import collectives
-                nll = collectives.psum(nll, plan.mesh, plan.batch_axes) / n
+                nll = collectives.psum(weighted(nll), plan.mesh,
+                                       plan.batch_axes) / n
         nll = nll.mean()
 
         grads = tree_unflatten(params, grads)

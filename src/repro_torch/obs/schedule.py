@@ -270,16 +270,13 @@ def _relayout(plan, shape, m: int, leaf_bytes: Dict[str, int]) -> List[Dict]:
     """`models.steps._micro_split`'s all-to-alls, one a batch leaf (in key
     order), `leaf_bytes` the bytes of one row of each."""
     import numpy as np
-    from repro_torch.sharding.partition import homes_of
+    from repro_torch.sharding.partition import homes_of, micro_home
     mesh = plan.mesh
     n, h = homes_of(plan)
     GB = shape.global_batch
-    b, piece = GB // n, GB // (m * n)
-
-    def dest(rows):
-        return (rows % (GB // m)) // piece
-
-    sends = np.bincount(dest(np.arange(h * b, (h + 1) * b)), minlength=n)
+    b = GB // n
+    sends = np.bincount(micro_home(np.arange(h * b, (h + 1) * b), GB, m, n),
+                        minlength=n)
     group = mesh.group(tuple(plan.batch_axes))[1]
     out = []
     for key in sorted(leaf_bytes):
@@ -304,8 +301,8 @@ def train_schedule(cfg: ArchConfig, plan, shape) -> List[Dict]:
     from repro_torch.models.model import LM
     from repro_torch.models.steps import RankGrads
     from repro_torch.convert import rank_cut
-    from repro_torch.sharding.partition import (homes_of, seq_split, tp_of,
-                                                )
+    from repro_torch.sharding.partition import (homes_of, micro_rows,
+                                                seq_split, tp_of)
     from repro_torch.tree import tree_items
     par = getattr(torch, cfg.param_dtype).itemsize
     act = getattr(torch, cfg.dtype).itemsize
@@ -314,7 +311,7 @@ def train_schedule(cfg: ArchConfig, plan, shape) -> List[Dict]:
     n = homes_of(plan)[0]
     mb = max(cfg.parallel.microbatches, 1)
     GB, S, D = shape.global_batch, shape.seq_len, cfg.d_model
-    r = GB // (n * mb)
+    r = micro_rows(GB, mb, plan)             # this home's rows a microbatch
     tp = (plan.tp,)
     params = LM(cfg).init(MetaGen(), cut=rank_cut(plan, cfg, train=True))
     members = superblock_spec(cfg)

@@ -48,6 +48,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
@@ -152,6 +153,24 @@ def homes_of(plan: Optional[MeshPlan]) -> Tuple[int, int]:
             or not plan.batch_axes:
         return 1, 0
     return plan.axis_size(plan.batch_axes), plan.mesh.index(plan.batch_axes)
+
+
+def micro_home(rows, global_batch: int, m: int, n: int):
+    """The home of each of the global batch's `rows` (indices) in its
+    microbatch of ``GB / m`` rows over `n` homes: blocks of
+    ``ceil(GB / (m n))`` rows in home order, as GSPMD pads a dim the axes
+    do not divide, so the last homes' blocks may be short or empty."""
+    size = global_batch // m
+    return (rows % size) // -(-size // n)
+
+
+def micro_rows(global_batch: int, m: int, plan: Optional[MeshPlan]) -> int:
+    """This rank's home's rows of each of the `m` microbatches of
+    `global_batch` rows (`micro_home`; ``GB / (m n)`` where the `n` homes
+    of `homes_of` divide a microbatch)."""
+    n, h = homes_of(plan)
+    return int((micro_home(np.arange(global_batch // m), global_batch, m,
+                           n) == h).sum())
 
 
 def psum_model(x: torch.Tensor, plan: Optional[MeshPlan]) -> torch.Tensor:

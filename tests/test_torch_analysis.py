@@ -334,7 +334,7 @@ def test_r3_budget_on_the_flash_plan():
     ok = tflash.plan(1, 16, 8, 4096, 4096, 128, 128, 128, True, 0, "bfloat16")
     assert ok[0].smem_bytes == 230_480          # fa_wgmma: 3 K/V stages
     f32 = tflash.plan(1, 16, 8, 4096, 4096, 128, 128, 128, True, 0, "float32")
-    assert f32[0].smem_bytes == 198_144
+    assert f32[0].smem_bytes == 229_376         # fa_kernel: 2 K/V stages, P
     rep = Report(target="r3")
     r3_smem_budget(rep, ok + f32, SMEM_BYTES_PER_BLOCK)
     assert rep.clean, rep.format()

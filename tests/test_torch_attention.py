@@ -122,7 +122,7 @@ def test_scale_is_kept_in_the_recorded_call():
         ops.flash_attention(q, q, q, block_q=32, block_k=32, scale=0.1)
     assert [f.call[1][-1] for f in launches] == ["float32", 0.1]
     assert launches[0].launch_tuple() == launches[1].launch_tuple()
-    assert tflash.KERNELS["float16"] == "fa_kernel"
+    assert tflash.KERNELS["float16"] == "fa_wgmma"
 
 
 @pytest.mark.parametrize("window,causal", [(64, True), (100, True),
@@ -156,8 +156,13 @@ def test_kernel_tiles_fit_shared_memory():
     from repro_torch.kernels import SMEM_BYTES_PER_BLOCK
     assert kernel_tiles(96, 96, 64, 64) == (64, 64)
     assert kernel_tiles(100, 50, 128, 128) == (112, 64)
-    assert smem_bytes(128, 128, 128) == 198_144 <= SMEM_BYTES_PER_BLOCK
-    assert smem_bytes(128, 128, 128) > 48 * 1024
+    # float32 (fa_kernel): the q tile, two K+V stages of 64 keys and a
+    # 16 x 64 slice of P a warp
+    assert kernel_tiles(4096, 4096, 128, 128) == (128, 64)
+    assert smem_bytes(128, 64, 128) == (
+        (128 + 4 * 64) * 128 * 4 + 128 * 64 * 4) == 229_376
+    assert smem_bytes(128, 64, 128) <= SMEM_BYTES_PER_BLOCK
+    assert smem_bytes(128, 64, 128) > 48 * 1024
     # bfloat16 (fa_wgmma): 1 KiB of alignment slack, the q tile, three
     # K+V stages and ten mbarriers
     assert smem_bytes(128, 128, 128, "bfloat16") == (
@@ -176,10 +181,10 @@ def test_kernel_tiles_fit_shared_memory():
 ])
 def test_bf16_kernel_tiles_are_whole_wgmma_tiles(shape, want):
     """bfloat16 rounds bq up to 64-row warpgroup tiles and bk to 64 keys;
-    float32 keeps its 16-row and 32-key rounding."""
+    float32 keeps its 16-row rounding of bq and takes 64-key tiles."""
     assert kernel_tiles(*shape, "bfloat16") == want
     bq, bk = kernel_tiles(*shape, "float32")
-    assert bq % 16 == 0 and bk % 32 == 0
+    assert bq % 16 == 0 and bk == 64
 
 
 @pytest.mark.parametrize("case", [
@@ -246,18 +251,19 @@ def test_flash_attention_rejects_bad_shapes():
     assert ops.launch_counts()["flash_attention"] == 0      # CPU: plain
 
 
-def _pv_rounded(q, k, v, split: bool) -> torch.Tensor:
+def _pv_rounded(q, k, v, split: bool,
+                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Causal attention (one KV head) with fa_wgmma's rounding of P before
-    P V: bfloat16 once, or hi + lo bfloat16; float64 sums otherwise."""
+    P V: `dtype` once, or hi + lo `dtype`; float64 sums otherwise."""
     S, hd = q.shape[-2:]
     s = q[0].double() @ k[0, 0].double().T * hd ** -0.5
     i = torch.arange(S)
     s = s.masked_fill(i[None, None, :] > i[None, :, None], -1e30)
     p = torch.exp(s - s.amax(-1, keepdim=True)).float()
-    hi = p.bfloat16().float()
-    pp = hi + (p - hi).bfloat16().float() if split else hi
+    hi = p.to(dtype).float()
+    pp = hi + (p - hi).to(dtype).float() if split else hi
     out = (pp.double() @ v[0, 0].double()) / p.double().sum(-1, keepdim=True)
-    return out.float().bfloat16()[None]
+    return out.float().to(dtype)[None]
 
 
 def test_one_bf16_rounding_of_p_misses_the_kernel_tolerance():
@@ -273,3 +279,101 @@ def test_one_bf16_rounding_of_p_misses_the_kernel_tolerance():
                for split in (False, True)}
     assert outside[True] == 0
     assert outside[False] > plain.numel() // 50, outside
+
+
+def test_one_f16_rounding_of_p_misses_the_kernel_tolerance():
+    """float16 on fa_wgmma keeps the split too: its 11-bit
+    significand rounds P to 2**-11 of its value, and the outputs near zero
+    of long rows then leave `KERNEL_TOL` (one float16 step and 1e-5)
+    by the thousand; split into hi + lo none does."""
+    from repro_torch.kernels.flash_attention import KERNEL_TOL
+    _, (q, k, v) = inputs((1, 2, 1, 1024, 1024, 128), "float16", 0)
+    plain = flash_attention_reference(q, k, v, causal=True).float()
+    rtol, atol = KERNEL_TOL[torch.float16]
+    outside = {split: int((~torch.isclose(
+        _pv_rounded(q, k, v, split, torch.float16).float(), plain,
+        rtol=rtol, atol=atol)).sum()) for split in (False, True)}
+    assert outside[True] == 0
+    assert outside[False] > plain.numel() // 100, outside
+
+
+# ---------------------------------------------------------------------------
+# the launch facts of the two kernels
+# ---------------------------------------------------------------------------
+#: (Sq, Skv, block_q, block_k): ragged, short, long and every tile side
+TILE_SHAPES = [(Sq, Skv, bq, bk) for Sq, Skv in ((4096, 4096), (753, 753),
+                                                  (100, 333), (20, 7))
+               for bq in (1, 16, 40, 64, 100, 128)
+               for bk in (1, 32, 64, 128)]
+
+
+@pytest.mark.parametrize("hd", tflash.HEAD_DIMS)
+def test_f16_launch_facts_equal_bf16s(hd):
+    """float16 runs fa_wgmma as bfloat16 does: the same tile sides,
+    threads, shared memory and launch (grid, tiles read and written) at
+    every tile side; only the dtype of the operands differs."""
+    for Sq, Skv, bq, bk in TILE_SHAPES:
+        tiles16 = kernel_tiles(Sq, Skv, bq, bk, "float16")
+        assert tiles16 == kernel_tiles(Sq, Skv, bq, bk, "bfloat16")
+        kq, kk = tiles16
+        assert tflash.threads(kq, "float16") == tflash.threads(kq, "bfloat16")
+        assert smem_bytes(kq, kk, hd, "float16") == smem_bytes(kq, kk, hd,
+                                                               "bfloat16")
+    for causal, window in ((True, 0), (True, 100), (False, 0)):
+        args = (2, 4, 2, 300, 300, hd, 128, 64, causal, window)
+        (f16,) = tflash.plan(*args, "float16")
+        (bf16,) = tflash.plan(*args, "bfloat16")
+        assert f16.name == "fa_wgmma"
+        assert f16.launch_tuple() == bf16.launch_tuple()
+        for a, b in zip(f16.inputs + f16.outputs, bf16.inputs + bf16.outputs):
+            assert a.dtype == "float16" and b.dtype == "bfloat16"
+            assert (a.array_shape, a.tile_shape) == (b.array_shape,
+                                                     b.tile_shape)
+            blocks = np.arange(int(np.prod(f16.grid)))
+            bx, rest = blocks % f16.grid[0], blocks // f16.grid[0]
+            coords = (bx, rest % f16.grid[1], rest // f16.grid[1])
+            ta, tb = a.tile_map(*coords), b.tile_map(*coords)
+            for x, y in zip(ta if isinstance(ta, tuple) else (ta,),
+                            tb if isinstance(tb, tuple) else (tb,)):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("hd", tflash.HEAD_DIMS)
+def test_f32_smem_fits_every_accepted_tile(hd):
+    """Every (block_q, block_k) the wrapper accepts (1 to `MAX_BLOCK`)
+    gives fa_kernel tiles whose shared memory fits one block, its warps
+    whole 16-row slices, its KV tile 64 keys."""
+    from repro_torch.kernels import SMEM_BYTES_PER_BLOCK
+    worst = 0
+    for bq in range(1, tflash.MAX_BLOCK + 1):
+        for bk in range(1, tflash.MAX_BLOCK + 1):
+            kq, kk = kernel_tiles(4096, 4096, bq, bk, "float32")
+            assert kq % 16 == 0 and 16 <= kq <= 128 and kk == 64
+            assert tflash.threads(kq) == kq // 16 * 32 <= 256
+            worst = max(worst, smem_bytes(kq, kk, hd))
+    assert worst == smem_bytes(128, 64, hd) <= SMEM_BYTES_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, Sq, Skv, hd, bq, bk, causal, window)
+    (1, 16, 8, 4096, 4096, 128, 128, 128, True, 0),    # qwen3-0.6b
+    (16, 16, 8, 753, 753, 128, 128, 128, True, 0),     # the serve prefill
+    (1, 32, 8, 8192, 8192, 128, 128, 128, True, 4096),  # mixtral's window
+    (2, 64, 8, 512, 4096, 128, 128, 128, False, 0),    # vision cross
+    (1, 4, 2, 200, 77, 16, 40, 32, True, 48),
+], ids=str)
+def test_flash_plans_are_clean(case, dtype):
+    """R3 (shared memory), R5 (every output tile written by one block,
+    every input tile inside its array) and R8 (no dead lane) find nothing
+    in the plans of the new launches, at the main path's shapes; the image
+    of the plan covers the output."""
+    from repro_torch.analysis import check_artifacts
+    from repro_torch.analysis.probe import image
+    B, H, KV, Sq, Skv, hd = case[:6]
+    facts = tflash.plan(*case, dtype)
+    assert [f.name for f in facts] == [tflash.KERNELS[dtype]]
+    rep = check_artifacts("flash_attention", facts,
+                          rules=("R3", "R5", "R8"))
+    assert rep.clean and not rep.notes, rep.format()
+    assert bool(image(facts, "out", B * H * Sq * hd).all())

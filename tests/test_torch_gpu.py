@@ -342,12 +342,15 @@ def test_flash_attention_kernel_takes_scale_and_float16_on_card(case, dtype,
 
 
 @pytest.mark.gpu
-def test_flash_attention_bf16_rejects_misaligned_inputs():
-    """TMA needs 16-byte aligned tensors: an offset view raises (no
-    fallback to another kernel)."""
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_flash_attention_bf16_rejects_misaligned_inputs(dtype):
+    """fa_kernel loads by 16-byte cp.async and fa_wgmma (bfloat16 and
+    float16) by TMA: an offset view raises in every dtype (no fallback to
+    another kernel)."""
     _need_card()
-    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device="cuda")
-    flat = torch.zeros(1 + q.numel(), dtype=torch.bfloat16, device="cuda")
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 2, 64, 64, dtype=dt, device="cuda")
+    flat = torch.zeros(1 + q.numel(), dtype=dt, device="cuda")
     odd = flat[1:].view(q.shape)
     assert odd.data_ptr() % 16
     ops.reset_launches()
@@ -568,6 +571,38 @@ def _stack_batch(cfg, B: int, S: int, device):
             (B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)).to(
                 getattr(torch, cfg.dtype))
     return _to(b, device)
+
+
+@pytest.mark.gpu
+def test_bf16_vision_prefill_on_float32_image_embeds_on_card():
+    """A bfloat16 vision model fed float32 image embeddings (what the data
+    pipeline makes): the cross layer's launch runs fa_kernel at float32,
+    the self layers fa_wgmma, and the logits stay within the bfloat16
+    `LOGIT_TOL` of the same model with the cross layer on its plain
+    route."""
+    _need_card()
+    from unittest import mock
+
+    from repro_torch.models import LM, attention
+    cfg, params = _stack_model("llama-3.2-vision-90b", "bfloat16")
+    params = _to(params, "cuda")
+    b = _stack_batch(cfg, 2, 33, "cuda")
+    b["image_embeds"] = b["image_embeds"].float()
+    ops.reset_launches()
+    with record() as launches:
+        got, _ = LM(cfg).prefill(params, b, max_len=40)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    kinds = sorted({(f.name, f.call[1][8], f.call[1][10]) for f in launches})
+    assert kinds == [("fa_kernel", False, "float32"),
+                     ("fa_wgmma", True, "bfloat16")]
+    real = attention.prefill_attention
+
+    def plain_cross(q, k, v, **kw):
+        return real(q, k, v, **dict(kw, flash=kw["causal"]))
+    with mock.patch.object(attention, "prefill_attention", plain_cross):
+        want, _ = LM(cfg).prefill(params, b, max_len=40)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= LOGIT_TOL["bfloat16"] * float(want.float().abs().max())
 
 
 @pytest.mark.gpu

@@ -207,3 +207,59 @@ def test_mamba_with_a_carried_state_and_decode_match_reference(name):
     assert {k: v.data_ptr() for k, v in st.items()} == ptrs
 
 
+
+
+# ---------------------------------------------------------------------------
+# a bfloat16 cross layer fed float32 image embeddings
+# ---------------------------------------------------------------------------
+def _bf16_vision(pkg):
+    cfg = pkg.reduce_config(pkg.get_config("llama-3.2-vision-90b"))
+    return cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+
+
+def test_bf16_cross_layer_takes_float32_image_embeds(monkeypatch):
+    """A bfloat16 vision cross layer over float32 `image_embeds` (what the
+    data pipeline makes): K/V are promoted to float32, as the reference's
+    einsum promotes them, and the kernel route runs the kernel at float32
+    (one ``fa_kernel`` launch) where it raised on the mixed dtypes.  On
+    ``meta`` tensors it notes that launch; on the CPU both the plain route
+    and the kernel route (its plain version through the model's layout)
+    match the reference's `apply_attention` on the same parameters within
+    bfloat16 rounding: one bfloat16 step of the attention output, carried
+    through the output projection (2**-6 of the largest output)."""
+    from repro_torch.analysis.launches import record
+    from repro_torch.tree import tree_map
+    jcfg, cfg = _bf16_vision(jbase), _bf16_vision(base)
+    jp = jattention.init_attention(jax.random.key(3), jcfg, cross=True)
+    p = lm_params_from_reference(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 20, cfg.d_model)).astype(np.float32)
+    img = (0.1 * rng.standard_normal(
+        (2, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
+    xb = torch.from_numpy(x).bfloat16()
+    with record() as launches:
+        y, _ = attention.apply_attention(
+            tree_map(lambda a: a.to("meta"), p), xb.to("meta"), cfg=cfg,
+            kv_src=torch.from_numpy(img).to("meta"), cross=True)
+    assert y.is_meta and y.dtype == torch.bfloat16 and y.shape == xb.shape
+    assert [(f.name, f.call[1][3:5] + f.call[1][-1:]) for f in launches] == [
+        ("fa_kernel", (20, cfg.num_image_tokens, "float32"))]
+    want, _ = jattention.apply_attention(
+        jp, jnp.asarray(x, jnp.bfloat16), cfg=jcfg, plan=None,
+        kv_src=jnp.asarray(img), cross=True)
+    want = np.asarray(want, np.float32)
+    plain, _ = attention.apply_attention(p, xb, cfg=cfg,
+                                         kv_src=torch.from_numpy(img),
+                                         cross=True)
+    monkeypatch.setattr(
+        attention, "prefill_attention",
+        lambda q, k, v, *, causal, window, **kw:
+        attention.flash_prefill_attention(q, k, v, causal=causal,
+                                          window=window))
+    routed, _ = attention.apply_attention(p, xb, cfg=cfg,
+                                          kv_src=torch.from_numpy(img),
+                                          cross=True)
+    for got in (plain, routed):
+        assert got.dtype == torch.bfloat16
+        close(got, want, rtol=2.0 ** -7,
+              atol=2.0 ** -6 * float(np.abs(want).max()))

@@ -65,6 +65,21 @@ CASES = {
            dict(grad_compression=True), 4),
 }
 WORLDS = (4, 2)
+#: microbatches that do not divide over the homes (`partition.micro_rows`),
+#: each held to one process's step: name -> (arch, mesh, knobs, global
+#: batch, the rows a home takes of each microbatch).  "data4": 8 rows in 4
+#: microbatches of 2 on {"data": 4}, homes 0 and 1 one row, homes 2 and 3
+#: none.  "data2_model2": 4 rows in 4 microbatches of 1 on {"data": 2,
+#: "model": 2} with the sequence-sharded residual, home 1 none, so its
+#: ranks run the vocabulary's all-gather, the tensor-parallel collectives
+#: and the sequence split on empty tensors
+UNEVEN = {
+    "data4": ("qwen3-0.6b", {"data": 4, "model": 1},
+              dict(fsdp=True, remat=True, microbatches=4), 8, (1, 1, 0, 0)),
+    "data2_model2": ("qwen3-0.6b", {"data": 2, "model": 2},
+                     dict(fsdp=True, sequence_shard=True, remat=True,
+                          microbatches=4), 4, (1, 0)),
+}
 #: the cases the reference runs in a process of their own
 SLOW_REFERENCE = ("jamba",)
 #: the opt-spec grid (the reference's meshes of `test_torch_serve_ranks`)
@@ -300,6 +315,59 @@ def train_case(device, name, ref_dir):
     return out, (cfg, mesh, plan, params, state, specs)
 
 
+def uneven_steps(device, name, ranks: bool):
+    """`STEPS` train steps of the `UNEVEN` case `name` from the port's
+    parameters of seed 0: on this rank's blocks of its mesh (`ranks`), or
+    in one process.  Each step's loss and norm, the rows each microbatch
+    gave this rank, its home (its "data" coordinate), and (on ranks) where
+    its collectives differ from `train_schedule`."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import rank_params
+    from repro_torch.core import collectives
+    from repro_torch.core.mesh import RankMesh
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM, steps
+    from repro_torch.obs.schedule import log_against_train, train_schedule
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import partition
+    arch, shape, knobs, GB, _ = UNEVEN[name]
+    cfg = base.reduce_config(base.get_config(arch))
+    cfg = cfg.replace(parallel=cfg.parallel.__class__(**knobs))
+    sh = ShapeSpec("train", S, GB, "train")
+    params = LM(cfg).init(torch.Generator().manual_seed(0))
+    mesh, plan = None, partition.NULL_PLAN
+    if ranks:
+        mesh = RankMesh(shape, device=device)
+        plan = partition.make_plan(mesh, cfg, sh)
+        params = rank_params(params, plan, cfg, train=True)
+    opt = AdamW(lr=LR)
+    state = steps.init_opt_state(cfg, opt, params, plan)
+    fn = steps.make_train_step(LM(cfg, flash=False), cfg, plan, opt)
+    data = SyntheticLM(cfg, GB, S, 0, mesh, device=device)
+    rows = []
+    split = steps._micro_split
+
+    def counted(batch, m, p=None):
+        parts = split(batch, m, p)
+        rows.append([int(x["tokens"].shape[0]) for x in parts])
+        return parts
+    steps._micro_split = counted
+    out = {"metrics": [], "schedule": [], "rows": rows,
+           "home": mesh.coords["data"] if ranks else 0}
+    try:
+        for i in range(STEPS):
+            collectives.reset_collectives()
+            params, state, m = fn(params, state, data.batch(i))
+            if ranks:
+                out["schedule"].append(log_against_train(
+                    collectives.collective_log(),
+                    train_schedule(cfg, plan, sh))[:4])
+            out["metrics"].append([float(m["loss"]), float(m["grad_norm"])])
+    finally:
+        steps._micro_split = split
+    return out
+
+
 def rank_train(device, world, ref_dir):
     assert "jax" not in sys.modules, "a rank process imported JAX"
     import torch.distributed as dist
@@ -335,6 +403,8 @@ def rank_train(device, world, ref_dir):
                 collectives.psum(x, mesh, ("data",))[
                     2 * mesh.rank:2 * mesh.rank + 2])))
         out["trainer"] = trainer_runs(device, ref_dir)
+        out["uneven"] = {name: uneven_steps(device, name, ranks=True)
+                         for name in UNEVEN}
     else:
         out["restored"] = restore_elastic(device, ref_dir)
     assert "jax" not in sys.modules, "a rank process imported JAX"
@@ -565,6 +635,29 @@ def test_replicated_blocks_are_bit_equal(runs, name):
         # every rank of a block that is replicated shares it
         assert any(len(ranks) > len({w for (p, w) in held if p == path})
                    for path in {p for p, _ in held})
+
+
+@pytest.mark.parametrize("name", sorted(UNEVEN))
+def test_microbatches_that_do_not_divide_over_the_homes(runs, name):
+    """A microbatch of fewer rows than homes, where the split raised
+    before: the first homes take its rows, the last none.  Each home
+    weights its rows by the microbatch's row count (a home of no rows
+    adds exactly 0), so every rank's loss and gradient norm are one
+    process's step within rtol 1e-4 / atol 1e-5, and every rank's
+    collectives (the uneven all-to-alls among them) are
+    `train_schedule`'s."""
+    *_, GB, homes = UNEVEN[name]
+    m = UNEVEN[name][2]["microbatches"]
+    want = uneven_steps("cpu", name, ranks=False)
+    assert want["rows"] == [[GB // m] * m] * STEPS
+    for res in runs["worlds"][4]:
+        got = res["uneven"][name]
+        r = res["rank"]
+        assert got["rows"] == [[homes[got["home"]]] * m] * STEPS, (r, got)
+        np.testing.assert_allclose(got["metrics"], want["metrics"],
+                                   rtol=RTOL, atol=ATOL, err_msg=str(r))
+        assert got["schedule"] == [[]] * STEPS, (r, got["schedule"])
+        assert all(np.isfinite(got["metrics"]).ravel())
 
 
 def test_reduce_scatter_is_psum_sliced(runs):
