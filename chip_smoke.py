@@ -94,8 +94,11 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
   8. attention — `ops.flash_attention` at the head layouts of qwen3-0.6b
                 (S = 4096, causal, bf16, f32 and f16), the serve prefill
                 (16 x 753, f16), mixtral-8x7b (S = 8192, causal, window
-                4096, bf16 and f32) and the vision cross layer (512 rows
-                over 4096 image tokens, f32) against its plain blocked
+                4096, bf16 and f32), the vision cross layer (512 rows
+                over 4096 image tokens, f32), and at head dim 64
+                granite-3-2b's prefill (32 heads over 8, S = 4096, bf16)
+                and musicgen-medium's (2 x 1024, 24 heads, bf16) against
+                its plain blocked
                 version (and the dense one at the qwen shape) within
                 `KERNEL_TOL` (bf16: one rounding step), the kernel each
                 dtype ran (`fa_wgmma` bf16 and f16, `fa_kernel` f32) with
@@ -128,7 +131,7 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 cache and, planted, the step on a never-homed cache;
   8f. serve_ranks — `DecodeServer` across 8 gloo ranks sharing the card,
                 each serving its home's slots with its blocks of the
-                parameters: qwen3-0.6b at full width, 4 of 28 layers (the
+                parameters: qwen3-0.6b at full width, 2 of 28 layers (the
                 serve phase's stream, 16 slots) on {"data": 8} (8 homes) and on
                 {"pod": 2, "data": 2, "model": 2} (4 homes of 2 ranks, the
                 heads, KV heads, MLP and vocabulary split), both modes,
@@ -141,7 +144,7 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 (`SERVE_RANK_TOL`;
                 a planted dropped partial sum outside it); tokens/s,
                 prefill and decode-step ms, wire, staged and peak bytes by
-                rank; then deepseek-moe-16b at full width, 7 of 28
+                rank; then deepseek-moe-16b at full width, 2 of 28
                 layers, on {"data": 2, "model": 4} (16 experts a rank) in
                 aligned waves under homed, each wave replayed through the
                 one-process plain model (`STACK_REPLAY_TOL`); and
@@ -206,11 +209,45 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 peak, peak memory, one step's busy time by part
                 (`torch.profiler`), the checkpoint's bytes and seconds
                 (the host shared with the dtypes check's CPU sorts);
+  8j. examples — the port's four examples (`examples/torch_*.py`) as a
+                user runs them, and the two configs only they reach:
+                quickstart and distributed_sort in full on the card (every
+                sort sorted by their own asserts, the launches the sort
+                example prints equal to the wrappers' counters and to
+                `SORT_EXAMPLE_LAUNCHES`); granite-3-2b at full width and
+                depth (40 layers, d 2048, 32 heads over 8 KV heads of 64,
+                bf16) through the serve example's ``--full`` path under
+                fifo and homed (paged, as the example serves it: each
+                prompt page-stepped, no kernel), tokens equal, then the
+                same stream in aligned waves, 40 bf16 `fa_wgmma` launches
+                at head dim 64 a prefill wave (counted and recorded), each
+                launch of every wave held against the plain version on its
+                own inputs within `KERNEL_TOL` (prompts of 2-8 tokens: one
+                partial tile), the planted padded-keys and future-keys
+                faults outside, the first wave's prefill again through
+                the kernel (the served
+                logits) against the plain chunked attention on the card
+                (float32 within `LOGIT_TOL`, the scale fault outside: the
+                prompts lie in one KV tile, which no tile is dropped
+                from; bf16 reported), tokens/s and a decode step's ms and
+                busy ms; musicgen-medium at full width and depth (48
+                layers, d 1536, 24 heads of 64, frame
+                embeddings): `LM.forward` over (2, 1024) through the
+                kernel (48 launches) against the plain chunked attention
+                (bf16 reported; float32's last logits within
+                `LOGIT_TOL`, the planted faults outside), then 3 train
+                steps (finite losses, step ms, peak); train_lm (the
+                ~100M config) for 60 steps in a child beside the build,
+                under deterministic algorithms: the loss falls, and a run
+                resumed from its step-50 checkpoint logs the same loss at
+                step 60.  It runs after the train phase, beside the
+                dtypes check's CPU sorts where they outlast that phase
+                (``beside_cpu_sorts``);
   8g. train_ranks — training across 8 gloo ranks sharing the card, in
                 bf16 with each config's own parallel knobs: (a) qwen3-0.6b
-                at full width and depth on {"data": 2, "model": 4} (the
-                sequence-sharded residual, remat), the train phase's rows
-                and schedule through `Trainer`, with a checkpoint from
+                at full width, 8 of 28 layers, on {"data": 2, "model": 4}
+                (the sequence-sharded residual, remat), the train phase's
+                rows and schedule through `Trainer`, with a checkpoint from
                 which a second trainer replays the last step bit for bit;
                 (b) granite-20b at full width, 1 of 52 layers, on {"pod":
                 2, "data": 2, "model": 2} with FSDP over ("pod", "data")
@@ -220,7 +257,7 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 block equal by SHA-256 after every step, the losses and
                 step 1's norm within `TRAIN_RANK_LOSS_RTOL` /
                 `TRAIN_RANK_NORM_RTOL` of one process's on the same rows
-                ((a) the train phase, (b) a child process), planted faults
+                (a child process at the same depth), planted faults
                 outside (rank 0's dp sums skipped, in a step; a gathered
                 block from the wrong home, in the loss of a forward), no
                 `flash_attention` launch; step time,
@@ -281,7 +318,8 @@ is the target: the kernels are built for sm_90a).  Phases, one line each:
                 equal to torch.sort's values, and bit for bit the CPU
                 port's result, computed beside the train phase (whose
                 child keeps the card busy while the host mostly waits)
-                in `CPU_SORT_PROCS` processes sharing the host's cores;
+                and, where they outlast it, the examples phase, in
+                `CPU_SORT_PROCS` processes sharing the host's cores;
   9. analysis — the analyser's path: the four mutant kernels of
                 `repro_torch.kernels.fixtures` against their plain versions
                 (bit for bit; the raced rows of `overlapping_index_map`
@@ -2036,7 +2074,9 @@ def attention_work(q, k, causal: bool = True, window: int = 0):
 #: phase's prefill (16 slots of 753 tokens, qwen3-0.6b); the cross layer
 #: of llama_3_2_vision_90b.py, 512 text rows over its 4096 image tokens
 #: (float32: what the data pipeline's float32 image embeddings promote it
-#: to)
+#: to); granite-3-2b's prefill at 4096 tokens (32 heads over 8 KV heads of
+#: 64) and musicgen-medium's (2, 1024) frames (24 heads of 64, no GQA),
+#: src/repro/configs/granite_3_2b.py and musicgen_medium.py
 ATTN_CELLS = {
     "qwen3-0.6b_bf16": (1, 16, 8, 4096, 4096, 128, True, 0, "bfloat16"),
     "qwen3-0.6b_f32": (1, 16, 8, 4096, 4096, 128, True, 0, "float32"),
@@ -2044,7 +2084,14 @@ ATTN_CELLS = {
     "serve-prefill_f16": (16, 16, 8, 753, 753, 128, True, 0, "float16"),
     "mixtral-8x7b_bf16": (1, 32, 8, 8192, 8192, 128, True, 4096, "bfloat16"),
     "mixtral-8x7b_f32": (1, 32, 8, 8192, 8192, 128, True, 4096, "float32"),
-    "vision-cross_f32": (2, 64, 8, 512, 4096, 128, False, 0, "float32")}
+    "vision-cross_f32": (2, 64, 8, 512, 4096, 128, False, 0, "float32"),
+    "granite-3-2b-prefill_bf16": (1, 32, 8, 4096, 4096, 64, True, 0,
+                                  "bfloat16"),
+    "musicgen-medium_bf16": (2, 24, 24, 1024, 1024, 64, True, 0,
+                             "bfloat16")}
+#: the cells at head dim 64 (granite-3-2b's and musicgen-medium's), which
+#: the kernels line carries under ``hd64_cells``
+ATTN_HD64_CELLS = ("granite-3-2b-prefill_bf16", "musicgen-medium_bf16")
 #: a non-default scale, checked against the plain version in these cells
 ATTN_SCALE = 0.1
 ATTN_SCALE_CELLS = ("qwen3-0.6b_bf16", "qwen3-0.6b_f32")
@@ -2291,7 +2338,13 @@ def phase_attention(seed: int) -> dict:
                               "ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "max_abs_err", "bound_fraction")}}
                      for dt, c in ((ATTN_CELLS[t][-1], c) for t, c in
-                                   out.items() if t.startswith("qwen"))})
+                                   out.items() if t.startswith("qwen"))},
+        hd64_cells={t: {"shape": list(ATTN_CELLS[t][:6]),
+                        **{k: out[t][k] for k in (
+                            "kernel", "launches", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms",
+                            "max_abs_err", "bound_fraction")}}
+                    for t in ATTN_HD64_CELLS})
     out["recorded"] = recorded
     return out
 
@@ -3502,19 +3555,21 @@ def phase_stack(seed: int, smi: str) -> dict:
 #: `SERVE_RANK_LAYERS` for the script's time: on an H100 a pods222 run at
 #: 28 layers took 22-26 s (3,776 collectives), the phase 206 s of 1073;
 #: at 7 layers 5.9-7.4 s and 91 s, cut to 4 to make room for the dryrun
-#: phase
+#: phase and to 2 for the examples phase (the planted dropped partial sum
+#: read 1.03 against the 2^-5 bound at 4 layers)
 SERVE_RANKS = 8
-SERVE_RANK_LAYERS = 4
+SERVE_RANK_LAYERS = 2
 SERVE_RANK_MESHES = {"data8": {"data": 8, "model": 1},
                      "pods222": {"pod": 2, "data": 2, "model": 2}}
 #: deepseek-moe-16b at full width on 2 homes of 4 ranks (16 of its 64
 #: experts a rank, 4 of its 16 heads and KV heads), the stack phase's
 #: mixed stream in aligned waves (8 slots), its depth cut from 28 to 14
-#: layers: 8.6 B parameters, ~4.3 GB of bf16 blocks a rank beside the 8
-#: contexts (28 layers would take ~8.5 GB a rank, 68 GB in all, on a card
-#: the qwen3 runs and the replay share)
+#: layers (28 layers would take ~8.5 GB a rank, 68 GB in all, on a card
+#: the qwen3 runs and the replay share), then to 7 and, to make room for
+#: the examples phase, to 2 (every layer is a MoE layer, so each of the
+#: checks reads the same members at any depth)
 SERVE_RANK_MOE = dict(arch="deepseek-moe-16b", mesh={"data": 2, "model": 4},
-                      layers=7)
+                      layers=2)
 #: its policy: the home-aware one (the stack phase serves both in one
 #: process; a second policy here would take the phase past its 240 s)
 SERVE_RANK_MOE_POLICIES = ("homed",)
@@ -4529,11 +4584,13 @@ def phase_train(seed: int, smi: str) -> dict:
 # train_ranks: training across torch.distributed ranks sharing the card
 # ---------------------------------------------------------------------------
 TRAIN_RANKS = 8
-#: (a) qwen3-0.6b at full width and depth on 8 ranks, the train phase's
-#: rows (one a home) and learning-rate schedule, 2 steps with a checkpoint
-#: at step 1 from which a second trainer replays step 2 (cut from 4 steps
-#: and a replay of 2 for the phase's time: a step takes ~13 s)
-TRAIN_RANK_QWEN = dict(mesh={"data": 2, "model": 4}, steps=2, ckpt_at=1)
+#: (a) qwen3-0.6b at full width on 8 ranks, the train phase's rows (one a
+#: home), learning-rate schedule and `Trainer`, 2 steps with a checkpoint at step 1
+#: from which a second trainer replays step 2 (cut from 4 steps and a
+#: replay of 2 for the phase's time), its depth cut from 28 to 8 layers
+#: (at 28 a step took 18-26 s through gloo and (a) ~150 s of the phase)
+TRAIN_RANK_QWEN = dict(mesh={"data": 2, "model": 4}, layers=8, steps=2,
+                       ckpt_at=1)
 #: (a)'s planted fault on a fresh step 1 (another costs a step, ~16 s)
 TRAIN_RANK_PLANTED = ("dp_skip",)
 #: (b) granite-20b at full width, 1 of its 52 layers (52 layers' float32
@@ -4707,8 +4764,8 @@ def train_rank_qwen(mesh, seed: int, ckpt_dir: str) -> dict:
     from repro_torch.runtime import trainer as trainer_mod
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.sharding import partition
-    cfg = get_config(TRAIN_ARCH)
     spec = TRAIN_RANK_QWEN
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=spec["layers"])
     device = mesh.device
     shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     plan = partition.make_plan(mesh, cfg, shape)
@@ -4949,13 +5006,16 @@ def train_rank_child(device, seed: int, ckpt_dir: str) -> dict:
 
 
 def train_ranks_one(seed: int) -> dict:
-    """(b)'s yardstick in its own process (`--train-ranks-child`): the
-    same 2-layer granite-20b in one process on the same rows, step 1's
-    loss and gradient norm (nothing written)."""
+    """(a)'s and (b)'s yardsticks in their own process
+    (`--train-ranks-child`), each in one process on the same rows: (b)'s
+    granite-20b at its depth, step 1's loss and gradient norm; then (a)'s
+    qwen3-0.6b at its depth through `Trainer` as the train phase runs it,
+    each step's loss and norm under "qwen" (nothing written)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import LM, steps
     from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
     g = TRAIN_RANK_GRANITE
     torch.use_deterministic_algorithms(True)
     cfg = get_config(g["arch"]).replace(num_layers=g["layers"])
@@ -4971,9 +5031,25 @@ def train_ranks_one(seed: int) -> dict:
     t0 = time.perf_counter()
     _, _, m = fn(params, state, batch, accept=lambda m: False)
     torch.cuda.synchronize()
-    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "s": time.perf_counter() - t0,
-            "peak_bytes": torch.cuda.max_memory_allocated()}
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, state, fn, batch
+    release()
+    q = TRAIN_RANK_QWEN
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_one_") as tmp:
+        tr = Trainer(get_config(TRAIN_ARCH).replace(num_layers=q["layers"]),
+                     TrainerConfig(
+                         steps=q["steps"], global_batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, ckpt_dir=tmp, log_every=1,
+                         seed=seed, warmup=TRAIN_WARMUP, lr=TRAIN_LR,
+                         schedule_total=TRAIN_STEPS, device="cuda",
+                         metrics_path=os.path.join(tmp, "metrics.json")))
+        tr.ckpt.maybe_save = lambda *a, **kw: False
+        tr.run()
+        with open(os.path.join(tmp, "metrics.json")) as f:
+            out["qwen"] = json.load(f)
+    return out
 
 
 def rel(a: float, b: float) -> float:
@@ -4995,16 +5071,16 @@ def held_f32(got: torch.Tensor, want: torch.Tensor, far: float) -> int:
     return int(off.sum())
 
 
-def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
-    """Training across ranks (see the module docstring, 8g).  `train`
-    holds the train phase's one-process run, whose rows (a) trains."""
+def phase_train_ranks(seed: int, smi: str) -> dict:
+    """Training across ranks (see the module docstring, 8g)."""
     from repro_torch.launch.mesh import spawn
     t_phase = time.perf_counter()
     release()
     env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_ranks_")
     path, ckpt_dir = os.path.join(tmp, "one.json"), os.path.join(tmp, "ck")
-    # (b)'s yardstick runs beside the ranks (18.5 GB beside their ~48 GB)
+    # (a)'s and (b)'s yardsticks run beside the ranks (~19 GB beside
+    # their ~48 GB)
     child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                               "--train-ranks-child", path, "--seed",
                               str(seed)], env=env)
@@ -5016,8 +5092,7 @@ def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
                       ckpt_dir, timeout_s=TRAIN_RANK_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
         rc = child.wait(timeout=TRAIN_TIMEOUT_S)
-        need(rc == 0, f"train_ranks: the one-process granite child exited "
-                      f"{rc}")
+        need(rc == 0, f"train_ranks: the one-process child exited {rc}")
         with open(path) as f:
             one = json.load(f)
     finally:
@@ -5042,7 +5117,7 @@ def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
 
     # ---- (a) qwen3-0.6b ----
     a = {}
-    straight = {rec["step"]: rec for rec in train["straight"]}
+    straight = {rec["step"]: rec for rec in one["qwen"]}
     qs = [r["qwen"] for r in ranks]
     for run in ("straight", "resumed"):
         for i in range(len(qs[0][run])):
@@ -5179,8 +5254,9 @@ def phase_train_ranks(seed: int, smi: str, train: dict) -> dict:
                        norm_err=max(abs(x[1] - y[1]) for x, y in pairs))
     out["f32"] = c
     out["seconds"] = time.perf_counter() - t_phase
-    say(f"phase train_ranks qwen ({smi}): {TRAIN_ARCH} bf16 at full width "
-        f"and depth on {TRAIN_RANK_QWEN['mesh']} ({TRAIN_RANKS} gloo ranks "
+    say(f"phase train_ranks qwen ({smi}): {TRAIN_ARCH} bf16 at full width, "
+        f"{TRAIN_RANK_QWEN['layers']} of 28 layers, on "
+        f"{TRAIN_RANK_QWEN['mesh']} ({TRAIN_RANKS} gloo ranks "
         f"sharing the card), batch {TRAIN_BATCH} x {TRAIN_SEQ}: step ms by "
         f"the slowest rank's host clock {[round(x, 1) for x in a['step_ms']]}"
         f", median of steps 2- {a['step_ms_median']:.1f} ms, "
@@ -5951,6 +6027,432 @@ def phase_model_split(seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the examples phase (see the module docstring, 8j)
+# ---------------------------------------------------------------------------
+EXAMPLES_DIR = ROOT / "examples"
+#: musicgen-medium at full width and depth: the forward's frame
+#: embeddings (B, S) and the train steps after it
+MUSICGEN_SHAPE = (2, 1024)
+MUSICGEN_TRAIN_STEPS = 3
+#: the train_lm example: its steps, and the checkpoint (written every 50
+#: steps) the second run resumes from
+TRAIN_LM_STEPS, TRAIN_LM_RESUME = 60, 50
+#: the sort examples' launches by wrapper on the card, 8 homes: the
+#: constraint tree one `local_sort` and 3 `merge_runs` (one a level) a
+#: sort, 8 Table-1 cases; the engine one `local_sort` and then, for the
+#: non-localised cases 1-4, the same 3-level merge tree, for cases 5-8 6
+#: `merge_split` (the exchange network of 8 homes); the engine line and
+#: the hierarchical engine (2 pods of 4) one `local_sort` and 6
+#: `merge_split` each; then one standalone call of `bitonic_sort`,
+#: `local_sort` and `merge_split` (the wrappers' calls counted the same on
+#: the CPU)
+SORT_EXAMPLE_LAUNCHES = {"local_sort": 8 + 8 + 1 + 1 + 1,
+                         "merge_runs": 8 * 3 + 4 * 3,
+                         "merge_split": 4 * 6 + 6 + 6 + 1,
+                         "bitonic_sort": 1}
+#: the train_lm example's child: its run of TRAIN_LM_STEPS, then again
+#: from the checkpoint at TRAIN_LM_RESUME (the later ones removed), under
+#: deterministic algorithms so that the resumed steps are the same bits
+TRAIN_LM_CHILD = r"""
+import contextlib, io, json, os, runpy, shutil, sys
+import torch
+torch.use_deterministic_algorithms(True)
+path, ckpt, steps, resume = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+sys.path.insert(0, os.path.dirname(path))  # as `python <path>` puts it
+out = []
+for run in range(2):
+    if run:
+        for d in os.listdir(ckpt):
+            if d.startswith("step_") and int(d[5:]) > resume:
+                shutil.rmtree(os.path.join(ckpt, d))
+    sys.argv = [path, "--steps", steps, "--ckpt", ckpt]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(path, run_name="__main__")
+    out.append(buf.getvalue().splitlines())
+print(json.dumps(out))
+"""
+
+
+def example(name: str):
+    """The port's example module `examples/torch_<name>.py`."""
+    import importlib.util
+    if str(EXAMPLES_DIR) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES_DIR))
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", EXAMPLES_DIR / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv, **kw):
+    """(printed lines, result) of an example's ``main(argv)``; an assert
+    of the example fails the phase."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = example(name).main(argv, **kw)
+    except AssertionError as e:
+        raise SmokeFailure(f"examples: torch_{name} failed its own check "
+                           f"({e!r}) after printing "
+                           f"{buf.getvalue().splitlines()[-5:]}")
+    return buf.getvalue().splitlines(), res
+
+
+def start_train_lm(tmp: str):
+    """The train_lm example's child (`TRAIN_LM_CHILD`), started beside the
+    build: training launches none of the port's kernels, and no phase
+    times the card before the build ends."""
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = open(os.path.join(tmp, "train_lm.out"), "w")
+    err = open(os.path.join(tmp, "train_lm.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TRAIN_LM_CHILD,
+         str(EXAMPLES_DIR / "torch_train_lm.py"), os.path.join(tmp, "ckpt"),
+         str(TRAIN_LM_STEPS), str(TRAIN_LM_RESUME)],
+        env=env, stdout=out, stderr=err)
+    CHILDREN.append(proc)
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter(),
+            "files": (out, err)}
+
+
+def finish_train_lm(child: dict) -> dict:
+    """Wait for the train_lm child and check it: the loss falls over the
+    run, and the run resumed from step `TRAIN_LM_RESUME` logs the same
+    loss at the last step, bit for bit."""
+    proc, tmp = child["proc"], child["tmp"]
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=TRAIN_TIMEOUT_S)
+    for f in child["files"]:
+        f.close()
+    waited = time.perf_counter() - t0
+    out = Path(tmp, "train_lm.out").read_text()
+    need(rc == 0, f"examples: torch_train_lm exited {rc}: "
+                  + Path(tmp, "train_lm.err").read_text()[-2000:])
+    straight, resumed = json.loads(out.strip().splitlines()[-1])
+    logs = [[json.loads(ln) for ln in run if ln.startswith("{")]
+            for run in (straight, resumed)]
+    rec = dict(params_line=straight[0], losses={
+        r["step"]: r["loss"] for r in logs[0]},
+        resumed={r["step"]: r["loss"] for r in logs[1]},
+        step_time_s=[r["step_time_s"] for r in logs[0]],
+        wall_s=time.perf_counter() - child["t0"], waited_s=waited)
+    first, last = min(rec["losses"]), TRAIN_LM_STEPS
+    need(rec["losses"][last] < rec["losses"][first],
+         f"examples: train_lm's loss did not fall: {rec['losses']}")
+    need(list(rec["resumed"]) == [last]
+         and rec["resumed"][last] == rec["losses"][last],
+         f"examples: train_lm resumed from step {TRAIN_LM_RESUME} is not "
+         f"the straight run: {rec['resumed']} against {rec['losses']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def hd64_launches(ran) -> dict:
+    """The `flash_attention` launches recorded: by kernel, head dim and
+    dtype."""
+    return dict(collections.Counter(
+        f"{f.name}/hd{f.call[1][5]}/{f.call[1][10]}" for f in ran))
+
+
+def padded_keys_attention(q, k, v, block: int):
+    """A planted fault: causal attention in float32 that also weighs the
+    zero keys that fill the last KV tile past Skv -- what a kernel that
+    left a partial tile's tail unmasked would give."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    T = -(-S // block) * block
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, T - S))
+              .repeat_interleave(G, dim=1) for t in (k, v))
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    s = q.float() @ kf.transpose(-1, -2) * hd ** -0.5
+    p = torch.softmax(s.masked_fill(~((j <= i) | (j >= S)), -1e30), dim=-1)
+    return (p @ vf).to(q.dtype)
+
+
+def hold_prefill_launches(seen: list, rtol: float, atol: float) -> dict:
+    """Each recorded causal prefill launch ``(q, k, v, out, kw)`` of
+    `flash_prefill_attention` (q: (B, S, KV, Gq, hd), out: (B, S, H, hd))
+    against `flash_attention_reference` on its own inputs (float32
+    arithmetic, rounded to q's dtype), within rtol/atol, with two planted
+    faults that a short tile would show: the tile's zero-filled tail
+    weighed (`padded_keys_attention`) and the future keys read (not
+    causal).  Returns the launches, the elements outside, the largest
+    error, and the fewest elements a fault put outside."""
+    from repro_torch.kernels.flash_attention import flash_attention_reference
+    out = dict(launches=len(seen), beyond=0, max_abs_err=0.0,
+               fault_beyond={"padded_keys": None, "future_keys": None},
+               seq_lens=sorted({q.shape[1] for q, *_ in seen}))
+    for q, k, v, o, kw in seen:
+        need(kw == dict(causal=True, window=0),
+             f"a served prefill launch was called with {kw}")
+        B, S, KV, Gq, hd = q.shape
+        qh = q.reshape(B, S, KV * Gq, hd).transpose(1, 2)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        got = o.transpose(1, 2)
+        want = flash_attention_reference(qh, kh, vh, causal=True)
+        out["beyond"] += beyond(got, want, rtol, atol)
+        out["max_abs_err"] = max(out["max_abs_err"], float(
+            (got.float() - want.float()).abs().max()))
+        for name, wrong in (
+                ("padded_keys", padded_keys_attention(qh, kh, vh,
+                                                      ATTN_BLOCK)),
+                ("future_keys", flash_attention_reference(qh, kh, vh,
+                                                          causal=False))):
+            n = beyond(wrong, want, rtol, atol)
+            f = out["fault_beyond"]
+            f[name] = n if f[name] is None else min(f[name], n)
+    return out
+
+
+def examples_granite(seed: int, smi: str) -> dict:
+    """granite-3-2b at full width and depth through the serve example's
+    ``--full`` path: its stream under both policies, as the example serves
+    it (its fixed ``prompt_pad`` makes the server page-step each prompt
+    through `LM.decode_pages`, which runs no kernel), the tokens equal;
+    then the same stream in aligned waves (no ``prompt_pad``), whose
+    every prefill wave launches 40 bf16 `fa_wgmma` at head dim 64 (counted
+    and recorded), each launch held against the plain version on its own
+    inputs within `KERNEL_TOL` with two planted faults outside
+    (`hold_prefill_launches`); the first wave's prefill again through the kernel, its
+    logits the served ones, and against the plain chunked attention
+    (`prefill_logits`: float32 within `LOGIT_TOL`, the scale fault
+    outside, bf16 reported); tokens/s, and one decode step's time and
+    busy ms."""
+    from repro_torch.analysis import record
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import KERNEL_TOL
+    from repro_torch.models import LM, attention
+    from repro_torch.models.attention import flash_prefill_attention
+    from repro_torch.runtime.server import DecodeServer
+    ex = example("serve_decode")
+    cfg = ex.config(full=True)
+    need((cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.dtype)
+         == (40, 2048, 64, "bfloat16"), f"examples: granite-3-2b is "
+         f"{cfg.num_layers} x {cfg.d_model}, hd {cfg.head_dim}, {cfg.dtype}")
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    want = {"fa_wgmma/hd64/bfloat16": cfg.num_layers}
+    modes = {"example": {}, "waves": {"prompt_pad": None}}
+    out = {"runs": {}}
+    tokens, first = {}, None
+    for mode, over in modes.items():
+        for policy in ex.POLICIES:
+            srv = DecodeServer(cfg, params, scheduler=policy,
+                               **{**ex.SERVER, **over})
+            waves = recording(srv) if not srv.paged else None
+            reqs = ex.stream(cfg)
+            for r in reqs:
+                srv.submit(r)
+            seen = []
+
+            def keep(q, k, v, **kw):
+                o = flash_prefill_attention(q, k, v, **kw)
+                seen.append((q, k, v, o, kw))
+                return o
+            ops.reset_launches()              # the path's counted run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record() as ran, mock.patch.object(
+                    attention, "flash_prefill_attention", keep):
+                served = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()["flash_attention"]
+            n = srv.scheduler.stats.waves
+            tokens[mode, policy] = {r.rid: list(r.out) for r in served}
+            n_tok = sum(len(r.out) for r in served)
+            run = out["runs"][f"{mode}-{policy}"] = dict(
+                paged=srv.paged, waves=n, launches=launches,
+                kernels=hd64_launches(ran), tokens=n_tok, wall_s=wall,
+                tokens_per_s=n_tok / wall)
+            need(all(r.done for r in served) and len(served) == len(reqs),
+                 f"examples: granite {mode} {policy} served {len(served)} "
+                 f"of {len(reqs)}")
+            per_wave = {} if srv.paged else want
+            need(srv.paged == (mode == "example")
+                 and launches == len(ran) and run["kernels"] == {
+                     k: v * n for k, v in per_wave.items()},
+                 f"examples: granite {mode} {policy}: {launches} launches "
+                 f"over {n} waves, {run['kernels']}, not {per_wave} a wave")
+            # every wave launch against the plain version on its own
+            # inputs: the prompts (2-8 tokens) fill one partial KV tile
+            if not srv.paged:
+                rtol, atol = KERNEL_TOL[torch.bfloat16]
+                held = run["held"] = hold_prefill_launches(seen, rtol, atol)
+                need(held["launches"] == launches and held["beyond"] == 0
+                     and all(held["fault_beyond"].values()),
+                     f"examples: granite {mode} {policy}: a wave launch "
+                     f"outside rtol={rtol} atol={atol} of the plain "
+                     f"version, or a planted fault inside: {held}")
+            del seen
+            if waves is not None and first is None:
+                first = waves[0]
+    need(tokens["example", "fifo"] == tokens["example", "homed"],
+         "examples: granite's fifo and homed tokens differ")
+    # the first aligned wave's prefill again, through the kernel (the
+    # served bits) and against the plain chunked attention on the card:
+    # in float32 within `LOGIT_TOL` with the planted faults outside, the
+    # bf16 forms reported (`prefill_logits`: over 40 bf16 layers the plain
+    # form's one rounding of P moves the logits 0.037 of the largest on an
+    # H100)
+    batch = {"tokens": first["prefill"][0]}
+    ops.reset_launches()
+    with untimed():
+        a, _ = LM(cfg).prefill(params, batch, max_len=ex.SERVER["max_len"])
+    launches = ops.launch_counts()["flash_attention"]
+    out["logits"] = dict(launches=launches, served_equal=bool(torch.equal(
+        a, first["prefill"][1])), finite=bool(torch.isfinite(a).all()),
+                         shape=list(batch["tokens"].shape))
+    need(out["logits"]["finite"] and launches == cfg.num_layers
+         and out["logits"]["served_equal"],
+         f"examples: granite's first wave through the kernel: "
+         f"{out['logits']}")
+    # the wave's prompts (2-8 tokens) lie in one KV tile, the row's own,
+    # which the dropped-tile fault never drops: only the scale fault can
+    # show there
+    out["logits"].update(prefill_logits(
+        cfg, params, batch, a, lambda causal, window: True,
+        ("scale_1pct",)))
+    # one decode step of the first wave's slots
+    model = LM(cfg)
+    _, caches = model.prefill(params, batch, max_len=ex.SERVER["max_len"])
+    S = batch["tokens"].shape[1]
+    step_batch = {"tokens": batch["tokens"][:, -1:].contiguous()}
+
+    def step():
+        model.decode_step(params, caches, step_batch, S)
+    out["decode_step_ms"] = cuda_ms(step, reps=5)
+    out["decode_step_busy_ms"] = device_busy_ms(step)
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params))
+    del params, caches, a, model
+    release()
+    say(f"phase examples granite-3-2b (40 x 2048, hd 64, bf16, the serve "
+        f"example's --full; {smi}): " + json.dumps(out))
+    return out
+
+
+def examples_musicgen(seed: int, smi: str) -> dict:
+    """musicgen-medium at full width and depth (48 layers, d 1536, 24
+    heads of 64, no GQA): `LM.forward` over (2, 1024) frame embeddings
+    through the kernel, 48 launches, against the plain chunked attention
+    on the card (bf16 reported; float32's last logits within `LOGIT_TOL`,
+    the planted faults outside, `prefill_logits`); then
+    `MUSICGEN_TRAIN_STEPS` train steps (``flash=False``): finite losses,
+    each step's ms and the peak memory."""
+    from repro_torch.analysis import record
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM, steps
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding.partition import NULL_PLAN
+    cfg = get_config("musicgen-medium")
+    need((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+          cfg.head_dim, cfg.embed_input) == (48, 1536, 24, 24, 64, False),
+         f"examples: musicgen-medium is not its published shape: {cfg}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = LM(cfg).init(gen)
+    B, S = MUSICGEN_SHAPE
+    emb = 0.1 * torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+    batch = {"embeds": emb.to(torch.bfloat16)}
+    model, plain = LM(cfg), LM(cfg, flash=False)
+    out = {}
+    with torch.no_grad():
+        ops.reset_launches()                  # the path's counted run
+        with untimed(), record() as ran:
+            logits, _, _ = model.forward(params, batch)
+        launches = ops.launch_counts()["flash_attention"]
+        p16, _, _ = plain.forward(params, batch)
+        out["forward"] = dict(
+            shape=list(logits.shape), launches=launches,
+            kernels=hd64_launches(ran),
+            finite=bool(torch.isfinite(logits).all()),
+            bf16_rel=rel_err(logits, p16), argmax_agree=float(
+                (logits.argmax(-1) == p16.argmax(-1)).float().mean()),
+            ms=cuda_ms(lambda: model.forward(params, batch), reps=2),
+            plain_ms=cuda_ms(lambda: plain.forward(params, batch), reps=1))
+        need(out["forward"]["finite"] and launches == cfg.num_layers
+             and out["forward"]["kernels"] == {
+                 "fa_wgmma/hd64/bfloat16": cfg.num_layers},
+             f"examples: musicgen forward {out['forward']}")
+        out["float32"] = prefill_logits(
+            cfg, params, batch, logits[:, -1], lambda causal, window: True,
+            ("dropped_tile", "scale_1pct"))
+        del logits, p16
+    release()
+    # training: the plain chunked attention, AdamW, the config's knobs
+    opt = AdamW(lr=1e-4)
+    state = steps.init_opt_state(cfg, opt, params)
+    step = steps.make_train_step(LM(cfg, flash=False), cfg, NULL_PLAN, opt)
+    tb = {"embeds": emb, "targets": torch.randint(
+        0, cfg.vocab_size, (B, S), generator=gen, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, norms, ms = [], [], []
+    for _ in range(MUSICGEN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, tb)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["train"] = dict(losses=losses, grad_norms=norms, step_ms=ms,
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        launches=ops.launch_counts()["flash_attention"])
+    need(all(math.isfinite(x) for x in losses)
+         and out["train"]["launches"] == 0,
+         f"examples: musicgen train steps {out['train']}")
+    del params, state, step, tb, emb, batch
+    release()
+    say(f"phase examples musicgen-medium (48 x 1536, 24 heads of 64, bf16; "
+        f"{smi}): " + json.dumps(out))
+    return out
+
+
+def examples_sorts() -> dict:
+    """The quickstart and distributed_sort examples on the card, in full:
+    every sort sorted (their own asserts), their lines, and the launches
+    the sort example prints equal to the wrappers' counters and to
+    `SORT_EXAMPLE_LAUNCHES`."""
+    from repro_torch.kernels import ops
+    q_lines, _ = run_example("quickstart", ["--device", "cuda"])
+    need(q_lines[-1] == "ok" and sum("sorted=True" in ln for ln in q_lines)
+         == 2, f"examples: quickstart printed {q_lines}")
+    ops.reset_launches()
+    d_lines, counts = run_example("distributed_sort", ["--device", "cuda"])
+    after = {k: v for k, v in ops.launch_counts().items() if v}
+    printed = dict(kv.split("=") for kv in d_lines[-1].split()[1:])
+    printed = {k: int(v) for k, v in printed.items()}
+    need(sum(ln.endswith("sorted=True") for ln in d_lines) == 16,
+         f"examples: distributed_sort printed {d_lines}")
+    need(printed == after == counts == SORT_EXAMPLE_LAUNCHES,
+         f"examples: distributed_sort's launches: printed {printed}, "
+         f"counters {after}, returned {counts}, expected "
+         f"{SORT_EXAMPLE_LAUNCHES}")
+    rec = dict(quickstart=q_lines, distributed_sort=d_lines,
+               launches=printed)
+    say("phase examples quickstart / distributed_sort on the card: "
+        + json.dumps(rec))
+    return rec
+
+
+def phase_examples(seed: int, smi: str, train_lm: dict) -> dict:
+    """The examples as the port's entry points, and the two configs only
+    they reach (see the module docstring, 8j)."""
+    t0 = time.perf_counter()
+    out = dict(sorts=examples_sorts(), granite=examples_granite(seed, smi),
+               musicgen=examples_musicgen(seed, smi), train_lm=train_lm)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase examples train_lm ({TRAIN_LM_STEPS} steps, resumed from "
+        f"{TRAIN_LM_RESUME}; beside the build): " + json.dumps(train_lm))
+    return out
+
+
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -6582,6 +7084,9 @@ def main(argv=None) -> int:
     # times nothing of the port's
     cells_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     cells = start_dryrun_cells(cells_dir)
+    # the train_lm example's child trains beside the build (none of the
+    # port's kernels), and ends before any phase times the card
+    train_lm = start_train_lm(tempfile.mkdtemp(prefix="chip_smoke_train_lm_"))
     secs, reports = _build.build_all()
     regs = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
             if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
@@ -6594,6 +7099,7 @@ def main(argv=None) -> int:
             json.dumps(wgmma) if wgmma else "not rebuilt in this run"))
     sass = sass_check()
     say("phase build flash-attention SASS (cuobjdump): " + json.dumps(sass))
+    train_lm = finish_train_lm(train_lm)
 
     kernels = phase_kernels(args.seed)
     engine = phase_engine(args.seed)
@@ -6612,13 +7118,17 @@ def main(argv=None) -> int:
     dryrun = phase_dryrun(args.seed, smi, cells)
     shutil.rmtree(cells_dir, ignore_errors=True)
     # the dtypes check's CPU sorts run beside the train phase, whose child
-    # keeps the card busy while the host mostly waits on it; they end
-    # before train_ranks' 8 ranks take the host
+    # keeps the card busy while the host mostly waits on it, and on a slow
+    # host beside the examples phase after it; they end before
+    # train_ranks' 8 ranks take the host
     with concurrent.futures.ThreadPoolExecutor(1) as beside:
         cpu_sorts = beside.submit(cpu_reference, args.seed)
         train = phase_train(args.seed, smi)
+        running = not cpu_sorts.done()
+        examples = phase_examples(args.seed, smi, train_lm)
+        examples["beside_cpu_sorts"] = running
         cpu_sorts = cpu_sorts.result()
-    train_ranks = phase_train_ranks(args.seed, smi, train)
+    train_ranks = phase_train_ranks(args.seed, smi)
     model_split = phase_model_split(args.seed, smi)
     dtypes = phase_dtypes(args.seed)
     full_width = {
@@ -6691,10 +7201,26 @@ def main(argv=None) -> int:
     attention["line"]["max_abs_err"] = max(
         attention["line"]["max_abs_err"],
         *(c["max_abs_err"] for c in model_split["cells"].values()))
+    # the examples phase's launches: granite-3-2b's waves (40 a wave) and
+    # musicgen-medium's forward (48), each its counted run
+    attention["line"]["examples_launches"] = {
+        **{f"granite-3-2b_{p}": {k: r[k] for k in ("waves", "launches",
+                                                    "kernels", "held")}
+           for p, r in examples["granite"]["runs"].items()
+           if not r["paged"]},
+        "musicgen-medium_forward": {
+            k: examples["musicgen"]["forward"][k]
+            for k in ("launches", "kernels")}}
+    # ... and each granite wave launch held against the plain version
+    attention["line"]["max_abs_err"] = max(
+        attention["line"]["max_abs_err"],
+        *(r["held"]["max_abs_err"]
+          for r in examples["granite"]["runs"].values() if not r["paged"]))
     extra = ("scratch_bytes", "launches_per_call", "by_kernel",
              "yardstick_ms", "yardstick", "shape", "attention_launches",
              "floor_ms", "rank_launches", "stack_launches", "stack_cells",
              "model_split_cells", "dtype_cells", "serve_logits_launches",
+             "hd64_cells", "examples_launches",
              *(f"serve_{k}" for k in SERVE_LINE_KEYS))
     line = [{key: k[key] for key in keys + extra if key in k} for k in rows]
     if args.out:
@@ -6705,7 +7231,8 @@ def main(argv=None) -> int:
              "constraint": constraint, "fig1": fig1, "attention": attention,
              "serve": serve, "serve_ranks": serve_ranks, "stack": stack,
              "train": train, "train_ranks": train_ranks,
-             "model_split": model_split, "dtypes": dtypes,
+             "model_split": model_split, "examples": examples,
+             "dtypes": dtypes,
              "dryrun": dryrun, "analysis": analysis},
             indent=1))
     say(json.dumps({"kernels": line}))

@@ -2,7 +2,8 @@
 allocating: the counterpart of `repro/launch/dryrun.py`'s ``run_cell``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
-        --shape train_4k [--multipod] [--rank R] [--out cell.json]
+        --shape train_4k [--multipod] [--rank R] [--out cell.json] \\
+        [--save-trace step.txt]
 
 The reference lowers and compiles the SPMD program of one cell for 256
 (512) placeholder devices and reads its cost off the HLO.  The port runs
@@ -30,7 +31,10 @@ peak (`mem_facts.call_facts`), ``kernel_launches`` lists the launches
 noted, ``schedule_diffs`` holds the rank's collective log against
 `obs.schedule.train_schedule` / `serve_schedule` (empty: equal), and
 ``roofline`` uses the H100 hardware model below.  No figure of the cell
-depends on the machine that runs it.
+depends on the machine that runs it.  ``--save-trace PATH`` writes the
+counted step as text (`step_cost.write_trace`: its ATen ops in order
+with their FLOPs and bytes, its launches, its collective records), the
+counterpart of the reference's ``--save-hlo``.
 """
 from __future__ import annotations
 
@@ -163,11 +167,13 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, plan: MeshPlan,
             (mine, caches, batch, pos))
 
 
-def cost_step(step, args, grad: bool) -> Tuple[Any, Dict, Dict]:
-    """Run ``step(*args)`` once under `step_cost.counting` and
-    `mem_facts.call_facts`; returns ``(its result, cost, facts)``.
-    Serving steps (``grad`` False) run under ``torch.no_grad``."""
-    with torch.set_grad_enabled(grad), step_cost.counting() as cost:
+def cost_step(step, args, grad: bool,
+              trace: bool = False) -> Tuple[Any, Dict, Dict]:
+    """Run ``step(*args)`` once under `step_cost.counting` (with `trace`,
+    listing every op) and `mem_facts.call_facts`; returns ``(its result,
+    cost, facts)``.  Serving steps (``grad`` False) run under
+    ``torch.no_grad``."""
+    with torch.set_grad_enabled(grad), step_cost.counting(trace) as cost:
         out, facts = call_facts(step, *args)
     return out, cost, facts
 
@@ -199,7 +205,7 @@ def schedule_diffs(cfg: ArchConfig, shape: ShapeSpec, plan: MeshPlan,
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             rank: int = 0) -> dict:
+             rank: int = 0, save_trace: Optional[str] = None) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if shape_name == "long_500k" and not cfg.subquadratic:
@@ -210,8 +216,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.time()
     params = LM(cfg).init(MetaGen())
     step, args = build_cell(cfg, shape, plan, params)
-    _, cost, facts = cost_step(step, args, grad=shape.kind == "train")
+    _, cost, facts = cost_step(step, args, grad=shape.kind == "train",
+                               trace=save_trace is not None)
     trace_s = time.time() - t0
+    if save_trace:
+        step_cost.write_trace(save_trace, cost)
     diffs = schedule_diffs(cfg, shape, plan, cost["collective_ops"])
 
     n_chips = mesh.size
@@ -259,9 +268,12 @@ def main(argv=None):
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--save-trace", default=None, metavar="PATH",
+                    help="write the step's ops, launches and collectives")
     args = ap.parse_args(argv)
     try:
-        res = run_cell(args.arch, args.shape, args.multipod, args.rank)
+        res = run_cell(args.arch, args.shape, args.multipod, args.rank,
+                       save_trace=args.save_trace)
     except Exception as e:  # noqa: BLE001 -- the sweep records failures
         # the checkout's own files by their paths in it
         root = str(Path(__file__).resolve().parents[3]) + os.sep

@@ -39,7 +39,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 from collections import defaultdict
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -126,13 +126,16 @@ def _label(func, args, kwargs) -> str:
 
 class _Counter(TorchDispatchMode):
     """Sums each op's bytes and, from the flop counter below it, its
-    FLOPs, by op and operand shapes."""
+    FLOPs, by op and operand shapes; with `trace`, also lists every op
+    in dispatch order as ``(op(operand shapes), flops, bytes)``."""
 
-    def __init__(self, flops: FlopCounterMode):
+    def __init__(self, flops: FlopCounterMode, trace: bool = False):
         super().__init__()
         self.flops = flops
         self.bytes = 0
         self.by_label: Dict[str, List[int]] = defaultdict(lambda: [0, 0, 0])
+        self.trace: Optional[List[Tuple[str, int, int]]] = \
+            [] if trace else None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -141,6 +144,8 @@ class _Counter(TorchDispatchMode):
         f = self.flops.get_total_flops() - before
         b = op_bytes(func, args, kwargs, out)
         self.bytes += b
+        if self.trace is not None:
+            self.trace.append((_label(func, args, kwargs), f, b))
         if f or b:
             e = self.by_label[_label(func, args, kwargs)]
             e[0] += f
@@ -149,13 +154,15 @@ class _Counter(TorchDispatchMode):
         return out
 
 
-def kernel_work(facts: List[LaunchFacts]) -> Tuple[int, int]:
-    """``(flops, bytes)`` of the recorded launches: each call's
-    ``work(*args)`` from its kernel module (once a call: its first launch,
-    ``step`` 0)."""
-    flops = nbytes = 0
+def launch_work(facts: List[LaunchFacts]) -> List[Tuple[LaunchFacts, int,
+                                                        int]]:
+    """``(launch, flops, bytes)`` of each recorded kernel call: its
+    ``work(*args)`` from its kernel module, at the call's first launch
+    (``step`` 0), 0 at the others."""
+    out = []
     for f in facts:
         if f.step:
+            out.append((f, 0, 0))
             continue
         module, args = f.call
         mod = importlib.import_module(module)
@@ -164,9 +171,8 @@ def kernel_work(facts: List[LaunchFacts]) -> Tuple[int, int]:
                 f"{module} states no work(...) for its launches, so a step "
                 f"that launches {f.name} cannot be costed")
         w = mod.work(*args)
-        flops += w["flops"]
-        nbytes += w["bytes"]
-    return flops, nbytes
+        out.append((f, w["flops"], w["bytes"]))
+    return out
 
 
 def fold_launches(facts: List[LaunchFacts]) -> List[Dict]:
@@ -197,18 +203,20 @@ def fold_collectives(log: List[Dict]) -> Dict:
 
 
 @contextlib.contextmanager
-def counting() -> Iterator[Dict]:
+def counting(trace: bool = False) -> Iterator[Dict]:
     """Count everything run inside the block; the dict it yields is
-    filled with `analyze`'s keys when the block ends.  Another dispatch
-    mode entered inside it (`analysis.mem_facts.call_facts`) sees the
-    same ops."""
+    filled with `analyze`'s keys when the block ends (with `trace`, also
+    ``trace_ops``, every ATen op in dispatch order, for `write_trace`).
+    Another dispatch mode entered inside it
+    (`analysis.mem_facts.call_facts`) sees the same ops."""
     result: Dict = {}
     start = len(collectives.LOG)
     flops = FlopCounterMode(display=False)
-    counter = _Counter(flops)
+    counter = _Counter(flops, trace)
     with record() as facts, flops, counter:
         yield result
-    kflops, kbytes = kernel_work(facts)
+    work = launch_work(facts)
+    kflops, kbytes = sum(w[1] for w in work), sum(w[2] for w in work)
     rows = sorted(((f, b, n, label) for label, (f, b, n)
                    in counter.by_label.items()), reverse=True)
     result.update(
@@ -221,6 +229,36 @@ def counting() -> Iterator[Dict]:
                          reverse=True)[:TOP],
         launches=facts, kernel_launches=fold_launches(facts),
         **fold_collectives(collectives.collective_log()[start:]))
+    if trace:
+        result["trace_ops"] = counter.trace
+
+
+def write_trace(path: str, cost: Dict) -> None:
+    """The counted step as text (the counterpart of the reference's
+    ``--save-hlo``): every ATen op in dispatch order, ``op(operand
+    shapes)``, its FLOPs and HBM bytes, tab-separated; then each kernel
+    launch with its grid, threads, shared memory and the ``work(...)``
+    FLOPs and bytes of its call (at the call's first launch); then the
+    rank's collective records, one JSON object a line.  The FLOPs and
+    bytes columns sum to the step's ``flops`` and ``bytes``.  `cost`
+    comes from ``counting(trace=True)``."""
+    import json
+    with open(path, "w") as f:
+        f.write(f"# ops: {len(cost['trace_ops'])} in dispatch order "
+                f"(op(operand shapes), flops, bytes)\n")
+        for label, fl, b in cost["trace_ops"]:
+            f.write(f"{label}\t{fl}\t{b}\n")
+        work = launch_work(cost["launches"])
+        f.write(f"# launches: {len(work)} (name, grid, threads, smem "
+                f"bytes, flops, bytes)\n")
+        for lf, fl, b in work:
+            name, grid, threads, smem, dyn = lf.launch_tuple()[:5]
+            f.write(f"{name}\t{list(grid)}\t{threads}\t{smem + dyn}\t"
+                    f"{fl}\t{b}\n")
+        f.write(f"# collectives: {len(cost['collective_ops'])}\n")
+        for r in cost["collective_ops"]:
+            f.write(json.dumps(r, default=str) + "\n")
+        f.write(f"# total flops={cost['flops']} bytes={cost['bytes']}\n")
 
 
 def analyze(fn, *args) -> Dict:
@@ -238,5 +276,5 @@ def analyze(fn, *args) -> Dict:
     return cost
 
 
-__all__ = ["analyze", "counting", "op_bytes", "tensor_bytes", "kernel_work",
-           "fold_launches", "fold_collectives"]
+__all__ = ["analyze", "counting", "op_bytes", "tensor_bytes", "launch_work",
+           "write_trace", "fold_launches", "fold_collectives"]

@@ -35,9 +35,28 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import needs_grad
 from repro_torch.models.common import ninit, out_scale, pdt, rmsnorm, rope
 from repro_torch.sharding.partition import (cache_block, cache_seq,
-                                            enter_region, exit_region, tp_of)
+                                            enter_region, exit_region, tp_of,
+                                            whole_rows, ws)
 
 NEG_INF = -1e30
+
+
+class HeadSpec(NamedTuple):
+    """A rank's q heads in the reference's grouped ``(KV, Gq)`` layout at
+    a constraint site (`partition.ws`): the logical group counts and the
+    spec entries that cut them.  K and V (and the cache) are read in the
+    same ``KV`` groups."""
+
+    KV: int
+    Gq: int
+    kv: object = None
+    gq: object = None
+
+
+def _heads(q, heads: Optional[HeadSpec]) -> HeadSpec:
+    """`heads`, or the whole (KV, Gq) of a (B, Sq, KV, Gq, hd) `q`."""
+    return heads or HeadSpec(q.shape[2], q.shape[3])
+
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, cross: bool = False):
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -51,13 +70,16 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, cross: bool = False):
     return p
 
 
-def banded_swa_attention(q, k, v, *, window: int):
+def banded_swa_attention(q, k, v, *, window: int, plan=None,
+                         heads: Optional[HeadSpec] = None):
     """Sliding-window attention over a 2-block band: O(S*W) instead of
     O(S^2), the plain form (any device).
 
     Query block i touches only KV blocks {i-1, i} (block length ==
     window).  q: (B, Sq, KV, Gq, hd); k, v: (B, Sq, KV, hd); Sq % window
-    == 0.  Returns (B, Sq, KV*Gq, hd) in q's dtype.
+    == 0.  Returns (B, Sq, KV*Gq, hd) in q's dtype.  `plan` and `heads`
+    (the rank's heads, `head_spec`) check the constraint sites across
+    ranks (`partition.ws`).
     """
     B, Sq, KV, Gq, hd = q.shape
     W = window
@@ -65,6 +87,12 @@ def banded_swa_attention(q, k, v, *, window: int):
     scale = hd ** -0.5
     dev = q.device
     qb = q.reshape(B, nq, W, KV, Gq, hd).permute(0, 1, 3, 4, 2, 5).float()
+    hs, b = _heads(q, heads), plan and plan.batch_axes
+
+    def band(last):         # a site's logical (B, nq, KV, Gq, W, last)
+        return lambda: (whole_rows(plan, B), nq, hs.KV, hs.Gq, W, last)
+    ws(qb, plan, b, None, hs.kv, hs.gq, None, None, shape=band(hd),
+       site="models/attention.py:78")
     kb = k.reshape(B, nq, W, KV, hd)
     vb = v.reshape(B, nq, W, KV, hd)
 
@@ -88,6 +116,8 @@ def banded_swa_attention(q, k, v, *, window: int):
         s = torch.einsum("bnkgqd,bnksd->bnkgqs", qb, kj.float()) * scale
         full_mask = mask[None, None, None] & valid[:, None, None, None, None]
         s = torch.where(full_mask[None], s, NEG_INF)
+        ws(s, plan, b, None, hs.kv, hs.gq, None, None, shape=band(W),
+           site="models/attention.py:101")
         mj = s.amax(dim=-1)
         pj = torch.exp(s - mj[..., None])
         lj = pj.sum(dim=-1)
@@ -108,7 +138,8 @@ def banded_swa_attention(q, k, v, *, window: int):
 
 def chunked_attention(q, k, v, *, q_positions, kv_positions,
                       causal: bool = True, window: int = 0,
-                      kv_chunk: int = 1024):
+                      kv_chunk: int = 1024, plan=None,
+                      heads: Optional[HeadSpec] = None):
     """Online-softmax attention over KV chunks, the plain form (any
     device).
 
@@ -119,12 +150,18 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
     as in the reference.  A causal window over equal query and key
     lengths that the window divides into more than one block takes the
     banded form (`banded_swa_attention`), where the reference does.
+    `plan` and `heads` (the rank's heads, `head_spec`) check the
+    constraint sites across ranks (`partition.ws`).  The query rows stay
+    whole on every rank: where no head dim is cut, the reference cuts
+    them over "model" (`repro/models/attention.py:141-146`) and the port
+    computes every head on every rank.
     """
     B, Sq, KV, Gq, hd = q.shape
     Skv = k.shape[1]
     if (window and causal and Skv == Sq and Sq % window == 0
             and Sq // window > 1):
-        return banded_swa_attention(q, k, v, window=window)
+        return banded_swa_attention(q, k, v, window=window, plan=plan,
+                                    heads=heads)
     scale = hd ** -0.5
     kc = min(kv_chunk, Skv)
     nkc = -(-Skv // kc)
@@ -135,6 +172,19 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
         kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
                                                value=-(10 ** 9))
     qt = q.permute(0, 2, 3, 1, 4).float()              # (B, KV, Gq, Sq, hd)
+    hs, b = _heads(q, heads), plan and plan.batch_axes
+
+    def state(*last):       # a site's logical (B, KV, Gq, Sq, *last)
+        return lambda: (whole_rows(plan, B), hs.KV, hs.Gq, Sq, *last)
+    ws(qt, plan, b, hs.kv, hs.gq, None, None, shape=state(hd),
+       site="models/attention.py:152")
+    # the chunks as the reference stacks them, (n, B, KV, kc, hd): a view
+    for t, site in ((k, "models/attention.py:155"),
+                    (v, "models/attention.py:156")):
+        ws(lambda: t.unflatten(1, (nkc, kc)).permute(1, 0, 3, 2, 4), plan,
+           None, b, hs.kv, None, None,
+           shape=lambda: (nkc, whole_rows(plan, B), hs.KV, kc, hd),
+           site=site)
     m = torch.full((B, KV, Gq, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
@@ -145,6 +195,8 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
         vj = v[:, j * kc:(j + 1) * kc].transpose(1, 2)
         kpj = kv_positions[j * kc:(j + 1) * kc]
         s = torch.einsum("bkgqd,bksd->bkgqs", qt, kj.float()) * scale
+        ws(s, plan, b, hs.kv, hs.gq, None, None, shape=state(kc),
+           site="models/attention.py:164")
         mask = kpj[None, :] >= 0
         if causal:
             mask = mask & (kpj[None, :] <= q_positions[:, None])
@@ -159,6 +211,12 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions,
                           vj.float())
         acc = acc * corr[..., None] + pv
         m = m_new
+        # the online-softmax state, where the reference pins it
+        for t, site, last in ((m, "models/attention.py:182", ()),
+                              (l, "models/attention.py:183", ()),
+                              (acc, "models/attention.py:184", (hd,))):
+            ws(t, plan, b, hs.kv, hs.gq, None, *(None,) * len(last),
+               shape=state(*last), site=site)
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * Gq, hd)
     return out.to(q.dtype)
@@ -189,7 +247,8 @@ def flash_prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def prefill_attention(q, k, v, *, positions, kv_positions=None,
                       causal: bool = True, window: int = 0,
-                      kv_chunk: int = 1024, flash: bool = True):
+                      kv_chunk: int = 1024, flash: bool = True, plan=None,
+                      heads: Optional[HeadSpec] = None):
     """Prefill attention at query ``positions`` = 0 .. Sq-1 over keys at
     `kv_positions` (default the same): causal self-attention, with a
     sliding `window` or not, or cross attention (``causal=False``, keys
@@ -204,13 +263,16 @@ def prefill_attention(q, k, v, *, positions, kv_positions=None,
     The kernel has no backward pass: with `flash` under autograd this
     raises on either device (`flash_attention.needs_grad`), so train on
     ``flash=False``, as the reference trains on its chunked form.
+    `plan` and `heads` check the chunked form's constraint sites across
+    ranks; the kernel keeps that state on chip, where no site is.
     """
     if flash and (q.is_cuda or q.is_meta or needs_grad(q, k, v)):
         return flash_prefill_attention(q, k, v, causal=causal, window=window)
     return chunked_attention(
         q, k, v, q_positions=positions,
         kv_positions=positions if kv_positions is None else kv_positions,
-        causal=causal, window=window, kv_chunk=kv_chunk)
+        causal=causal, window=window, kv_chunk=kv_chunk, plan=plan,
+        heads=heads)
 
 
 def _rowwise_positions(pos, B: int, Sq: int, device):
@@ -227,14 +289,18 @@ def _rowwise_positions(pos, B: int, Sq: int, device):
     return pos
 
 
-def decode_attention(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
+def decode_attention(q, cache_k, cache_v, kpos, pos, *, window: int = 0,
+                     plan=None, heads: Optional[HeadSpec] = None,
+                     cache_axis=None):
     """Attention for Sq new tokens per row over a (ring-buffered) KV cache.
 
     q: (B, Sq, KV, Gq, hd); cache_k/v: (B, Sc, KV, hd); kpos: (B, Sc) or
     (Sc,) holding the absolute position stored in each cache slot
     (-1 == empty); pos: scalar, (B,) or (B, Sq) query positions.  Per-row
     masks keep every row's output a function of its own cache alone, so
-    rows at different positions decode in one call.
+    rows at different positions decode in one call.  `plan`, `heads` and
+    `cache_axis` (the spec entry of the cache's slots) check the
+    constraint sites across ranks (`partition.ws`).
     """
     B, Sq, KV, Gq, hd = q.shape
     Sc = cache_k.shape[1]
@@ -244,6 +310,7 @@ def decode_attention(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
     scale = hd ** -0.5
     qt = q.permute(0, 2, 3, 1, 4).float()              # (B, KV, Gq, Sq, hd)
     s = torch.einsum("bkgqd,bskd->bkgqs", qt, cache_k.float()) * scale
+    _decode_sites(qt, s, plan, heads, cache_axis, Sc)
     mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= pos[:, :, None])
     if window:
         mask = mask & ((pos[:, :, None] - kpos[:, None, :]) < window)
@@ -257,13 +324,31 @@ def decode_attention(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
     return out.to(q.dtype)
 
 
-def decode_partials(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
+def _decode_sites(qt, s, plan, heads, cache_axis, slots: int) -> None:
+    """`partition.ws` at the reference's decode sites: q as (B, KV, Gq,
+    Sq, hd) and the scores as (B, KV, Gq, Sq, slots), the rank's block of
+    the cache's `slots` along `cache_axis`."""
+    B, KV, Gq, Sq, hd = qt.shape
+    hs, b = heads or HeadSpec(KV, Gq), plan and plan.batch_axes
+    ws(qt, plan, b, hs.kv, hs.gq, None, None,
+       shape=lambda: (whole_rows(plan, B), hs.KV, hs.Gq, Sq, hd),
+       site="models/attention.py:231")
+    ws(s, plan, b, hs.kv, hs.gq, None, cache_axis,
+       shape=lambda: (whole_rows(plan, B), hs.KV, hs.Gq, Sq, slots),
+       site="models/attention.py:234")
+
+
+def decode_partials(q, cache_k, cache_v, kpos, pos, *, window: int = 0,
+                    plan=None, heads: Optional[HeadSpec] = None,
+                    slots: Optional[int] = None):
     """`decode_attention` over one block of a cache's slots, unnormalised:
     ``(B, KV, Gq, Sq, hd + 2)`` float32 holding each query's weighted
     values over the block (``sum exp(s - m) v``), then the block's max
     score ``m`` and sum of exponentials ``l`` -- the partial that
     `merge_partials` combines with the other blocks'.  A block with no
-    live key has ``m`` = -1e30, which the merge weighs by 0."""
+    live key has ``m`` = -1e30, which the merge weighs by 0.  `plan`,
+    `heads` and `slots` (the whole cache's, homed over the plan's
+    ``cache_seq_axis``) check the constraint sites across ranks."""
     B, Sq, KV, Gq, hd = q.shape
     Sc = cache_k.shape[1]
     if kpos.dim() == 1:
@@ -271,6 +356,8 @@ def decode_partials(q, cache_k, cache_v, kpos, pos, *, window: int = 0):
     pos = _rowwise_positions(pos, B, Sq, q.device)
     qt = q.permute(0, 2, 3, 1, 4).float()              # (B, KV, Gq, Sq, hd)
     s = torch.einsum("bkgqd,bskd->bkgqs", qt, cache_k.float()) * hd ** -0.5
+    _decode_sites(qt, s, plan, heads, plan and plan.cache_seq_axis,
+                  slots or Sc)
     mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= pos[:, :, None])
     if window:
         mask = mask & ((pos[:, :, None] - kpos[:, None, :]) < window)
@@ -420,8 +507,27 @@ def rank_heads(cfg: ArchConfig, plan=None) -> RankHeads:
     return RankHeads(Hl, hi - lo, slice(lo, hi), True, seq, by_head)
 
 
+def head_spec(cfg: ArchConfig, rh: RankHeads, plan=None) -> HeadSpec:
+    """The rank's heads at the reference's constraint sites: its ``rh.H``
+    q heads in groups of ``Gl = rh.H / rh.KV``, a block over "model" of
+    the ``H / Gl`` groups of the logical ``(H / Gl, Gl)`` layout; whole
+    (the config's ``(KV, Gq)``) where no head is cut.
+
+    With ``kv_axis`` set this is the reference's layout, ``(KV, Gq)`` cut
+    on KV.  Where only the q heads are cut, the reference cuts Gq
+    (``gq_axis``) or repeats the KV heads up to H (``expand``,
+    `repro/models/attention.py:39-59`); the port cuts the q heads in
+    contiguous blocks and reads the KV heads those blocks read (named
+    at the sites: "q heads cut by whole groups")."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if rh.H == H:
+        return HeadSpec(KV, H // KV)
+    Gl = rh.H // rh.KV
+    return HeadSpec(H // Gl, Gl, plan.tp)
+
+
 def _decode_blocks(q, cache: dict, pos, *, slots: int, rh: RankHeads,
-                   window: int, plan):
+                   window: int, plan, heads: Optional[HeadSpec] = None):
     """Decode attention over a cache homed by sequence: this rank's
     partials over its block (its real slots: a padded tail is left out),
     merged across the cache's axis -- all-gathered there, or with
@@ -446,7 +552,8 @@ def _decode_blocks(q, cache: dict, pos, *, slots: int, rh: RankHeads,
         qa = qa.permute(1, 2, 0, 3, 4).reshape(B, Sq, M * H, hd)
         KV = ck.shape[2]
         part = decode_partials(qa.reshape(B, Sq, KV, M * H // KV, hd),
-                               ck, cv, kp, pos, window=window)
+                               ck, cv, kp, pos, window=window, plan=plan,
+                               heads=HeadSpec(KV, M * H // KV), slots=slots)
         part = part.reshape(B, M, H, Sq, hd + 2).transpose(0, 1)
         parts = collectives.all_to_all(part.contiguous(), mesh, cax)
         out = merge_partials(parts)                    # (B, H, Sq, hd)
@@ -454,7 +561,8 @@ def _decode_blocks(q, cache: dict, pos, *, slots: int, rh: RankHeads,
     KV = ck[:, :, kv_sel].shape[2]
     part = decode_partials(q.reshape(B, Sq, KV, H // KV, hd),
                            ck[:, :, kv_sel], cv[:, :, kv_sel], kp, pos,
-                           window=window)
+                           window=window, plan=plan, heads=heads,
+                           slots=slots)
     out = merge_partials(collectives.all_gather(part, mesh, cax))
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
@@ -502,6 +610,7 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
     rh = rank_heads(cfg, plan)
     H, KV, kv_sel, split = rh.H, rh.KV, rh.kv_sel, rh.split
     Gq = H // KV
+    hs = head_spec(cfg, rh, plan)
     x = enter_region(x, plan, split)
     B, Sq, D = x.shape
 
@@ -515,7 +624,7 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
         out = decode_attention(q.reshape(B, Sq, KV, Gq, hd),
                                cache["k"][:, :, kv_sel],
                                cache["v"][:, :, kv_sel], cache["kpos"],
-                               2 ** 30)
+                               2 ** 30, plan=plan, heads=hs)
         new_cache = cache
     elif cache is not None:
         # ---- decode / page-step: Sq new tokens per row, masked write
@@ -532,13 +641,15 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
             out = decode_attention(q.reshape(B, Sq, KV, Gq, hd),
                                    cache["k"][:, :, kv_sel],
                                    cache["v"][:, :, kv_sel], cache["kpos"],
-                                   pos, window=W)
+                                   pos, window=W, plan=plan, heads=hs,
+                                   cache_axis=plan and plan.cache_seq_axis)
         else:
             slots = cache_slots or cache["k"].shape[1] * rh.seq[0]
             write_cache(cache, k, v, pos, write_mask, slots=slots,
                         lo=cache_block(slots, plan)[0])
             out = _decode_blocks(q, cache, pos, slots=slots, rh=rh,
-                                 window=W, plan=plan).to(q.dtype)
+                                 window=W, plan=plan,
+                                 heads=hs).to(q.dtype)
     else:
         # ---- train / prefill
         if positions is None:
@@ -562,7 +673,8 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
                                 k[:, :, kv_sel], v[:, :, kv_sel],
                                 positions=positions,
                                 kv_positions=kv_positions, causal=not cross,
-                                window=W, kv_chunk=kv_chunk, flash=flash)
+                                window=W, kv_chunk=kv_chunk, flash=flash,
+                                plan=plan, heads=hs)
         if build_cache and cross:
             new_cache = {"k": k, "v": v,
                          "kpos": torch.zeros((kv_src.shape[1],),
@@ -572,6 +684,12 @@ def apply_attention(p, x, *, cfg: ArchConfig, positions=None,
             new_cache = _build_cache(k, v, positions, window=W,
                                      cache_len=cache_len, plan=plan)
 
+    # the rank's block of q heads; the reference's is its (kv, gq) cut,
+    # or every head where the cache is homed over "model" (the port sent
+    # the partials to their heads' ranks): "q heads cut by whole groups"
+    ws(out, plan, plan and plan.batch_axes, None, hs.kv or hs.gq, None,
+       shape=lambda: (whole_rows(plan, B), Sq, cfg.num_heads, hd),
+       site="models/attention.py:370")
     y = exit_region(out.reshape(B, Sq, H * hd)
                     @ p["wo"].to(x.dtype).reshape(H * hd, D), plan, split)
     return y, new_cache

@@ -42,7 +42,8 @@ from repro_torch.models.attention import (_rowwise_positions, apply_attention,
 from repro_torch.models.common import apply_mlp, init_mlp, rmsnorm
 from repro_torch.models.mamba2 import apply_mamba, decode_mamba, init_mamba
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.sharding.partition import fsdp_gather, homes_of
+from repro_torch.sharding.partition import (fsdp_gather, homes_of,
+                                            whole_rows, ws)
 from repro_torch.tree import tree_map
 
 
@@ -189,6 +190,7 @@ def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
     members = superblock_spec(cfg)
     train = torch.is_grad_enabled() and not build_cache
     remat = cfg.parallel.remat and train
+    S = positions.shape[-1] if positions is not None else x.shape[1]
 
     def superblock(sb, x):
         sb = fsdp_gather(sb, plan, cfg) if train and plan is not None else sb
@@ -211,6 +213,9 @@ def apply_stack(stack, x, *, cfg: ArchConfig, positions=None, img_embeds=None,
         else:
             x, sb_caches, aux = superblock(sb, x)
             caches.append(sb_caches)
+        ws(x, plan, plan and plan.batch_axes, plan and plan.seq_axis, None,
+           shape=lambda: (whole_rows(plan, x.shape[0]), S, cfg.d_model),
+           site="models/blocks.py:131")
         auxs.append(aux)
     return (x, (tree_stack(caches) if build_cache else None),
             torch.stack(auxs).sum())

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.sharding.partition import (enter_region, exit_region,
-                                            psum_stat, tp_of)
+                                            psum_stat, tp_of, whole_rows, ws)
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -109,7 +109,8 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff=None):
             "w_down": ninit(gen, (Fd, D), pdt(cfg), out_scale(cfg))}
 
 
-def apply_mlp(p, x, cfg: ArchConfig, plan=None, region: bool = True):
+def apply_mlp(p, x, cfg: ArchConfig, plan=None, region: bool = True,
+              d_ff=None):
     """The SwiGLU MLP.  Across the ranks of a "model" axis (`plan` on a
     `RankMesh`) ``w_gate``/``w_up`` hold this rank's F columns and
     ``w_down`` its F rows: the partial products, in `x`'s dtype as the
@@ -118,12 +119,18 @@ def apply_mlp(p, x, cfg: ArchConfig, plan=None, region: bool = True):
     partial products reduce-scattered back onto the rank's rows
     (`partition.enter_region`/`exit_region`).  ``region=False``: `x` is
     already the region's input and the partial products are returned
-    unsummed (a MoE's shared experts)."""
+    unsummed (a MoE's shared experts).  ``d_ff``: the hidden width
+    (default the config's), which `partition.ws` holds the rank's
+    columns to."""
     if region:
         x = enter_region(x, plan)
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     h = F.silu(g.float()).to(x.dtype) * u
+    ws(h, plan, plan and plan.batch_axes, None, plan and plan.tp,
+       shape=lambda: (whole_rows(plan, x.shape[0]), x.shape[1],
+                      d_ff or cfg.d_ff),
+       site="models/common.py:79")
     y = h @ p["w_down"].to(x.dtype)
     return exit_region(y, plan) if region else y
 

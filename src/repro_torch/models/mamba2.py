@@ -31,7 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (causal_conv1d, gated_rmsnorm, ninit,
                                        out_scale, pdt)
 from repro_torch.sharding.partition import (enter_region, exit_region,
-                                            tp_of)
+                                            tp_of, whole_rows, ws)
 
 
 def init_mamba(gen: torch.Generator, cfg: ArchConfig):
@@ -62,18 +62,20 @@ def _softplus(x):
 def rank_ssm_heads(cfg: ArchConfig, plan=None):
     """``(heads, first head)`` of this rank's SSD heads: all of them
     unsplit, else the rank's ``Hs / M`` of the model axis.  Where M does
-    not divide the heads the reference replicates them
-    (`repro/models/mamba2.py:71`) while its specs still cut ``wz``/``wx``/
-    ``wdt``/``conv_x``/``out_proj`` over "model"; no config reaches that
-    case at M <= 8, and it raises here."""
+    not divide the heads this raises `ValueError`, as the reference does:
+    its ``wdt`` spec ``(fsdp, "model")`` (`repro/sharding/partition.py:138`)
+    cuts the ``(D, Hs)`` leaf over "model", and jax refuses to place or
+    compile a leaf that does not divide evenly.  No config reaches it at
+    M <= 8 (mamba2-2.7b has 80 heads, jamba 128)."""
     Hs = cfg.ssm_nheads
     M, i = tp_of(plan)
     if M == 1:
         return Hs, 0
     if Hs % M:
-        raise NotImplementedError(
-            f"{cfg.name}: {Hs} SSD heads over a \"model\" axis of {M} ranks "
-            f"(the reference replicates heads that do not divide; ROADMAP.md)")
+        raise ValueError(
+            f"{cfg.name}: the (d_model, {Hs}) wdt leaf does not split "
+            f"evenly over a \"model\" axis of {M} ranks (its spec cuts the "
+            f"SSD heads over \"model\"; the reference refuses it too)")
     return Hs // M, i * (Hs // M)
 
 
@@ -131,6 +133,9 @@ def apply_mamba(p, x, cfg: ArchConfig, plan=None, state=None,
     Bh = _expand_groups(B_, cfg.ssm_nheads, heads)
     Ch = _expand_groups(C_, cfg.ssm_nheads, heads)
     xh = xin.reshape(Bb, S, Hs, P)
+    ws(xh, plan, plan and plan.batch_axes, None, plan and plan.tp,
+       None, shape=lambda: (whole_rows(plan, Bb), S, cfg.ssm_nheads, P),
+       site="models/mamba2.py:78")
     A = -torch.exp(p["A_log"][h0:h0 + Hs])                      # (Hs,)
 
     Q = min(chunk, S)

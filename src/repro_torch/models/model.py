@@ -36,7 +36,7 @@ from repro_torch.models import blocks
 from repro_torch.models.common import dt, ninit, pdt, rmsnorm
 from repro_torch.sharding.partition import (cache_block, enter_region,
                                             fsdp_gather, psum_model,
-                                            seq_split, tp_of)
+                                            seq_split, tp_of, whole_rows, ws)
 
 
 class LM(nn.Module):
@@ -80,6 +80,17 @@ class LM(nn.Module):
         """The residual's input, cut to the rank's rows under
         `partition.seq_split` (never in decode: its plans have no
         ``seq_axis``)."""
+        x = self._lookup(params, batch, plan, train)
+        B, S = (batch["tokens"] if self.cfg.embed_input
+                else batch["embeds"]).shape[:2]
+        return ws(x, plan, plan and plan.batch_axes, plan and plan.seq_axis,
+                  None,
+                  shape=lambda: (whole_rows(plan, B), S, self.cfg.d_model),
+                  site="models/model.py:48")
+
+    def _lookup(self, params, batch, plan, train: bool):
+        """`_embed`'s tensor: the frame embeddings or the token lookup
+        (over "model" the rank's vocabulary rows, summed or scattered)."""
         Ms, i_s = seq_split(plan)
         if not self.cfg.embed_input:
             x = batch["embeds"].to(dt(self.cfg))
@@ -111,6 +122,17 @@ class LM(nn.Module):
             head = fsdp_gather(head, plan, self.cfg)
         return x @ head["head_w"].to(x.dtype)
 
+    def _logits(self, logits, plan):
+        """`partition.ws` at the reference's logits site: the home's rows
+        and the rank's vocabulary block.  `prefill`'s head takes the last
+        position only, where the reference's takes every position and
+        keeps the last (the sequence dim is whole in both)."""
+        return ws(logits, plan, plan and plan.batch_axes, None,
+                  plan and plan.tp,
+                  shape=lambda: (whole_rows(plan, logits.shape[0]),
+                                 logits.shape[1], self.cfg.vocab_padded),
+                  site="models/model.py:55")
+
     def _stack(self, params, batch, build_cache: bool, cache_len, plan=None,
                train: bool = False):
         x = self._embed(params, batch, plan, train)
@@ -137,7 +159,8 @@ class LM(nn.Module):
         train = torch.is_grad_enabled() and not build_cache
         x, caches, aux = self._stack(params, batch, build_cache, cache_len,
                                      plan, train)
-        return self._head(params, x, plan, train), caches, aux
+        return self._logits(self._head(params, x, plan, train), plan), \
+            caches, aux
 
     def prefill(self, params, batch, max_len=None, plan=None):
         """(last-position logits (B, Vp), caches sized for `max_len`).  The
@@ -146,7 +169,7 @@ class LM(nn.Module):
         x, caches, _ = self._stack(params, batch, True, max_len, plan)
         # under `seq_split` the last position is the last rank's last row
         last = enter_region(x[:, -1:], plan)[:, -1:]
-        return self._head(params, last)[:, 0], caches
+        return self._logits(self._head(params, last), plan)[:, 0], caches
 
     def decode_step(self, params, caches, batch, pos, plan=None,
                     cache_slots=None):
@@ -160,7 +183,7 @@ class LM(nn.Module):
         x, new_caches = blocks.decode_stack(params["stack"], caches, x, pos,
                                             cfg=self.cfg, plan=plan,
                                             cache_slots=cache_slots)
-        return self._head(params, x)[:, 0], new_caches
+        return self._logits(self._head(params, x), plan)[:, 0], new_caches
 
     def decode_pages(self, params, caches, batch, positions, write_mask,
                      plan=None, cache_slots=None):
@@ -176,7 +199,7 @@ class LM(nn.Module):
                                             positions, cfg=self.cfg,
                                             write_mask=write_mask, plan=plan,
                                             cache_slots=cache_slots)
-        return self._head(params, x), new_caches
+        return self._logits(self._head(params, x), plan), new_caches
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int, img_len: int = 0,

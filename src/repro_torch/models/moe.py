@@ -20,7 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (apply_mlp, init_mlp, ninit, out_scale,
                                        pdt)
 from repro_torch.sharding.partition import (enter_region, exit_region,
-                                            homes_of, tp_of)
+                                            homes_of, tp_of, whole_rows, ws)
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig):
@@ -79,6 +79,10 @@ def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048,
     x = enter_region(x, plan)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    b, e = plan and plan.batch_axes, plan and plan.expert_axis
+    f = plan and plan.tp if e is None else None
+    ws(x, plan, b, None, None, shape=lambda: (whole_rows(plan, B), S, D),
+       site="models/moe.py:57")
     n, home = homes_of(plan)
     Th = B * S                                   # this home's tokens
     T = Th * n
@@ -91,6 +95,16 @@ def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048,
     Gl = (t0 + Th - 1) // gs + 1 - g0
 
     xf = x.reshape(Th, D)
+    # the home's tokens in the reference's (groups, group size) layout:
+    # its whole groups, or where one group spans every home (decode) its
+    # rows of that group, where the reference cuts the group dim over the
+    # batch axes, padded ("a group spans the homes"); a group over some
+    # of the homes only has no spec of the batch axes, and no check
+    groups = (((Th // gs, gs), (b, None)) if Th % gs == 0 else
+              ((1, Th), (None, b)) if Gn == 1 else None)
+    if groups is not None:
+        ws(lambda: xf.view(*groups[0], D), plan, *groups[1], None,
+           shape=(Gn, gs, D), site="models/moe.py:59")
     logits = xf.float() @ p["router"].float()                   # (Th, E)
     gates = torch.softmax(logits, dim=-1)
     topv, topi = top_k(gates, K)
@@ -130,24 +144,39 @@ def apply_moe(p, x, cfg: ArchConfig, plan=None, group_size: int = 2048,
     El = E // M if (M > 1 and plan.expert_axis is not None) else E
     ex = slice(rank * El, (rank + 1) * El) if El < E else slice(None)
     combine = combine[:, ex]
+    if groups is not None:
+        ws(lambda: combine.view(*groups[0], El, C), plan, *groups[1], e,
+           None,
+           shape=(Gn, gs, E, C), site="models/moe.py:76")
     dispatch = (combine > 0).to(x.dtype)
 
     # ---- send tokens to their experts, run them, bring them back ----
     wg, wu, wd = (p[k].to(x.dtype) for k in ("we_gate", "we_up", "we_down"))
+    # one group at a time (the home's tokens of it): a group of the
+    # reference's (Gn, E, C, *), whose group dim it cuts over the batch
+    # axes, is whole here ("one group at a time")
+    one = ((1, E, C, D), (1, E, C, cfg.d_ff))
     parts = []
-    for a, b in zip(starts, starts[1:] + [Th]):
-        xe = torch.einsum("sec,sd->ecd", dispatch[a:b], xf[a:b])
+    for lo, hi in zip(starts, starts[1:] + [Th]):
+        xe = torch.einsum("sec,sd->ecd", dispatch[lo:hi], xf[lo:hi])
+        ws(lambda: xe[None], plan, None, e, None, None, shape=one[0],
+           site="models/moe.py:80")
         g = torch.einsum("ecd,edf->ecf", xe, wg)
         u = torch.einsum("ecd,edf->ecf", xe, wu)
         h = F.silu(g.float()).to(x.dtype) * u
+        ws(lambda: h[None], plan, None, e, None, f, shape=one[1],
+           site="models/moe.py:84")
         ye = torch.einsum("ecf,efd->ecd", h, wd)
-        parts.append(torch.einsum("sec,ecd->sd", combine[a:b].to(x.dtype),
-                                  ye))
+        ws(lambda: ye[None], plan, None, e, None, None, shape=one[0],
+           site="models/moe.py:86")
+        parts.append(torch.einsum("sec,ecd->sd",
+                                  combine[lo:hi].to(x.dtype), ye))
     y = exit_region(torch.cat(parts).reshape(B, S, D), plan).to(x.dtype)
 
     if "shared" in p:
-        y = y + exit_region(apply_mlp(p["shared"], x, cfg, plan,
-                                      region=False), plan)
+        y = y + exit_region(apply_mlp(
+            p["shared"], x, cfg, plan, region=False,
+            d_ff=cfg.num_shared_experts * cfg.d_ff), plan)
 
     # ---- switch-style load-balance aux ----
     if n > 1 and train:

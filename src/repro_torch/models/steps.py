@@ -54,7 +54,8 @@ from repro_torch.optim.compression import error_feedback_update
 from repro_torch.sharding.partition import (NULL_PLAN, MeshPlan,
                                             grad_partial_over_model, homes_of,
                                             micro_home, micro_rows, owns,
-                                            param_specs, tp_of, zero1_dim)
+                                            param_specs, tp_of, ws,
+                                            zero1_dim)
 from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 AUX_WEIGHT = 0.01
@@ -159,10 +160,17 @@ def _micro_split(batch, m: int, plan: Optional[MeshPlan] = None):
     n, h = homes_of(plan)
     if m == 1:
         return [batch]
+
+    def site(y, GB):
+        return ws(y, plan, None, plan and plan.batch_axes,
+                  *(None,) * (y.dim() - 2), shape=(m, GB // m, *y.shape[2:]),
+                  site="models/steps.py:64")
+
     if n == 1:
         def split(x):
             assert x.shape[0] % m == 0, (x.shape, m)
-            return x.reshape(m, x.shape[0] // m, *x.shape[1:])
+            return site(x.reshape(m, x.shape[0] // m, *x.shape[1:]),
+                        x.shape[0])
         parts = tree_map(split, batch)
         return [tree_map(lambda x: x[i], parts) for i in range(m)]
     from repro_torch.core import collectives
@@ -187,7 +195,7 @@ def _micro_split(batch, m: int, plan: Optional[MeshPlan] = None):
         got = collectives.all_to_all_v(flat, plan.mesh, plan.batch_axes,
                                        [int(c) * row for c in sends],
                                        [c * row for c in recvs])
-        return got.view(m, piece, *x.shape[1:])
+        return site(got.view(m, piece, *x.shape[1:]), GB)
 
     parts = {k: move(v) for k, v in sorted(batch.items())}
     return [{k: parts[k][i] for k in batch} for i in range(m)]

@@ -375,10 +375,12 @@ def _axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def block_of(shape, spec, mesh: RankMesh):
+def block_of(shape, spec, mesh: RankMesh, padded: bool = False):
     """The slices of `mesh`'s rank's block of a `shape` tensor under
     `spec`: dim i cut into ``prod(sizes of its axes)`` equal blocks, the
-    rank's the one at its linear index over them."""
+    rank's the one at its linear index over them.  A dim the blocks do
+    not divide raises, or with `padded` is cut as GSPMD pads it: blocks
+    of ``ceil(n / k)``, the last ones short or empty."""
     out = []
     for n, entry in zip(shape, spec):
         axes = tuple(a for a in _axes(entry) if mesh.shape.get(a, 1) > 1)
@@ -386,12 +388,58 @@ def block_of(shape, spec, mesh: RankMesh):
             out.append(slice(None))
             continue
         k = math.prod(mesh.shape[a] for a in axes)
-        if n % k:
+        i = mesh.index(axes)
+        if n % k == 0:
+            out.append(slice(i * n // k, (i + 1) * n // k))
+        elif padded:
+            blk = -(-n // k)
+            out.append(slice(min(i * blk, n), min((i + 1) * blk, n)))
+        else:
             raise ValueError(f"dim of {n} does not split over {axes} "
                              f"({k} blocks)")
-        i = mesh.index(axes)
-        out.append(slice(i * n // k, (i + 1) * n // k))
     return tuple(out)
+
+
+def whole_rows(plan: Optional[MeshPlan], rows: int) -> int:
+    """The batch dim's logical size at a constraint site: this rank's
+    `rows` times the homes over the batch axes.  The model sees only its
+    home's rows (the server or the train step homed them,
+    `Locale.pin_tree`, `models.steps._micro_split`), so `ws` holds the
+    other dims of a site to its spec."""
+    return rows * homes_of(plan)[0]
+
+
+def ws(x, plan: Optional[MeshPlan], *spec, shape, site: str):
+    """The counterpart of the reference's ``ws`` (its
+    ``with_sharding_constraint``) at the reference's constraint `site`
+    (``"models/attention.py:152"``): `x` itself, after checking that its
+    shape is that of this rank's block under `spec` of the logical
+    `shape` (`block_of`, padded as GSPMD pads a dim the axes do not
+    divide).  It checks the block's extents only, not which block of the
+    logical tensor the rank holds.  It moves and counts nothing -- the
+    port's moves are its explicit, counted collectives -- and raises
+    `ValueError` where the extents differ.  Without a plan or a rank mesh
+    (one process, or a `HomeMesh`, whose model runs whole) it returns `x`
+    unchecked, as the reference's does without a mesh.
+
+    `x` (the site's view of a tensor) and `shape` may be given as
+    functions of no argument, called only where the check runs: a call
+    without a rank mesh then builds no view and computes no shape."""
+    if plan is None or not isinstance(plan.mesh, RankMesh):
+        return x
+    t = x() if callable(x) else x
+    shape = tuple(shape() if callable(shape) else shape)
+    spec = P(*spec)
+    if len(spec) != len(shape) or t.dim() != len(shape):
+        raise ValueError(f"ws at {site}: a spec of {len(spec)} dims for a "
+                         f"{t.dim()}-dim tensor of logical shape {shape}")
+    want = tuple(len(range(*s.indices(n))) for s, n in zip(
+        block_of(shape, spec, plan.mesh, padded=True), shape))
+    if tuple(t.shape) != want:
+        raise ValueError(f"ws at {site}: rank {plan.mesh.rank} holds "
+                         f"{tuple(t.shape)}, but its block of {shape} "
+                         f"under {spec} is {want}")
+    return x
 
 
 def shard_for_rank(tree, specs, mesh: RankMesh):
